@@ -8,28 +8,40 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. Device: a CUDA device is required; prints the card's name and power
    limit (nvidia-smi), the torch and CUDA versions.
 2. Build: compiles the CUDA kernels from ``smolscale_tpu_torch/csrc`` into
-   ``build/kernels/`` and prints the build time and ptxas's report.
-3. Kernel against plain version: for each plan of ``CHECK_PLANS`` the CUDA
-   kernel's bytes must equal its plain PyTorch version
-   (``ops.box.box_scale_ref``) on the card for a batch of 2.  The plain
-   version is held against the numpy spec (``backends/numpy_ref`` of the
-   JAX package) on the CPU by ``tests/test_torch_box.py``, for these plans
-   among others; this script imports nothing of the JAX package.
-4. Main path: ``smolscale_tpu_torch.scale`` on suite rows 0, 3e and 8
-   (batch 8 of 4096^2 RGBA, 512 MiB of input) with the launch counter set
-   to 0 just before and read just after; then the bytes must equal the plain
-   version for all 8 images.
+   ``build/kernels/`` (one nvcc per source, all at once) and prints the
+   build time and ptxas's report.
+3. Kernels against their plain versions, on the card for a batch of 2: the
+   box kernel on each plan of ``CHECK_PLANS`` (plain version
+   ``ops.box.box_scale_ref``), the general kernel on each plan of
+   ``BILINEAR_CHECK_PLANS`` and each row range of ``BILINEAR_CHECK_ROWS``
+   (``ops.bilinear.bilinear_scale_ref``), and both on an input that is not
+   4-byte aligned.  Bytes must be equal.  The plain versions are held
+   against the numpy spec (``backends/numpy_ref`` of the JAX package) and
+   the Pallas kernels on the CPU by ``tests/test_torch_box.py`` and
+   ``tests/test_torch_bilinear.py``; this script imports nothing of the
+   JAX package.
+4. Main paths at the suite rows' full published sizes
+   (``benchmarks/suite.py``), each with its kernel's launch counter set to
+   0 just before and read just after: ``smolscale_tpu_torch.scale`` on rows
+   0, 3e and 8 (box kernel, batch 8 of 4096^2 RGBA); then on rows 1, 1b, 2,
+   3a, 3b, 3c and 3d, and ``scale_streamed`` on row 4 in 16 chunks
+   (general kernel).  Every image's bytes must equal the plain version.
 5. Times: kernel and plain version by CUDA events, in turns plain, kernel,
-   kernel, plain; Mpix/s and input GB/s.  The same for RGB24 4096^2 -> 256^2
-   (the kernel's 24bpp form, on no suite row), checked against the plain
-   version first.
-6. Device busy share over 10 back-to-back ``scale`` calls per timed row,
-   from a ``torch.profiler`` trace (written to ``build/traces/``); then the
-   same calls unprofiled: host enqueue time per call, and the share of an
-   event-pair window that the kernel's phase-5 time fills.
+   kernel, plain; Mpix/s and GB/s of input (and of output) with the share
+   of HBM peak.  Also the rows of ``EXTRA_ROWS``, on no suite row and
+   checked against the plain version first: RGB24 4096^2 -> 256^2 (the box
+   kernel's 24bpp form), COPY x COPY 1024^2 (the general kernel's cost per
+   output pixel without filtering, beside row 2) and row 0 on the general
+   kernel (beside the box kernel).
+6. Device busy share over 10 back-to-back ``scale`` calls per row of
+   ``BUSY_ROWS``, from a ``torch.profiler`` trace (written to
+   ``build/traces/``); then the same calls unprofiled: host enqueue time
+   per call, and the share of an event-pair window that the kernel's
+   phase-5 time fills.
 
-The line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Nothing here imports JAX.
+All inputs are views of one random 512 MiB tensor made from a seed.  The
+line before the last is a JSON object describing each kernel; the last line
+is ``{"ok": true, "device": {...}}``.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -66,14 +78,87 @@ CHECK_PLANS = [
     (99, 200, 9, 20, 5, 3),        # odd sizes, unassociated in
 ]
 
-# suite rows on the kernel's path (benchmarks/suite.py:283-332), batch 8
-MAIN_ROWS = [
-    ("row 0", (4096, 4096, 256, 256, 0, 0)),
-    ("row 3e", (4096, 4096, 256, 256, 0, 4)),
-    ("row 8", (4096, 4096, 4096, 256, 0, 0)),
+# the plan lists of tests/test_pallas_bilinear.py (:21-44, :65-71, :85-91,
+# :189-196) and its 24bpp plans (:104-111, :138-148) that are not integer
+# box; tests/test_torch_bilinear.py holds the plain version against numpy_ref
+# and the Pallas kernel on each
+BILINEAR_CHECK_PLANS = [
+    (512, 512, 1024, 1024, 5, 0),  # 0h upscale, unassociated in
+    (300, 200, 290, 190, 0, 0),    # 0h mild downscale, odd sizes
+    (512, 256, 96, 56, 0, 1),      # 2h ladder + reorder
+    (700, 500, 123, 77, 2, 3),     # 2h, tails on both axes
+    (64, 64, 16, 16, 0, 0),        # 1h
+    (1024, 512, 128, 64, 0, 0),    # uniform 2h ladder
+    (1024, 512, 128, 64, 4, 0),    # same, unassociated in
+    (1000, 512, 100, 64, 0, 0),    # box H x ladder V
+    (640, 300, 64, 100, 0, 0),     # box H x bilinear V
+    (1000, 500, 100, 500, 0, 0),   # box H x COPY V
+    (512, 1000, 512, 100, 0, 1),   # COPY H x box V
+    (555, 300, 55, 300, 2, 0),     # non-integer box H x COPY V
+    (700, 1, 123, 9, 0, 0),        # ladder H x ONE V
+    (1, 700, 9, 123, 4, 0),        # ONE H x ladder V
+    (512, 700, 512, 123, 0, 3),    # COPY H x ladder V
+    (300, 260, 300, 260, 5, 2),    # COPY x COPY
+    (1, 1, 64, 32, 0, 0),          # ONE x ONE
+    (512, 256, 96, 56, 0, 4),      # premul -> unassociated out
+    (512, 512, 1024, 768, 1, 6),   # 0h upscale, unassociated out
+    (1100, 300, 80, 100, 3, 5),    # box H x bilinear V, unassociated out
+    (1100, 300, 80, 100, 0, 0),    # box H 13.75:1 x bilinear V
+    (300, 1100, 100, 80, 4, 1),    # bilinear H x box V
+    (1100, 1100, 80, 80, 0, 0),    # non-integer box x box
+    (1100, 990, 80, 110, 4, 1),    # box x box, mixed ratios
+    (700, 700, 50, 50, 0, 4),      # box x box, unassociated out
+    (512, 256, 96, 56, 8, 8),      # RGB24 -> RGB24
+    (512, 256, 96, 56, 8, 0),      # RGB24 -> RGBA
+    (300, 200, 290, 190, 0, 8),    # RGBA -> RGB24
+    (512, 256, 96, 56, 9, 9),      # BGR24 -> BGR24
+    (640, 300, 80, 110, 8, 8),     # RGB24 box x box
+    (512, 300, 512, 60, 8, 9),     # RGB24 COPY H x box V
+    (512, 256, 96, 56, 8, 4),      # RGB24 -> unassociated RGBA
+    (333, 200, 330, 190, 8, 8),    # RGB24 0h, ragged width
 ]
-MAIN_BATCH = 8
-TIMED_24BPP = ("rgb24", (4096, 4096, 256, 256, 8, 8))
+# (plan, first output row, rows) through the row form
+BILINEAR_CHECK_ROWS = [
+    ((1024, 512, 128, 64, 0, 0), 16, 8),
+    ((1024, 512, 128, 64, 0, 0), 61, 3),
+    ((512, 500, 96, 50, 0, 0), 13, 17),
+    ((512, 256, 96, 56, 0, 4), 10, 30),
+    ((512, 512, 1024, 1024, 5, 0), 100, 200),
+    ((512, 700, 512, 123, 0, 3), 40, 50),
+]
+
+# suite rows (benchmarks/suite.py:277-346) at their published sizes:
+# (name, plan key, batch); box kernel
+MAIN_ROWS = [
+    ("row 0", (4096, 4096, 256, 256, 0, 0), 8),
+    ("row 3e", (4096, 4096, 256, 256, 0, 4), 8),
+    ("row 8", (4096, 4096, 4096, 256, 0, 0), 8),
+]
+# general kernel
+BILINEAR_ROWS = [
+    ("row 1", (2048, 2048, 256, 256, 0, 0), 1),
+    ("row 1b", (2048, 2048, 256, 256, 0, 0), 32),
+    ("row 2", (512, 512, 1024, 1024, 5, 0), 8),
+    ("row 3a", (4096, 4096, 1371, 1371, 8, 8), 4),
+    ("row 3b", (4096, 4096, 3000, 3000, 8, 8), 2),
+    ("row 3c", (4096, 4096, 700, 700, 0, 0), 4),
+    ("row 3d", (4096, 4096, 300, 300, 0, 0), 8),
+]
+# row 4 (bench_row_stream, suite.py:353): scale_streamed in 16 chunks
+STREAM_ROW = ("row 4", (8192, 8192, 1024, 1024, 0, 0), 1)
+STREAM_CHUNKS = 16
+# on no suite row, checked and timed beside them: (name, plan key, batch,
+# kernel)
+EXTRA_ROWS = [
+    # the box kernel's 24bpp form (TPU kernel #2, pallas_box.py:455)
+    ("rgb24", (4096, 4096, 256, 256, 8, 8), 8, "box"),
+    # COPY x COPY at row 2's output size: the general kernel's cost per
+    # output pixel without filtering
+    ("copy", (1024, 1024, 1024, 1024, 0, 0), 8, "bilinear"),
+    # the headline on the general kernel, beside the box kernel's row 0
+    ("row 0 on bilinear", (4096, 4096, 256, 256, 0, 0), 8, "bilinear"),
+]
+BUSY_ROWS = ["row 0", "row 3e", "row 8", "rgb24", "row 1b", "row 3d"]
 HBM_PEAK_GBS = 3350.0  # H100 SXM data sheet, at the 700 W power limit
 
 
@@ -89,6 +174,16 @@ def gpu_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def max_abs_err(a, b) -> int:
+    return int((a.short() - b.short()).abs().max())
+
+
+def view_input(x, plan, batch):
+    """(batch, h_in, w_in, nb_in) uint8 over the first bytes of ``x``."""
+    shape = (batch, plan.height_in, plan.width_in, plan.meta_in.n_bytes)
+    return x.view(-1)[: int(np.prod(shape))].view(shape)
+
+
 def main() -> int:
     import torch
 
@@ -97,9 +192,10 @@ def main() -> int:
         return 1
 
     import smolscale_tpu_torch as stt
-    from smolscale_tpu_torch.ops import _build, box
+    from smolscale_tpu_torch.ops import _build, bilinear, box
     from smolscale_tpu_torch.utils.timing import cuda_time_ms, device_busy
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = gpu_line()
@@ -117,110 +213,147 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line.lower():
             log(f"[build] {line.strip()}")
 
-    # 3. kernel against plain version
-    max_err = 0
+    # 3. kernels against their plain versions
+    err = {"box": 0, "bilinear": 0}
+
+    def check(kind, label, got, plain):
+        torch.cuda.synchronize()
+        e = max_abs_err(got, plain)
+        err[kind] = max(err[kind], e)
+        if not torch.equal(got, plain):
+            raise AssertionError(f"{label}: {kind} kernel differs from plain version "
+                                 f"(max abs err {e})")
+        log(f"[check] {kind} {label}: kernel == plain, shape {tuple(got.shape)}")
+
+    def random_images(key, seed):
+        nb = stt.get_meta(key[4]).n_bytes
+        rng = np.random.default_rng(seed)
+        return torch.from_numpy(rng.integers(0, 256, (2, key[1], key[0], nb),
+                                             dtype=np.uint8)).to(dev)
+
     for i, key in enumerate(CHECK_PLANS):
         plan = stt.ScalePlan(*key, False)
         if not box.applicable(plan):
             raise AssertionError(f"{key}: outside the box class")
-        rng = np.random.default_rng(1000 + i)
-        imgs = rng.integers(0, 256, (2, key[1], key[0], plan.meta_in.n_bytes), dtype=np.uint8)
-        x = torch.from_numpy(imgs).to(dev)
-        got = box.scale_fn(plan, x)
-        plain = box.box_scale_ref(plan, x)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int16) - plain.to(torch.int16)).abs().max())
-        max_err = max(max_err, err)
-        if not torch.equal(got, plain):
-            raise AssertionError(f"{key}: kernel differs from plain version (max abs err {err})")
-        log(f"[check] {key}: kernel == plain, shape {tuple(got.shape)}")
-    # a 4-byte input that is not 4-byte aligned takes the byte-load path
-    plan = stt.ScalePlan(*CHECK_PLANS[0], False)
-    imgs = torch.from_numpy(np.random.default_rng(7).integers(
-        0, 256, (2, 128, 256, 4), dtype=np.uint8)).to(dev)
-    flat = torch.empty(imgs.numel() + 1, dtype=torch.uint8, device=dev)
-    shifted = flat[1:].view(imgs.shape)
-    shifted.copy_(imgs)
-    if not torch.equal(box.scale_fn(plan, shifted), box.box_scale_ref(plan, imgs)):
-        raise AssertionError("unaligned input: kernel differs from plain version")
-    log("[check] unaligned 4-byte input: kernel == plain")
+        x = random_images(key, 1000 + i)
+        check("box", key, box.scale_fn(plan, x), box.box_scale_ref(plan, x))
+    for i, key in enumerate(BILINEAR_CHECK_PLANS):
+        plan = stt.ScalePlan(*key, False)
+        if not bilinear.applicable(plan):
+            raise AssertionError(f"{key}: outside the bilinear class")
+        x = random_images(key, 2000 + i)
+        check("bilinear", key, bilinear.scale_fn(plan, x), bilinear.bilinear_scale_ref(plan, x))
+    for i, (key, first, n) in enumerate(BILINEAR_CHECK_ROWS):
+        plan = stt.ScalePlan(*key, False)
+        x = random_images(key, 3000 + i)
+        check("bilinear", f"{key} rows [{first}, {first + n})",
+              bilinear.scale_rows_fn(plan, x, first, n),
+              bilinear.bilinear_scale_ref(plan, x, first, n))
+    # a 4-byte input that is not 4-byte aligned takes the byte-load paths
+    for kind, mod, plain, key in (
+        ("box", box, box.box_scale_ref, CHECK_PLANS[0]),
+        ("bilinear", bilinear, bilinear.bilinear_scale_ref, BILINEAR_CHECK_PLANS[3]),
+    ):
+        plan = stt.ScalePlan(*key, False)
+        imgs = random_images(key, 7)
+        flat = torch.empty(imgs.numel() + 1, dtype=torch.uint8, device=dev)
+        shifted = flat[1:].view(imgs.shape)
+        shifted.copy_(imgs)
+        check(kind, f"{key} unaligned", mod.scale_fn(plan, shifted), plain(plan, imgs))
 
-    # 4. main path at full size
+    # 4. main paths at full size
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
-    host = rng.integers(0, 256, (MAIN_BATCH, 4096, 4096, 4), dtype=np.uint8)
-    x = torch.from_numpy(host).to(dev)
+    x = torch.from_numpy(rng.integers(0, 256, (8, 4096, 4096, 4), dtype=np.uint8)).to(dev)
     torch.cuda.synchronize()
     log(f"[main] input {tuple(x.shape)} uint8 ({x.numel() / 2**20:.0f} MiB) "
         f"made and uploaded in {time.perf_counter() - t0:.1f} s")
-    plans = {name: stt.ScalePlan(*key, False) for name, key in MAIN_ROWS}
+    all_rows = MAIN_ROWS + BILINEAR_ROWS + [STREAM_ROW] + [r[:3] for r in EXTRA_ROWS]
+    plans = {name: stt.ScalePlan(*key, False) for name, key, _ in all_rows}
+    inputs = {name: view_input(x, plans[name], batch) for name, _, batch in all_rows}
+    kernels = {"box": (box.scale_fn, box.box_scale_ref),
+               "bilinear": (bilinear.scale_fn, bilinear.bilinear_scale_ref)}
+
+    def check_rows(kind, rows, outs, plain_fn):
+        for name, _, batch in rows:
+            plan, out = plans[name], outs[name]
+            expect = (batch, plan.height_out, plan.width_out, plan.meta_out.n_bytes)
+            if tuple(out.shape) != expect or out.dtype != torch.uint8 or out.device != dev:
+                raise AssertionError(f"{name}: got {tuple(out.shape)} {out.dtype} on {out.device}")
+            check(kind, f"{name} {plan.key} ({batch} images)", out, plain_fn(plan, inputs[name]))
 
     box.launches = 0
-    outs = {name: stt.scale(plan, x) for name, plan in plans.items()}
+    outs = {name: stt.scale(plans[name], inputs[name]) for name, _, _ in MAIN_ROWS}
     torch.cuda.synchronize()
-    main_launches = box.launches
-    log(f"[main] box kernel launches in the main path: {main_launches}")
-    if main_launches < len(MAIN_ROWS):
+    box_launches = box.launches
+    log(f"[main] box kernel launches in the box rows' main path: {box_launches}")
+    if box_launches < len(MAIN_ROWS):
         raise AssertionError("the main path did not launch the box kernel for every row")
+    check_rows("box", MAIN_ROWS, outs, box.box_scale_ref)
 
-    for name, _ in MAIN_ROWS:
-        plan, out = plans[name], outs[name]
-        expect = (MAIN_BATCH, plan.height_out, plan.width_out, plan.meta_out.n_bytes)
-        if tuple(out.shape) != expect or out.dtype != torch.uint8 or out.device != dev:
-            raise AssertionError(f"{name}: got {tuple(out.shape)} {out.dtype} on {out.device}")
-        plain = box.box_scale_ref(plan, x)
-        max_err = max(max_err, int((out.to(torch.int16) - plain.to(torch.int16)).abs().max()))
-        if not torch.equal(out, plain):
-            raise AssertionError(f"{name}: output differs from the plain version")
-        del plain
-        log(f"[main] {name} {plan.key}: {tuple(out.shape)} == plain (8 images)")
+    stream_name = STREAM_ROW[0]
+    bilinear.launches = 0
+    outs = {name: stt.scale(plans[name], inputs[name]) for name, _, _ in BILINEAR_ROWS}
+    chunks = list(stt.scale_streamed(plans[stream_name], inputs[stream_name],
+                                     n_chunks=STREAM_CHUNKS))
+    torch.cuda.synchronize()
+    bilinear_launches = bilinear.launches
+    log(f"[main] bilinear kernel launches in the general rows' main path: "
+        f"{bilinear_launches} ({len(BILINEAR_ROWS)} rows + {len(chunks)} chunks of "
+        f"{stream_name})")
+    if bilinear_launches != len(BILINEAR_ROWS) + STREAM_CHUNKS or len(chunks) != STREAM_CHUNKS:
+        raise AssertionError("the main path did not launch the bilinear kernel once per "
+                             "row and once per chunk")
+    firsts = [f for f, _ in chunks]
+    step = -(-plans[stream_name].height_out // STREAM_CHUNKS)
+    if firsts != list(range(0, plans[stream_name].height_out, step)):
+        raise AssertionError(f"{stream_name}: chunks start at {firsts}")
+    outs[stream_name] = torch.cat([chunk for _, chunk in chunks], dim=1)
+    del chunks
+    check_rows("bilinear", BILINEAR_ROWS + [STREAM_ROW], outs, bilinear.bilinear_scale_ref)
     del outs
 
-    # the 24bpp form of the kernel (TPU kernel #2, pallas_box.py:455) at the
-    # same size: no suite row runs it, so it is checked and timed beside
-    name, key = TIMED_24BPP
-    plans[name] = stt.ScalePlan(*key, False)
-    x24 = x[..., :3].contiguous()
-    got, plain = box.scale_fn(plans[name], x24), box.box_scale_ref(plans[name], x24)
-    max_err = max(max_err, int((got.to(torch.int16) - plain.to(torch.int16)).abs().max()))
-    if not torch.equal(got, plain):
-        raise AssertionError(f"{name}: kernel differs from the plain version")
-    del got, plain
-    log(f"[check] {name} {key}: kernel == plain (8 images)")
+    for name, _, batch, kind in EXTRA_ROWS:
+        kernel_fn, plain_fn = kernels[kind]
+        check(kind, f"{name} {plans[name].key} ({batch} images)",
+              kernel_fn(plans[name], inputs[name]), plain_fn(plans[name], inputs[name]))
 
     # 5. times (turns: plain, kernel, kernel, plain)
+    def stream_kernel(plan, xin):
+        step = -(-plan.height_out // STREAM_CHUNKS)
+        for first in range(0, plan.height_out, step):
+            bilinear.scale_rows_fn(plan, xin, first, min(step, plan.height_out - first))
+
+    timed = [(row, *kernels["box"]) for row in MAIN_ROWS]
+    timed += [(row, *kernels["bilinear"]) for row in BILINEAR_ROWS]
+    timed += [(STREAM_ROW, stream_kernel, bilinear.bilinear_scale_ref)]
+    timed += [(row[:3], *kernels[row[3]]) for row in EXTRA_ROWS]
     times = {}
-    for name, _ in MAIN_ROWS + [TIMED_24BPP]:
-        plan = plans[name]
-        xin = x24 if plan.meta_in.n_bytes == 3 else x
-
-        def kernel():
-            box.scale_fn(plan, xin)
-
-        def plain():
-            box.box_scale_ref(plan, xin)
-
-        p1 = cuda_time_ms(plain, warmup=1, iters=5)
-        k1 = cuda_time_ms(kernel)
-        k2 = cuda_time_ms(kernel)
-        p2 = cuda_time_ms(plain, warmup=1, iters=5)
+    for (name, _, batch), kernel_fn, plain_fn in timed:
+        plan, xin = plans[name], inputs[name]
+        p1 = cuda_time_ms(lambda: plain_fn(plan, xin), warmup=1, iters=5)
+        k1 = cuda_time_ms(lambda: kernel_fn(plan, xin))
+        k2 = cuda_time_ms(lambda: kernel_fn(plan, xin))
+        p2 = cuda_time_ms(lambda: plain_fn(plan, xin), warmup=1, iters=5)
         k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
         times[name] = (k_ms, p_ms)
-        pix = MAIN_BATCH * 4096 * 4096
+        pix = batch * plan.height_in * plan.width_in
         in_bytes = pix * plan.meta_in.n_bytes
+        out_bytes = batch * plan.height_out * plan.width_out * plan.meta_out.n_bytes
         for label, ms, turns in (("kernel", k_ms, (k1, k2)), ("plain", p_ms, (p1, p2))):
-            gbs = in_bytes / 1e9 / (ms / 1e3)
+            sec = ms / 1e3
+            in_gbs, out_gbs = in_bytes / 1e9 / sec, out_bytes / 1e9 / sec
             log(f"[time] {name} {label}: {ms:.4f} ms (turns {turns[0]:.4f}, "
-                f"{turns[1]:.4f}), {pix / 1e6 / (ms / 1e3):.1f} Mpix/s, "
-                f"{gbs:.1f} GB/s of input ({100 * gbs / HBM_PEAK_GBS:.1f}% of "
-                f"{HBM_PEAK_GBS:.0f} GB/s), on {card}")
+                f"{turns[1]:.4f}), {pix / 1e6 / sec:.1f} Mpix/s, {in_gbs:.1f} GB/s of "
+                f"input ({100 * in_gbs / HBM_PEAK_GBS:.1f}% of {HBM_PEAK_GBS:.0f} GB/s), "
+                f"{out_gbs:.1f} GB/s of output (in + out "
+                f"{100 * (in_gbs + out_gbs) / HBM_PEAK_GBS:.1f}%), on {card}")
 
     # 6. device busy share over back-to-back calls of the public entry point
     trace_dir = Path(__file__).resolve().parent / "build" / "traces"
     trace_dir.mkdir(parents=True, exist_ok=True)
-    for name, _ in MAIN_ROWS + [TIMED_24BPP]:
-        plan = plans[name]
-        xin = x24 if plan.meta_in.n_bytes == 3 else x
+    for name in BUSY_ROWS:
+        plan, xin = plans[name], inputs[name]
         busy = device_busy(lambda: stt.scale(plan, xin),
                            str(trace_dir / f"{name.replace(' ', '_')}.json"))
         kernels = "; ".join(f"{k} x{c} mean {ms:.4f} ms"
@@ -247,18 +380,30 @@ def main() -> int:
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
-    k_ms, p_ms = times["row 0"]
+    log(f"[total] {time.perf_counter() - t_start:.1f} s wall, build included")
     log(card)
-    log(json.dumps({"kernels": [{
-        "name": "box_scale",
-        "route": "cuda",
-        "source": "smolscale_tpu_torch/csrc/box.cu",
-        "replaces": "smolscale_tpu/ops/pallas_box.py:150",
-        "launches": main_launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+    log(json.dumps({"kernels": [
+        {
+            "name": "box_scale",
+            "route": "cuda",
+            "source": "smolscale_tpu_torch/csrc/box.cu",
+            "replaces": "smolscale_tpu/ops/pallas_box.py:150",
+            "launches": box_launches,
+            "max_abs_err": err["box"],
+            "ms": times["row 0"][0],
+            "plain_ms": times["row 0"][1],
+        },
+        {
+            "name": "bilinear_scale",
+            "route": "cuda",
+            "source": "smolscale_tpu_torch/csrc/bilinear.cu",
+            "replaces": "smolscale_tpu/ops/pallas_bilinear.py:1482",
+            "launches": bilinear_launches,
+            "max_abs_err": err["bilinear"],
+            "ms": times["row 1b"][0],
+            "plain_ms": times["row 1b"][1],
+        },
+    ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

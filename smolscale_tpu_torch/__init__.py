@@ -3,14 +3,20 @@ NVIDIA Hopper GPU.
 
 Same planner, formats and lookup tables as ``smolscale_tpu`` (whose JAX
 package stays the reference), with hand-written CUDA kernels in place of the
-Pallas TPU kernels.  Ported so far: the integer-ratio box class (box x box,
-COPY x box, box x COPY at 8-bit premultiplied working precision), which
-carries the headline batched 4096^2 -> 256^2 thumbnail workload.  Other plans
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+Pallas TPU kernels.  Ported so far: every plan at 8-bit premultiplied
+working precision (64bpp storage, compressed gamma) whose box axes are no
+deeper than 64:1 -- per axis a bilinear halving ladder, a box, COPY or ONE,
+with the integer-ratio box class (the headline batched 4096^2 -> 256^2
+thumbnail workload) on a kernel of its own -- and the row API over the same
+class.  sRGB linear light, internal PREMUL16 (unassociated in and out) and
+deeper boxes raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 
     plan = ScalePlan(4096, 4096, 256, 256, PixelType.RGBA8_PREMULTIPLIED,
                      PixelType.RGBA8_PREMULTIPLIED)
     thumbs = scale(plan, imgs)        # imgs: (B, 4096, 4096, 4) uint8 on cuda
+    for first, rows in scale_streamed(plan, imgs, n_chunks=16):
+        ...                           # output rows [first, first + len) as they finish
 
 Tensors are computed on the device where they lie: a CUDA tensor runs the
 CUDA kernel, a CPU tensor the kernel's plain PyTorch version.  A numpy input
@@ -35,7 +41,9 @@ __all__ = [
     "get_meta",
     "plan_from_reference",
     "scale",
+    "scale_rows",
     "scale_simple",
+    "scale_streamed",
 ]
 
 
@@ -72,6 +80,38 @@ def scale(plan: ScalePlan, img, post_fn=None, out=None, device=None) -> torch.Te
         out.copy_(res)
         return out
     return res
+
+
+def scale_rows(plan: ScalePlan, img, first_out_row: int, n_out_rows: int, out=None,
+               device=None) -> torch.Tensor:
+    """Output rows [first, first+n) of :func:`scale`, computing only those
+    rows: the row-batch API (smol_scale_batch_full analogue,
+    smolscale.c:998-1008).  ``out``, if given, is a uint8 tensor that the
+    rows are copied into and that is returned."""
+    from .backends import torch_ops
+
+    x = _as_tensor(img, device)
+    res = torch_ops.scale_rows_fn(plan, x, int(first_out_row), int(n_out_rows))
+    if out is not None:
+        out.copy_(res)
+        return out
+    return res
+
+
+def scale_streamed(plan: ScalePlan, img, n_chunks: int = 8, post_fn=None, device=None):
+    """Generator yielding ``(first_row, rows)`` chunks top to bottom, each
+    ``ceil(height_out / n_chunks)`` rows (the last may be shorter): the
+    incremental-consumption pattern of smol_scale_batch + SmolPostRowFunc
+    (smolscale.h:37-39, 74-76).  ``post_fn``, if given, is applied to each
+    chunk.  Each chunk is one launch on the card; they queue on the
+    current stream."""
+    x = _as_tensor(img, device)
+    h = plan.height_out
+    n_chunks = max(1, min(n_chunks, h))
+    step = -(-h // n_chunks)
+    for first in range(0, h, step):
+        rows = scale_rows(plan, x, first, min(step, h - first))
+        yield first, post_fn(rows) if post_fn is not None else rows
 
 
 def scale_simple(

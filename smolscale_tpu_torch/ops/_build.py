@@ -1,6 +1,7 @@
 """Build the package's CUDA kernels with ``nvcc`` and load them with ctypes.
 
-All of ``csrc/*.cu`` compiles into one shared library with a plain C
+Each of ``csrc/*.cu`` compiles to an object with its own ``nvcc``, all at
+once, and the objects link into one shared library with a plain C
 interface, ``build/kernels/libsmolscale_torch_kernels.so`` under the
 repository root, on first use.  A stamp beside the library holds a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one
@@ -29,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libsmolscale_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -71,23 +72,26 @@ def build() -> tuple[Path, str, float]:
     if lib.is_file() and stamp.is_file() and stamp.read_text() == digest:
         return lib, "", 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=LIB_NAME, suffix=".tmp", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(prefix="nvcc", dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for obj, src in zip(objs, sources)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, out in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+        part = Path(tmp) / LIB_NAME
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(part), *map(str, objs)]
+        res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stdout}{res.stderr}"
-            )
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}")
+        os.replace(part, lib)
     stamp.write_text(digest)
-    return lib, res.stdout + res.stderr, time.perf_counter() - t0
+    return lib, "".join(logs) + res.stdout, time.perf_counter() - t0
 
 
 @functools.cache

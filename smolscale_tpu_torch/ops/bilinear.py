@@ -1,0 +1,296 @@
+"""The general 64bpp PREMUL8 pipeline: per axis a bilinear 0h-6h halving
+ladder, a box with fractional edge weights, COPY or ONE, as a CUDA kernel
+(``csrc/bilinear.cu``) and its plain PyTorch version.
+
+Counterpart of ``smolscale_tpu.ops.pallas_bilinear`` (``scale_fn``, the row
+form ``scale_rows_fn`` and the 24bpp ``scale_fn_planes``).  The class: S64
+storage with internal PREMUL8 and compressed gamma, 3- or 4-byte pixels in
+and out, any axis kind, and box axes no deeper than 64:1; deeper boxes are
+the deep box kernels' class (ROADMAP B3).  The TPU kernel's geometry and
+VMEM limits play no part.  The numbers are those of ``backends/numpy_ref``
+for the class (see the note at the top of ``csrc/bilinear.cu``).
+
+``scale_fn`` and ``scale_rows_fn`` take ``(B, H, W, nb_in)`` or
+``(H, W, nb_in)`` uint8 tensors.  A tensor on the CPU goes to
+:func:`bilinear_scale_ref`; a tensor on a CUDA device launches the kernel,
+or raises.  ``launches`` counts the kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..formats import AlphaType, GammaType, StorageType
+from ..plan import AxisPlan, FilterType, ScalePlan
+from . import pixels
+
+launches = 0
+
+MAX_BOX_RATIO = 64
+
+# axis kinds, as enum AxisKind in csrc/bilinear.cu
+COPY, ONE, BILINEAR, BOX = range(4)
+
+
+def _kind(ax: AxisPlan) -> int:
+    if ax.filter.is_bilinear:
+        return BILINEAR
+    return {FilterType.COPY: COPY, FilterType.ONE: ONE, FilterType.BOX: BOX}[ax.filter]
+
+
+def applicable(plan: ScalePlan) -> bool:
+    return (
+        plan.storage == StorageType.S64
+        and plan.internal_alpha == AlphaType.PREMUL8
+        and plan.gamma == GammaType.SRGB_COMPRESSED
+        and plan.meta_in.n_bytes in (3, 4)
+        and plan.meta_out.n_bytes in (3, 4)
+        and not any(
+            ax.filter == FilterType.BOX and ax.dim_in > MAX_BOX_RATIO * ax.dim_out
+            for ax in (plan.x, plan.y)
+        )
+    )
+
+
+def _check(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> None:
+    if not applicable(plan):
+        raise ValueError(f"plan {plan.key} is outside the bilinear kernel's class")
+    pixels.check_input(plan, imgs)
+    if first < 0 or n < 1 or first + n > plan.height_out:
+        raise ValueError(
+            f"row range [{first}, {first + n}) outside [0, {plan.height_out})"
+        )
+
+
+# ----------------------------------------------------------------------------
+# Host tables, built once per plan and device
+# ----------------------------------------------------------------------------
+
+def box_h_arrays(ax: AxisPlan) -> dict:
+    """The reference's H box pointer walk (interp_horizontal_boxes,
+    generic.c:1443-1478) as per-output tables:
+      out_j = (in[left_idx]*left_w >> 8) + sum(in[mid_start : mid_start+mid_len])
+              + (in[right_idx]*fracs >> 8)
+    The walk follows ``strides``, not ``offsets``: after an early break
+    precalc_boxes leaves zero strides while the offsets repeat.  The final
+    span reads its right pixel only when its fraction is > 0
+    (generic.c:1472-1475), so its index is clamped.  Same tables as
+    ``smolscale_tpu.backends.xla._box_h_arrays``."""
+    n_out = ax.dim_out
+    left_idx = np.zeros(n_out, dtype=np.int32)
+    left_w = np.zeros(n_out, dtype=np.int32)
+    right_idx = np.zeros(n_out, dtype=np.int32)
+    mid_start = np.zeros(n_out, dtype=np.int32)
+    pos = 1
+    left_w[0] = 256
+    for j in range(n_out):
+        mid_start[j] = pos
+        pos += int(ax.strides[j])
+        if j < n_out - 1:
+            right_idx[j] = pos
+            pos += 1
+            left_idx[j + 1] = right_idx[j]
+            left_w[j + 1] = 255 - int(ax.factors[j])
+        else:
+            right_idx[j] = min(pos, ax.dim_in - 1)
+    return dict(
+        left_idx=left_idx, left_w=left_w, right_idx=right_idx,
+        mid_start=mid_start, mid_len=ax.strides.astype(np.int32),
+        fracs=ax.factors.astype(np.int32),
+    )
+
+
+def box_v_arrays(ax: AxisPlan) -> dict:
+    """The reference's V box edges (scale_outrow_box_64bpp,
+    generic.c:2112-2161): span i weights row offsets[i] by w1 (256 for span
+    0, else 255 - frac[i-1]), sums the rows strictly between, and weights
+    row offsets[i+1] by w2 = frac[i], its index clamped to the last row
+    (w2 is 0 where the clamp acts).  Same tables as
+    ``smolscale_tpu.backends.xla._box_v_arrays``."""
+    n_out = ax.dim_out
+    ofs = ax.offsets
+    return dict(
+        first_idx=ofs[:n_out].astype(np.int32),
+        last_idx=np.minimum(ofs[1 : n_out + 1], ax.dim_in - 1).astype(np.int32),
+        w1=np.concatenate([[256], 255 - ax.factors[:-1]]).astype(np.int32),
+        w2=ax.factors.astype(np.int32),
+        mid_start=(ofs[:n_out] + 1).astype(np.int32),
+        mid_len=np.maximum(ofs[1 : n_out + 1] - ofs[:n_out] - 1, 0).astype(np.int32),
+    )
+
+
+def axis_table(ax: AxisPlan, vertical: bool) -> np.ndarray:
+    """The int32 table the kernel reads for one axis.  BILINEAR: offsets
+    then factors, each ``dim_bilin`` long (sample k of output j is entry
+    j*2^n + k).  BOX: six rows of ``dim_out`` -- first index, first weight,
+    mid start, mid length, last index, last weight.  COPY, ONE: empty."""
+    kind = _kind(ax)
+    if kind == BILINEAR:
+        return np.concatenate([ax.offsets, ax.factors]).astype(np.int32)
+    if kind == BOX:
+        if vertical:
+            t = box_v_arrays(ax)
+            rows = ("first_idx", "w1", "mid_start", "mid_len", "last_idx", "w2")
+        else:
+            t = box_h_arrays(ax)
+            rows = ("left_idx", "left_w", "mid_start", "mid_len", "right_idx", "fracs")
+        return np.stack([t[r] for r in rows]).reshape(-1)
+    return np.zeros(0, dtype=np.int32)
+
+
+@functools.cache
+def _tables(plan: ScalePlan, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    return tuple(
+        torch.as_tensor(axis_table(ax, vertical), device=device)
+        for ax, vertical in ((plan.x, False), (plan.y, True))
+    )
+
+
+# ----------------------------------------------------------------------------
+# Plain PyTorch version
+# ----------------------------------------------------------------------------
+
+def _filter_axis(x: torch.Tensor, ax: AxisPlan, table: torch.Tensor, dim: int,
+                 first: int, n: int) -> torch.Tensor:
+    """Outputs [first, first+n) of axis ``ax`` along ``dim`` of int64 ``x``
+    (numpy_ref.hfilter / vfilter on this class: gathers for the lerp, a
+    reshape-sum for the halvings, cumsum differences for the box spans)."""
+    kind = _kind(ax)
+    if kind == COPY:
+        return x.narrow(dim, first, n)
+    if kind == ONE:
+        shape = list(x.shape)
+        shape[dim] = n
+        return x.narrow(dim, 0, 1).expand(shape)
+    bcast = [1] * x.dim()
+    bcast[dim] = -1
+    table = table.long()
+    if kind == BILINEAR:
+        k = 1 << ax.halvings
+        ofs, fac = table.view(2, -1)[:, first * k : (first + n) * k]
+        p, q = x.index_select(dim, ofs), x.index_select(dim, ofs + 1)
+        s = ((((p - q) * fac.view(bcast)) >> 8) + q) & 0xFF
+        if k == 1:
+            return s
+        return (s.unflatten(dim, (n, k)).sum(dim + 1) >> ax.halvings) & 0xFF
+    first_idx, first_w, mid_start, mid_len, last_idx, last_w = (
+        table.view(6, -1)[:, first : first + n]
+    )
+    sums = torch.cat([torch.zeros_like(x.narrow(dim, 0, 1)), x.cumsum(dim)], dim)
+    acc = (((x.index_select(dim, first_idx) * first_w.view(bcast)) >> 8) & 0xFF)
+    acc += sums.index_select(dim, mid_start + mid_len) - sums.index_select(dim, mid_start)
+    acc += ((x.index_select(dim, last_idx) * last_w.view(bcast)) >> 8) & 0xFF
+    return ((acc * int(ax.span_mul) + (1 << 23)) >> 24) & 0xFF
+
+
+def bilinear_scale_ref(plan: ScalePlan, imgs: torch.Tensor, first: int = 0,
+                       n: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, on any device: output rows
+    [first, first+n) (all by default), int64 channels, one image at a
+    time.  H is rounded per input row before V, as the reference does."""
+    n = plan.height_out - first if n is None else n
+    _check(plan, imgs, first, n)
+    tx, ty = _tables(plan, imgs.device)
+    batch = imgs if imgs.dim() == 4 else imgs[None]
+    out = torch.empty(
+        (batch.shape[0], n, plan.width_out, plan.meta_out.n_bytes),
+        dtype=torch.uint8, device=imgs.device,
+    )
+    for b in range(batch.shape[0]):
+        x = pixels.unpack(plan, batch[b])
+        x = _filter_axis(x, plan.x, tx, 1, 0, plan.width_out)
+        x = _filter_axis(x, plan.y, ty, 0, first, n)
+        out[b] = pixels.pack(plan, x)
+    return out if imgs.dim() == 4 else out[0]
+
+
+# ----------------------------------------------------------------------------
+# CUDA kernel
+# ----------------------------------------------------------------------------
+
+class _BilinearParams(ctypes.Structure):
+    # mirrors struct BilinearParams in csrc/bilinear.cu
+    _fields_ = [
+        (name, ctypes.c_int64)
+        for name in (
+            "batch", "h_in", "w_in", "h_out", "w_out", "row0", "n_rows",
+            "kind_x", "kind_y", "halvings_x", "halvings_y", "len_x", "len_y",
+            "span_mul_x", "span_mul_y",
+            "nb_in", "nb_out", "alpha_ch", "unassoc_in", "unassoc_out",
+        )
+    ] + [("src", ctypes.c_int64 * 4)]
+
+
+def _table_len(ax: AxisPlan) -> int:
+    kind = _kind(ax)
+    return ax.dim_bilin if kind == BILINEAR else ax.dim_out if kind == BOX else 0
+
+
+def _params(plan: ScalePlan, batch: int, first: int, n: int) -> _BilinearParams:
+    f = pixels.kernel_fields(plan)
+    f["src"] = (ctypes.c_int64 * 4)(*f["src"])
+    return _BilinearParams(
+        batch=batch, h_in=plan.height_in, w_in=plan.width_in,
+        h_out=plan.height_out, w_out=plan.width_out, row0=first, n_rows=n,
+        kind_x=_kind(plan.x), kind_y=_kind(plan.y),
+        halvings_x=plan.x.halvings, halvings_y=plan.y.halvings,
+        len_x=_table_len(plan.x), len_y=_table_len(plan.y),
+        span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul), **f,
+    )
+
+
+@functools.cache
+def _entry():
+    from ._build import library
+
+    fn = library().smolscale_bilinear_scale
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.POINTER(_BilinearParams), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> torch.Tensor:
+    global launches
+    if not imgs.is_contiguous():
+        raise ValueError("the bilinear kernel takes contiguous input")
+    batch = imgs if imgs.dim() == 4 else imgs[None]
+    out = torch.empty(
+        (batch.shape[0], n, plan.width_out, plan.meta_out.n_bytes),
+        dtype=torch.uint8, device=imgs.device,
+    )
+    with torch.cuda.device(imgs.device):
+        inv_div = pixels.inv_div_table(imgs.device)
+        tx, ty = _tables(plan, imgs.device)
+        params = _params(plan, batch.shape[0], first, n)
+        err = _entry()(
+            batch.data_ptr(), out.data_ptr(), inv_div.data_ptr(),
+            tx.data_ptr(), ty.data_ptr(),
+            ctypes.byref(params), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"bilinear kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out if imgs.dim() == 4 else out[0]
+
+
+def scale_rows_fn(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> torch.Tensor:
+    """Output rows [first, first+n): (B, H, W, nb_in) or (H, W, nb_in) uint8
+    -> (B, n, w, nb_out) or (n, w, nb_out) uint8, on the device where
+    ``imgs`` lies.  Only those rows are computed."""
+    first, n = int(first), int(n)
+    _check(plan, imgs, first, n)
+    if imgs.device.type == "cpu":
+        return bilinear_scale_ref(plan, imgs, first, n)
+    if imgs.device.type == "cuda":
+        return _launch(plan, imgs, first, n)
+    raise ValueError(f"no bilinear kernel for device {imgs.device}")
+
+
+def scale_fn(plan: ScalePlan, imgs: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, nb_in) or (H, W, nb_in) uint8 -> (B, h, w, nb_out) or
+    (h, w, nb_out) uint8, on the device where ``imgs`` lies."""
+    return scale_rows_fn(plan, imgs, 0, plan.height_out)

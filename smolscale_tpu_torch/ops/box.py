@@ -20,12 +20,11 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
-from .. import luts
 from ..formats import AlphaType, GammaType, StorageType
 from ..plan import AxisPlan, FilterType, ScalePlan
+from . import pixels
 
 launches = 0
 
@@ -68,31 +67,10 @@ def _span(ax: AxisPlan) -> tuple[int, bool]:
     return r, int(ax.strides[-1]) == r - 2
 
 
-def _alpha_channel(plan: ScalePlan) -> int:
-    """Work channel of alpha: its input byte, or 3 (a constant 255 channel
-    appended to 24bpp input)."""
-    layout = plan.meta_in.layout
-    return layout.index(3) if 3 in layout else 3
-
-
-def _out_sources(plan: ScalePlan) -> list[int]:
-    """Work channel feeding each output byte."""
-    in_layout = plan.meta_in.layout
-    a = _alpha_channel(plan)
-    return [a if ch == 3 else in_layout.index(ch) for ch in plan.meta_out.layout]
-
-
 def _check(plan: ScalePlan, imgs: torch.Tensor) -> None:
     if not applicable(plan):
         raise ValueError(f"plan {plan.key} is outside the box kernel's class")
-    if imgs.dtype != torch.uint8:
-        raise TypeError(f"expected uint8 pixels, got {imgs.dtype}")
-    expect = (plan.height_in, plan.width_in, plan.meta_in.n_bytes)
-    if imgs.dim() not in (3, 4) or tuple(imgs.shape[-3:]) != expect:
-        raise ValueError(
-            f"input shape {tuple(imgs.shape)} does not match plan "
-            f"(..., H_in, W_in, n_bytes_in) = {expect}"
-        )
+    pixels.check_input(plan, imgs)
 
 
 # ----------------------------------------------------------------------------
@@ -119,24 +97,13 @@ def _box_axis(x: torch.Tensor, ax: AxisPlan, dim: int) -> torch.Tensor:
     return ((acc * int(ax.span_mul) + (1 << 23)) >> 24) & 0xFF
 
 
-def _ref_one(plan: ScalePlan, img: torch.Tensor, inv_div: torch.Tensor) -> torch.Tensor:
-    x = img.to(torch.int64)
-    if plan.meta_in.n_bytes == 3:
-        x = torch.cat([x, torch.full_like(x[..., :1], 255)], dim=-1)
-    a_ch = _alpha_channel(plan)
-    colour = torch.ones(4, dtype=torch.bool, device=x.device)
-    colour[a_ch] = False
-    if plan.meta_in.alpha == AlphaType.UNASSOCIATED:
-        a = x[..., a_ch : a_ch + 1]
-        x = torch.where(colour, (((x + 1) * (a + 1) - 1) >> 8) & 0xFF, x)
+def _ref_one(plan: ScalePlan, img: torch.Tensor) -> torch.Tensor:
+    x = pixels.unpack(plan, img)
     if plan.x.filter == FilterType.BOX:
         x = _box_axis(x, plan.x, 1)
     if plan.y.filter == FilterType.BOX:
         x = _box_axis(x, plan.y, 0)
-    if plan.meta_out.alpha == AlphaType.UNASSOCIATED:
-        inv = inv_div[x[..., a_ch : a_ch + 1]]
-        x = torch.where(colour, ((x * inv) >> luts.INVERTED_DIV_SHIFT_P8) & 0xFF, x)
-    return x[..., _out_sources(plan)].to(torch.uint8)
+    return pixels.pack(plan, x)
 
 
 def box_scale_ref(plan: ScalePlan, imgs: torch.Tensor) -> torch.Tensor:
@@ -144,13 +111,12 @@ def box_scale_ref(plan: ScalePlan, imgs: torch.Tensor) -> torch.Tensor:
     one image at a time to bound memory at the headline size."""
     _check(plan, imgs)
     batch = imgs if imgs.dim() == 4 else imgs[None]
-    inv_div = torch.as_tensor(luts.INV_DIV_P8, dtype=torch.int64, device=imgs.device)
     out = torch.empty(
         (batch.shape[0], plan.height_out, plan.width_out, plan.meta_out.n_bytes),
         dtype=torch.uint8, device=imgs.device,
     )
     for b in range(batch.shape[0]):
-        out[b] = _ref_one(plan, batch[b], inv_div)
+        out[b] = _ref_one(plan, batch[b])
     return out if imgs.dim() == 4 else out[0]
 
 
@@ -173,19 +139,15 @@ class _BoxParams(ctypes.Structure):
 def _params(plan: ScalePlan, batch: int) -> _BoxParams:
     rx, drop_x = _span(plan.x)
     ry, drop_y = _span(plan.y)
-    src = _out_sources(plan) + [0] * (4 - plan.meta_out.n_bytes)
+    f = pixels.kernel_fields(plan)
+    f["src"] = (ctypes.c_int64 * 4)(*f["src"])
     return _BoxParams(
         batch=batch, h_in=plan.height_in, w_in=plan.width_in,
         h_out=plan.height_out, w_out=plan.width_out, rx=rx, ry=ry,
         box_x=int(plan.x.filter == FilterType.BOX),
         box_y=int(plan.y.filter == FilterType.BOX),
         drop_x=int(drop_x), drop_y=int(drop_y),
-        span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul),
-        nb_in=plan.meta_in.n_bytes, nb_out=plan.meta_out.n_bytes,
-        alpha_ch=_alpha_channel(plan),
-        unassoc_in=int(plan.meta_in.alpha == AlphaType.UNASSOCIATED),
-        unassoc_out=int(plan.meta_out.alpha == AlphaType.UNASSOCIATED),
-        src=(ctypes.c_int64 * 4)(*src),
+        span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul), **f,
     )
 
 
@@ -199,11 +161,6 @@ def _entry():
     return fn
 
 
-@functools.cache
-def _inv_div_table(device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(luts.INV_DIV_P8.astype(np.int32), device=device)
-
-
 def _launch(plan: ScalePlan, imgs: torch.Tensor) -> torch.Tensor:
     global launches
     if not imgs.is_contiguous():
@@ -214,7 +171,7 @@ def _launch(plan: ScalePlan, imgs: torch.Tensor) -> torch.Tensor:
         dtype=torch.uint8, device=imgs.device,
     )
     with torch.cuda.device(imgs.device):
-        inv_div = _inv_div_table(imgs.device)
+        inv_div = pixels.inv_div_table(imgs.device)
         params = _params(plan, batch.shape[0])
         err = _entry()(
             batch.data_ptr(), out.data_ptr(), inv_div.data_ptr(),

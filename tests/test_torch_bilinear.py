@@ -1,0 +1,357 @@
+"""The port's general 64bpp path (smolscale_tpu_torch.ops.bilinear) against
+the JAX package's Pallas bilinear kernel in interpret mode (whole image,
+row ranges and the 24bpp planes feed) and against numpy_ref; the row API
+(``scale_rows`` / ``scale_streamed``) against the JAX package's.
+
+On the CPU ``bilinear.scale_fn`` runs the kernel's plain PyTorch version; the
+CUDA kernel itself is compared with it on the card (test_torch_cuda.py,
+chip_smoke.py).  All arithmetic is integer: the tolerance is byte equality.
+"""
+
+import importlib.util
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import smolscale_tpu
+import smolscale_tpu_torch as stt
+from smolscale_tpu import plan as ref_plan
+from smolscale_tpu.backends import numpy_ref, xla
+from smolscale_tpu.ops import pallas_bilinear, pallas_box
+from smolscale_tpu_torch import plan as port_plan
+from smolscale_tpu_torch.ops import bilinear, box
+from smolscale_tpu_torch.plan import ScalePlan
+
+_ORIG = pl.pallas_call
+
+
+def _interp_call(*a, **k):
+    return _ORIG(*a, **k, interpret=True)
+
+
+# the plan lists of tests/test_pallas_bilinear.py
+EXACT = [
+    (512, 512, 1024, 1024, 5, 0),  # 0h upscale, unassociated input
+    (300, 200, 290, 190, 0, 0),    # 0h mild downscale, odd sizes
+    (512, 256, 96, 56, 0, 1),      # 2h ladder + reorder
+    (700, 500, 123, 77, 2, 3),     # 2h, tails on both axes
+    (64, 64, 16, 16, 0, 0),        # 1h
+    (1024, 512, 128, 64, 0, 0),    # uniform 2h ladder both
+    (1024, 512, 128, 64, 4, 0),    # same, unassociated input
+    (1000, 512, 100, 64, 0, 0),    # box H (10:1) x ladder V
+    (640, 300, 64, 100, 0, 0),     # box H x general bilinear V
+    (1000, 500, 100, 500, 0, 0),   # box H x COPY V
+    (512, 1000, 512, 100, 0, 1),   # COPY H x box V
+    (555, 300, 55, 300, 2, 0),     # non-integer box H x COPY V
+    (700, 1, 123, 9, 0, 0),        # ladder H x ONE V
+    (1, 700, 9, 123, 4, 0),        # ONE H x ladder V, unassociated in
+    (512, 700, 512, 123, 0, 3),    # COPY H x ladder V
+    (300, 260, 300, 260, 5, 2),    # COPY x COPY (pure conversion)
+    (1, 1, 64, 32, 0, 0),          # ONE x ONE
+]
+UNASSOC_OUT = [
+    (512, 256, 96, 56, 0, 4),      # 2h ladder, premul -> unassoc
+    (512, 512, 1024, 768, 1, 6),   # 0h upscale + reorder, premul -> unassoc
+    (1100, 300, 80, 100, 3, 5),    # box H x bilinear V, premul -> unassoc
+]
+GENERAL_BOX = [
+    (1100, 300, 80, 100, 0, 0),    # box H (13.75:1) x bilinear V
+    (300, 1100, 100, 80, 4, 1),    # bilinear H x box V, unassociated in
+]
+BOX_X_BOX = [
+    (1100, 1100, 80, 80, 0, 0),    # 13.75:1 box x box
+    (1100, 990, 80, 110, 4, 1),    # box x box, mixed ratios, unassociated in
+    (700, 700, 50, 50, 0, 4),      # 14:1 box x box, premul -> unassoc
+]
+# 24bpp endpoints; the TPU runs a 4-byte surrogate plan, reading 24bpp input
+# through u8 planes (kernel #5); (384, 256, 3, 2, 8, 9) of the surrogate
+# list is a 128:1 integer box, the box kernel's class
+RGB24 = [
+    (512, 256, 96, 56, 8, 8),      # RGB24 -> RGB24 ladder
+    (512, 256, 96, 56, 8, 0),      # RGB24 -> RGBA
+    (300, 200, 290, 190, 0, 8),    # RGBA -> RGB24
+    (512, 256, 96, 56, 9, 9),      # BGR24 -> BGR24
+    (640, 300, 80, 110, 8, 8),     # non-integer box x box
+    (512, 300, 512, 60, 8, 9),     # COPY H x box V strip
+    (512, 256, 96, 56, 8, 4),      # RGB24 -> unassociated RGBA
+    (333, 200, 330, 190, 8, 8),    # 0h both axes, ragged width
+]
+# (key, first, n) of test_pallas_rows_exact
+ROWS = [
+    ((1024, 512, 128, 64, 0, 0), 16, 8),
+    ((1024, 512, 128, 64, 0, 0), 0, 64),
+    ((1024, 512, 128, 64, 0, 0), 61, 3),
+    ((1000, 512, 100, 64, 0, 0), 5, 20),
+    ((512, 500, 96, 50, 0, 0), 13, 17),
+    ((512, 256, 96, 56, 0, 4), 10, 30),
+    ((512, 512, 1024, 1024, 5, 0), 100, 200),
+    ((512, 700, 512, 123, 0, 3), 40, 50),
+]
+
+
+def _id(key):
+    return "-".join(map(str, key))
+
+
+def _images(key, seed, batch=2):
+    rng = np.random.default_rng(seed)
+    nb = stt.get_meta(key[4]).n_bytes
+    return rng.integers(0, 256, (batch, key[1], key[0], nb), dtype=np.uint8)
+
+
+def _spec(key, imgs):
+    rp = ref_plan.ScalePlan(*key)
+    return np.stack([numpy_ref.scale(rp, im) for im in imgs])
+
+
+def _port(key, imgs, first=0, n=None):
+    """The plain version through the wrapper; the CPU path launches
+    nothing."""
+    plan = ScalePlan(*key)
+    n = plan.height_out if n is None else n
+    before = bilinear.launches
+    got = bilinear.scale_rows_fn(plan, torch.from_numpy(imgs), first, n)
+    assert bilinear.launches == before
+    assert torch.equal(got, bilinear.bilinear_scale_ref(plan, torch.from_numpy(imgs), first, n))
+    return got.numpy()
+
+
+@pytest.mark.parametrize("key", EXACT + UNASSOC_OUT + GENERAL_BOX + BOX_X_BOX, ids=_id)
+def test_bilinear_vs_pallas_interpret(key):
+    rp = ref_plan.ScalePlan(*key)
+    assert pallas_bilinear.applicable(rp) and bilinear.applicable(ScalePlan(*key))
+    imgs = _images(key, sum(key))
+    pallas_bilinear._built.cache_clear()
+    try:
+        with mock.patch.object(pl, "pallas_call", _interp_call):
+            tpu = np.asarray(pallas_bilinear.scale_fn(rp, imgs))
+    finally:
+        pallas_bilinear._built.cache_clear()
+    got = _port(key, imgs)
+    assert np.array_equal(got, tpu)
+    assert np.array_equal(got, _spec(key, imgs))
+
+
+@pytest.mark.parametrize("key", RGB24, ids=_id)
+def test_bilinear_24bpp_vs_pallas_planes(key):
+    """The port reads and writes 3-byte pixels directly; the JAX package
+    runs the 4-byte surrogate plan, with 24bpp input through the planes
+    feed."""
+    import jax
+
+    rp = ref_plan.ScalePlan(*key)
+    adapted = xla._adapt_24bpp(rp)
+    assert adapted is not None and pallas_bilinear.applicable(adapted[0])
+    assert not pallas_box.applicable(adapted[0])
+    imgs = _images(key, sum(key))
+    saved = xla._FORCE_PALLAS, xla._RGB24_PLANES
+    xla._FORCE_PALLAS, xla._RGB24_PLANES = True, True
+    pallas_bilinear._built.cache_clear()
+    pallas_bilinear._built_planes.cache_clear()
+    try:
+        with mock.patch.object(pl, "pallas_call", _interp_call):
+            tpu = np.asarray(jax.jit(lambda v: xla.scale_fn(rp, v))(imgs))
+    finally:
+        xla._FORCE_PALLAS, xla._RGB24_PLANES = saved
+        pallas_bilinear._built.cache_clear()
+        pallas_bilinear._built_planes.cache_clear()
+    got = _port(key, imgs)
+    assert np.array_equal(got, tpu)
+    assert np.array_equal(got, _spec(key, imgs))
+
+
+@pytest.mark.parametrize("key,first,n", ROWS, ids=lambda v: _id(v) if isinstance(v, tuple) else str(v))
+def test_rows_vs_pallas_rows(key, first, n):
+    rp = ref_plan.ScalePlan(*key)
+    imgs = _images(key, sum(key) + first)
+    pallas_bilinear._built_rows.cache_clear()
+    try:
+        with mock.patch.object(pl, "pallas_call", _interp_call):
+            tpu = np.asarray(pallas_bilinear.scale_rows_fn(rp, imgs, first, n))
+    finally:
+        pallas_bilinear._built_rows.cache_clear()
+    got = _port(key, imgs, first, n)
+    assert got.shape == (2, n, key[2], 4)
+    assert np.array_equal(got, tpu)
+    assert np.array_equal(got, _spec(key, imgs)[:, first : first + n])
+
+
+@pytest.mark.parametrize(
+    "key",
+    [
+        (80, 96, 37, 41, 0, 4),        # tests/test_api_strides.py's streamed plan
+        (64, 64, 33, 29, 5, 0),        # 0h, unassociated in
+        (640, 640, 64, 64, 0, 0),      # integer box: rows on the bilinear kernel
+        (160, 160, 96, 60, 8, 9),      # RGB24 -> BGR24
+    ],
+    ids=_id,
+)
+def test_api_rows_match_jax(key):
+    img = _images(key, 3, batch=1)[0]
+    plan, rp = ScalePlan(*key), smolscale_tpu.ScalePlan(*key)
+    h = key[3]
+    first, n = h // 4, h // 2
+    want = smolscale_tpu.scale_rows(rp, img, first, n, backend="jax")
+    got = stt.scale_rows(plan, img, first, n, device="cpu")
+    assert got.dtype == torch.uint8 and np.array_equal(got.numpy(), want)
+    # out= takes a view into a larger buffer
+    canvas = torch.full((n + 2, key[2], want.shape[-1]), 0xAB, dtype=torch.uint8)
+    res = stt.scale_rows(plan, torch.from_numpy(img), first, n, out=canvas[1:-1])
+    assert np.array_equal(res.numpy(), want) and np.array_equal(canvas[1:-1].numpy(), want)
+    assert (canvas[0] == 0xAB).all() and (canvas[-1] == 0xAB).all()
+
+    def invert(rows):
+        return 255 - rows
+
+    for post_fn in (None, invert):
+        ours = [(f, r.numpy()) for f, r in
+                stt.scale_streamed(plan, img, n_chunks=5, post_fn=post_fn, device="cpu")]
+        theirs = list(smolscale_tpu.scale_streamed(rp, img, n_chunks=5, backend="jax",
+                                                   post_fn=post_fn))
+        assert [f for f, _ in ours] == [f for f, _ in theirs]
+        assert all(np.array_equal(a, np.asarray(b)) for (_, a), (_, b) in zip(ours, theirs))
+    full = np.concatenate([r for _, r in ours])
+    assert np.array_equal(255 - full, smolscale_tpu.scale(rp, img, backend="jax"))
+
+
+def test_row_range_checks():
+    key = (80, 96, 37, 41, 0, 4)
+    plan, rp = ScalePlan(*key), smolscale_tpu.ScalePlan(*key)
+    img = _images(key, 4, batch=1)[0]
+    for first, n in [(-1, 3), (0, 0), (40, 2), (0, 42)]:
+        with pytest.raises(ValueError, match="row range"):
+            smolscale_tpu.scale_rows(rp, img, first, n, backend="jax")
+        with pytest.raises(ValueError, match="row range"):
+            stt.scale_rows(plan, img, first, n, device="cpu")
+    # more chunks than rows: one row per chunk
+    assert [f for f, _ in stt.scale_streamed(plan, img, n_chunks=100, device="cpu")] == list(range(41))
+
+
+def _axis_pair(dim_in, dim_out):
+    """The BOX axis plan of both packages for (dim_in, dim_out), whatever
+    filter the planner would pick: ratios below 8:1 give the early-break
+    tables (zero strides at the tail) that ScalePlan never builds."""
+    pair = []
+    for mod in (ref_plan, port_plan):
+        ofs, frac, strides, span_mul = mod.precalc_boxes(dim_in, dim_out)
+        pair.append(mod.AxisPlan(dim_in, dim_out, mod.FilterType.BOX, 0, dim_out,
+                                 ofs, frac, strides, span_mul))
+    return pair
+
+
+@pytest.mark.parametrize(
+    "dims",
+    [(1100, 80), (4096, 300), (4096, 256), (700, 50), (990, 110), (96, 4), (640, 10),
+     (9, 10), (10, 20), (16, 15), (3, 8), (5, 9)],
+    ids=lambda d: f"{d[0]}-{d[1]}",
+)
+def test_box_tables_match_xla(dims):
+    ref_ax, port_ax = _axis_pair(*dims)
+    assert (port_ax.strides[-1] == 0) == (dims[0] < 8 * dims[1])
+    for mine, theirs in ((bilinear.box_h_arrays(port_ax), xla._box_h_arrays(ref_ax)),
+                         (bilinear.box_v_arrays(port_ax), xla._box_v_arrays(ref_ax))):
+        assert mine.keys() == theirs.keys()
+        for name in mine:
+            assert np.array_equal(mine[name], theirs[name]), name
+
+
+def test_axis_tables_layout():
+    plan = ScalePlan(2048, 1100, 256, 80, 0, 0)      # 2h ladder x 13.75:1 box
+    tx = bilinear.axis_table(plan.x, vertical=False)
+    assert np.array_equal(tx, np.concatenate([plan.x.offsets, plan.x.factors]))
+    assert len(tx) == 2 * plan.x.dim_bilin == 2 * 1024
+    ty = bilinear.axis_table(plan.y, vertical=True).reshape(6, -1)
+    v = bilinear.box_v_arrays(plan.y)
+    assert np.array_equal(ty, np.stack([v[k] for k in ("first_idx", "w1", "mid_start",
+                                                       "mid_len", "last_idx", "w2")]))
+    assert bilinear.axis_table(ScalePlan(64, 64, 64, 32, 0, 0).x, vertical=False).size == 0
+
+
+def test_kernel_params_follow_plan():
+    p = bilinear._params(ScalePlan(2048, 2048, 256, 256, 0, 0), 32, 0, 256)
+    assert (p.batch, p.row0, p.n_rows, p.kind_x, p.kind_y) == (32, 0, 256, bilinear.BILINEAR,
+                                                               bilinear.BILINEAR)
+    assert (p.halvings_x, p.halvings_y, p.len_x, p.len_y) == (2, 2, 1024, 1024)
+    q = bilinear._params(ScalePlan(4096, 1, 300, 7, 9, 5), 2, 3, 4)  # box x ONE
+    assert (q.kind_x, q.kind_y, q.len_x, q.len_y, q.row0, q.n_rows) == (
+        bilinear.BOX, bilinear.ONE, 300, 0, 3, 4)
+    assert q.span_mul_x == ScalePlan(4096, 1, 300, 7, 9, 5).x.span_mul
+    assert (q.nb_in, q.nb_out, q.alpha_ch, q.unassoc_in, q.unassoc_out) == (3, 4, 3, 0, 1)
+    assert list(q.src) == [0, 1, 2, 3]
+
+
+@pytest.mark.parametrize(
+    "key,ok",
+    [
+        ((640, 640, 64, 64, 0, 0), True),      # integer box: both kernels' class
+        ((4096, 4096, 300, 300, 0, 0), True),  # non-integer box 13.65:1
+        ((6400, 100, 100, 100, 0, 0), True),   # box at exactly 64:1
+        ((6500, 100, 100, 100, 0, 0), False),  # box past 64:1: deep (B3)
+        ((4096, 512, 16, 2, 0, 0), False),     # 256:1 at 128bpp
+        ((256, 256, 100, 100, 4, 4), False),   # PREMUL16
+        ((256, 256, 100, 100, 0, 0, True), False),  # sRGB linear
+    ],
+    ids=lambda v: _id(v) if isinstance(v, tuple) else str(v),
+)
+def test_applicability_gate(key, ok):
+    assert bilinear.applicable(ScalePlan(*key)) == ok
+
+
+def test_scale_dispatch_order(monkeypatch):
+    """Whole images try the box kernel first, then this one; rows go to
+    this one for integer box too."""
+    calls = []
+    monkeypatch.setattr(box, "scale_fn", lambda plan, x: calls.append("box"))
+    monkeypatch.setattr(bilinear, "scale_fn", lambda plan, x: calls.append("bilinear"))
+    monkeypatch.setattr(bilinear, "scale_rows_fn", lambda plan, x, f, n: calls.append("rows"))
+    img = torch.zeros((640, 640, 4), dtype=torch.uint8)
+    stt.scale(ScalePlan(640, 640, 64, 64, 0, 0), img)
+    stt.scale(ScalePlan(640, 640, 100, 100, 0, 0), img)
+    stt.scale_rows(ScalePlan(640, 640, 64, 64, 0, 0), img, 3, 5)
+    assert calls == ["box", "bilinear", "rows"]
+
+
+def test_wrapper_rejects_bad_input():
+    plan = ScalePlan(256, 128, 64, 32, 0, 0)
+    with pytest.raises(TypeError):
+        bilinear.scale_fn(plan, torch.zeros((128, 256, 4), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        bilinear.scale_fn(plan, torch.zeros((128, 256, 3), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="class"):
+        bilinear.scale_fn(ScalePlan(256, 256, 16, 16, 4, 4),
+                          torch.zeros((256, 256, 4), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="row range"):
+        bilinear.scale_rows_fn(plan, torch.zeros((128, 256, 4), dtype=torch.uint8), 30, 3)
+    # a device with no kernel raises instead of falling back
+    with pytest.raises(ValueError, match="device"):
+        bilinear.scale_fn(plan, torch.zeros((128, 256, 4), dtype=torch.uint8, device="meta"))
+
+
+def test_single_image_shape():
+    key = (300, 200, 290, 190, 2, 3)
+    imgs = _images(key, 6, batch=1)
+    got = bilinear.scale_fn(ScalePlan(*key), torch.from_numpy(imgs[0]))
+    assert tuple(got.shape) == (190, 290, 4)
+    assert np.array_equal(got.numpy(), _spec(key, imgs)[0])
+
+
+def _smoke_check_plans():
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.BILINEAR_CHECK_PLANS, mod.BILINEAR_CHECK_ROWS
+
+
+def test_chip_smoke_plans_are_held_here():
+    """chip_smoke.py holds the kernel against the plain version on the card;
+    every plan it checks is held against numpy_ref and the Pallas kernel
+    by a test of this file."""
+    plans, rows = _smoke_check_plans()
+    assert set(plans) <= set(EXACT + UNASSOC_OUT + GENERAL_BOX + BOX_X_BOX + RGB24)
+    assert set(rows) <= set(ROWS)
+    assert all(bilinear.applicable(ScalePlan(*k)) for k in plans)

@@ -1,4 +1,5 @@
-"""The CUDA box kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (box, and the general 64bpp kernel) against their plain
+PyTorch versions, on the card.
 
 Tests marked ``cuda`` skip without a CUDA device.  This file imports no JAX
 (of the JAX package it uses only the numpy-only ``numpy_ref`` and planner),
@@ -15,7 +16,7 @@ import torch
 import smolscale_tpu_torch as stt
 from smolscale_tpu.backends import numpy_ref
 from smolscale_tpu.plan import ScalePlan as RefPlan
-from smolscale_tpu_torch.ops import _build, box
+from smolscale_tpu_torch.ops import _build, bilinear, box
 from smolscale_tpu_torch.utils import timing
 
 PLANS = [
@@ -29,6 +30,24 @@ PLANS = [
     (256, 128, 16, 128, 9, 5),
     (100, 90, 10, 9, 7, 1),
     (2048, 64, 16, 4, 1, 6),   # 128:1 x 16:1
+]
+
+BILINEAR_PLANS = [
+    (512, 512, 1024, 1024, 5, 0),  # 0h upscale, unassociated in
+    (300, 200, 290, 190, 0, 0),    # 0h, odd sizes
+    (700, 500, 123, 77, 2, 3),     # 2h, tails
+    (64, 64, 16, 16, 0, 0),        # 1h
+    (1000, 512, 100, 64, 0, 0),    # box H x ladder V
+    (512, 1000, 512, 100, 0, 1),   # COPY H x box V
+    (700, 1, 123, 9, 0, 0),        # ladder H x ONE V
+    (1, 700, 9, 123, 4, 0),        # ONE H x ladder V
+    (300, 260, 300, 260, 5, 2),    # COPY x COPY
+    (512, 256, 96, 56, 0, 4),      # unassociated out
+    (1100, 990, 80, 110, 4, 1),    # non-integer box x box
+    (640, 640, 64, 64, 0, 0),      # integer box (the box kernel's class too)
+    (512, 256, 96, 56, 8, 8),      # RGB24 -> RGB24
+    (300, 200, 290, 190, 0, 9),    # RGBA -> BGR24
+    (640, 300, 80, 110, 8, 4),     # RGB24 box x box -> unassociated RGBA
 ]
 
 
@@ -77,6 +96,51 @@ def test_kernel_input_layouts(cuda_device):
     assert torch.equal(stt.scale(plan, strided), want)
     # a single image keeps its shape
     assert torch.equal(stt.scale(plan, x[1]), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", BILINEAR_PLANS, ids=_id)
+def test_bilinear_kernel_matches_plain(cuda_device, key):
+    plan = stt.ScalePlan(*key)
+    rng = np.random.default_rng(sum(key))
+    imgs = rng.integers(0, 256, (3, key[1], key[0], plan.meta_in.n_bytes), dtype=np.uint8)
+    x = torch.from_numpy(imgs).to(cuda_device)
+    before = bilinear.launches
+    got = bilinear.scale_fn(plan, x)
+    assert bilinear.launches == before + 1
+    plain = bilinear.bilinear_scale_ref(plan, x)
+    torch.cuda.synchronize()
+    assert got.device == cuda_device and torch.equal(got, plain)
+    assert np.array_equal(got[2].cpu().numpy(), numpy_ref.scale(RefPlan(*key), imgs[2]))
+    # row ranges: a middle one, the last row
+    h = plan.height_out
+    for first, n in ((h // 3, max(1, h // 2)), (h - 1, 1)):
+        rows = bilinear.scale_rows_fn(plan, x, first, n)
+        assert torch.equal(rows, plain[:, first : first + n])
+
+
+@pytest.mark.cuda
+def test_bilinear_row_api(cuda_device):
+    plan = stt.ScalePlan(512, 512, 1024, 1024, 5, 0)
+    x = torch.randint(0, 256, (2, 512, 512, 4), dtype=torch.uint8, device=cuda_device)
+    want = bilinear.bilinear_scale_ref(plan, x)
+    before = bilinear.launches
+    chunks = list(stt.scale_streamed(plan, x, n_chunks=16))
+    assert bilinear.launches == before + 16
+    assert [f for f, _ in chunks] == list(range(0, 1024, 64))
+    assert torch.equal(torch.cat([r for _, r in chunks], dim=1), want)
+    out = torch.empty((2, 5, 1024, 4), dtype=torch.uint8, device=cuda_device)
+    assert stt.scale_rows(plan, x, 7, 5, out=out) is out
+    assert torch.equal(out, want[:, 7:12])
+    # unaligned 4-byte pixels take the byte-load path
+    flat = torch.empty(x.numel() + 1, dtype=torch.uint8, device=cuda_device)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert torch.equal(stt.scale(plan, shifted), want)
+    with pytest.raises(ValueError, match="contiguous"):
+        bilinear.scale_fn(plan, x[:, :, ::1].transpose(1, 2))
+    with pytest.raises(ValueError, match="row range"):
+        bilinear.scale_rows_fn(plan, x, 1020, 5)
 
 
 @pytest.mark.cuda

@@ -29,6 +29,8 @@ def test_port_imports_no_jax():
     imports = "\n".join([
         "import smolscale_tpu_torch",
         "import smolscale_tpu_torch.ops.box",
+        "import smolscale_tpu_torch.ops.bilinear",
+        "import smolscale_tpu_torch.ops.pixels",
         "import smolscale_tpu_torch.ops._build",
         "import smolscale_tpu_torch.backends.torch_ops",
         "import smolscale_tpu_torch.utils.timing",

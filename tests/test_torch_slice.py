@@ -3,8 +3,11 @@ tensors against the JAX package's public API on its XLA op graph
 (``smolscale_tpu.scale(..., backend="jax")`` on the CPU) and numpy_ref.
 
 Small analogues of the suite rows on the ported path: 0 (box x box), 3e
-(premultiplied -> unassociated) and 8 (COPY x box), plus 24bpp and
-unassociated input.  The tolerance is byte equality.
+(premultiplied -> unassociated) and 8 (COPY x box) on the box kernel; 1
+(2h ladder), 2 (0h upscale, BGRA unassociated -> RGBA), 3a / 3b (RGB24 1h /
+0h), 3c (2h) and 3d (non-integer box) on the general kernel; plus 24bpp,
+unassociated input and a COPY x COPY repack.  The tolerance is byte
+equality.
 """
 
 import numpy as np
@@ -22,6 +25,15 @@ SLICE_PLANS = [
     (160, 90, 16, 9, 8, 8),      # RGB24, width not a multiple of 128
     (320, 160, 32, 16, 4, 1),    # unassociated in, reorder
     (256, 128, 16, 128, 3, 7),   # box x COPY, unassociated out
+    (256, 256, 32, 32, 0, 0),    # row 1 analogue: 2h ladder
+    (64, 64, 128, 128, 5, 0),    # row 2 analogue: 0h upscale, BGRA unassoc in
+    (512, 512, 171, 171, 8, 8),  # row 3a analogue: RGB24 1h
+    (512, 512, 375, 375, 8, 8),  # row 3b analogue: RGB24 0h
+    (512, 512, 87, 87, 0, 0),    # row 3c analogue: 2h, 5.9:1
+    (512, 512, 37, 37, 0, 0),    # row 3d analogue: non-integer box 13.8:1
+    (256, 256, 100, 100, 0, 0),  # bilinear
+    (300, 300, 22, 22, 0, 0),    # non-integer box
+    (64, 64, 64, 64, 0, 1),      # COPY x COPY repack
 ]
 
 
@@ -96,13 +108,11 @@ def test_scale_simple():
 @pytest.mark.parametrize(
     "key,item",
     [
-        ((256, 256, 100, 100, 0, 0, False), "B2"),   # bilinear
-        ((300, 300, 22, 22, 0, 0, False), "B2"),     # non-integer box
-        ((64, 64, 64, 64, 0, 1, False), "B2"),       # COPY x COPY repack
         ((256, 256, 16, 16, 0, 0, True), "B6"),      # sRGB linear light
         ((256, 256, 16, 16, 4, 4, False), "B5"),     # PREMUL16
         ((1000, 1000, 7, 7, 0, 0, False), "B3"),     # ragged deep box
         ((4096, 512, 16, 2, 0, 0, False), "B3"),     # 256:1 box at 128bpp
+        ((1000, 1000, 15, 15, 0, 0, False), "B3"),   # non-integer S64 box past 64:1
     ],
     ids=lambda v: v if isinstance(v, str) else _id(v),
 )
@@ -111,3 +121,23 @@ def test_other_plans_raise(key, item):
     imgs = torch.zeros((key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match=item):
         stt.scale(plan, imgs)
+
+
+@pytest.mark.parametrize(
+    "key,item",
+    [
+        ((384, 256, 3, 2, 0, 1, False), "B3"),       # integer box past 64:1
+        ((256, 256, 16, 16, 4, 4, False), "B5"),     # PREMUL16
+        ((256, 256, 100, 100, 0, 0, True), "B6"),    # sRGB linear light
+    ],
+    ids=lambda v: v if isinstance(v, str) else _id(v),
+)
+def test_other_plans_raise_for_rows(key, item):
+    """The row API runs on the general kernel only: an integer box past
+    64:1 computes whole (box kernel) but not by rows."""
+    plan = stt.ScalePlan(*key)
+    imgs = torch.zeros((key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match=item):
+        stt.scale_rows(plan, imgs, 0, 1)
+    with pytest.raises(NotImplementedError, match=item):
+        next(stt.scale_streamed(plan, imgs))
