@@ -14,18 +14,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    box kernel on each plan of ``CHECK_PLANS`` (plain version
    ``ops.box.box_scale_ref``), the general kernel on each plan of
    ``BILINEAR_CHECK_PLANS`` and each row range of ``BILINEAR_CHECK_ROWS``
-   (``ops.bilinear.bilinear_scale_ref``), and both on an input that is not
-   4-byte aligned.  Bytes must be equal.  The plain versions are held
-   against the numpy spec (``backends/numpy_ref`` of the JAX package) and
-   the Pallas kernels on the CPU by ``tests/test_torch_box.py`` and
-   ``tests/test_torch_bilinear.py``; this script imports nothing of the
-   JAX package.
+   (``ops.bilinear.bilinear_scale_ref``), the deep box kernel on each plan
+   of ``DEEP_CHECK_PLANS`` (one of them also on a constant-255 batch) and
+   each row range of ``DEEP_CHECK_ROWS`` (``ops.deep.deep_scale_ref``), and
+   all three on an input that is not 4-byte aligned.  Bytes must be equal.
+   The plain versions are held against the numpy spec
+   (``backends/numpy_ref`` of the JAX package) and the Pallas kernels on
+   the CPU by ``tests/test_torch_box.py``, ``tests/test_torch_bilinear.py``
+   and ``tests/test_torch_deep.py``; this script imports nothing of the JAX
+   package.
 4. Main paths at the suite rows' full published sizes
    (``benchmarks/suite.py``), each with its kernel's launch counter set to
    0 just before and read just after: ``smolscale_tpu_torch.scale`` on rows
    0, 3e and 8 (box kernel, batch 8 of 4096^2 RGBA); then on rows 1, 1b, 2,
    3a, 3b, 3c and 3d, and ``scale_streamed`` on row 4 in 16 chunks
-   (general kernel).  Every image's bytes must equal the plain version.
+   (general kernel); then on rows 7b, 9, 9b, 9c and 9d, and
+   ``scale_streamed`` on row 9 in 4 chunks (deep box kernel).  Every
+   image's bytes must equal the plain version.
 5. Times: kernel and plain version by CUDA events, in turns plain, kernel,
    kernel, plain; Mpix/s and GB/s of input (and of output) with the share
    of HBM peak.  Also the rows of ``EXTRA_ROWS``, on no suite row and
@@ -127,6 +132,59 @@ BILINEAR_CHECK_ROWS = [
     ((512, 700, 512, 123, 0, 3), 40, 50),
 ]
 
+# the three plan lists of tests/test_pallas_deep.py (:21-36, :50-71, :86-98),
+# two plans whose sums pass 16 and 32 bits and four with spans shorter than
+# a warp: (w_in, h_in, w_out, h_out, type_in, type_out, with_srgb);
+# tests/test_torch_deep.py holds the plain version against numpy_ref on each
+DEEP_CHECK_PLANS = [
+    (1024, 1024, 8, 8, 0, 0, False),    # 128:1, 64bpp
+    (2048, 2048, 8, 8, 0, 0, False),    # 256:1, 128bpp PREMUL8
+    (2048, 2048, 8, 8, 4, 4, False),    # 256:1, PREMUL16
+    (2048, 2048, 8, 8, 4, 0, False),    # unassociated in -> premultiplied
+    (2048, 1024, 8, 8, 1, 6, False),    # reorders, 256:1 x 128:1
+    (1024, 4096, 8, 4, 0, 0, False),    # 1024 rows per span
+    (1024, 4096, 8, 4, 4, 4, False),    # same, PREMUL16
+    (1024, 3072, 8, 4, 4, 0, False),    # 768 rows per span
+    (2000, 2000, 12, 12, 0, 0, False),  # ragged spans, 166.7:1
+    (2000, 2000, 12, 12, 4, 4, False),  # ragged PREMUL16
+    (1000, 900, 9, 10, 4, 0, False),    # ragged 64bpp, unassociated in
+    (513, 700, 5, 7, 2, 3, False),      # ragged, odd sizes, reorders
+    (1024, 1024, 8, 8, 4, 4, True),     # PREMUL16 linear light
+    (1024, 1024, 8, 8, 4, 0, True),     # PREMUL8 linear, unassociated in
+    (1024, 1024, 8, 8, 0, 0, True),     # PREMUL8 linear, premultiplied in
+    (1000, 900, 9, 10, 4, 4, True),     # ragged PREMUL16 linear
+    (1198, 475, 13, 2, 0, 9, True),     # 24bpp out: the pack asymmetry
+    (1198, 900, 5, 7, 8, 4, True),      # 24bpp in
+    (1842, 1538, 10, 15, 0, 0, True),   # a span ending on a TPU chunk edge
+    (3516, 745, 54, 6, 9, 8, True),     # 3 * w_out > 128, linear
+    (2816, 480, 48, 4, 4, 4, True),     # same, PREMUL16
+    (1024, 1024, 8, 8, 8, 8, False),    # RGB24
+    (1024, 1024, 8, 8, 9, 0, False),    # BGR24 -> RGBA
+    (2000, 2000, 12, 12, 8, 8, False),  # ragged RGB24
+    (2000, 2000, 12, 12, 8, 4, False),  # ragged RGB24 -> unassociated
+    (258, 732, 2, 5, 8, 8, False),      # spans shorter than a TPU chunk
+    (1024, 1024, 8, 8, 8, 8, True),     # RGB24 linear, pack24 direct
+    (1198, 900, 5, 7, 8, 4, True),      # RGB24 linear -> unassociated
+    (258, 732, 2, 5, 8, 8, True),       # short spans, linear
+    (10000, 64, 2, 2, 4, 4, True),      # H sums past 2^31; 16-bit mask
+    (5000, 5000, 2, 40, 0, 0, False),   # 2500:1 x 125:1 at 128bpp
+    (256, 256, 16, 16, 4, 4, False),    # short spans: 16:1 PREMUL16
+    (256, 256, 16, 16, 0, 0, True),     # 16:1 linear light
+    (300, 200, 30, 20, 4, 4, True),     # 10:1 PREMUL16 linear, 11-row spans
+    (99, 200, 9, 20, 8, 4, True),       # 11:1 x 10:1 RGB24 linear -> unassociated
+]
+# checked on a constant-255 batch too: numpy_ref gives (97, 97, 97, 255)
+DEEP_CONST_PLAN = (10000, 64, 2, 2, 4, 4, True)
+# (plan, first output row, rows) through the row form
+DEEP_CHECK_ROWS = [
+    ((1842, 1538, 10, 15, 0, 0, True), 5, 3),  # from the span starting on row 512
+    ((1842, 1538, 10, 15, 0, 0, True), 4, 1),  # the span ending on row 512
+    ((2000, 2000, 12, 12, 4, 4, False), 3, 6),
+    ((1024, 4096, 8, 4, 0, 0, False), 1, 2),
+    ((3516, 745, 54, 6, 9, 8, True), 0, 1),
+    ((2048, 1024, 8, 8, 1, 6, False), 7, 1),   # the last row
+]
+
 # suite rows (benchmarks/suite.py:277-346) at their published sizes:
 # (name, plan key, batch); box kernel
 MAIN_ROWS = [
@@ -147,6 +205,15 @@ BILINEAR_ROWS = [
 # row 4 (bench_row_stream, suite.py:353): scale_streamed in 16 chunks
 STREAM_ROW = ("row 4", (8192, 8192, 1024, 1024, 0, 0), 1)
 STREAM_CHUNKS = 16
+# deep box kernel (suite.py:325-346), and row 9 through scale_streamed
+DEEP_ROWS = [
+    ("row 7b", (4096, 4096, 16, 16, 0, 0), 8),
+    ("row 9", (4096, 4096, 12, 12, 0, 0), 8),
+    ("row 9b", (2048, 2048, 12, 12, 4, 4), 8),
+    ("row 9c", (2000, 2000, 7, 7, 0, 0, True), 8),
+    ("row 9d", (3000, 3000, 9, 9, 8, 8), 8),
+]
+DEEP_STREAM_ROW, DEEP_STREAM_CHUNKS = "row 9", 4
 # on no suite row, checked and timed beside them: (name, plan key, batch,
 # kernel)
 EXTRA_ROWS = [
@@ -158,7 +225,7 @@ EXTRA_ROWS = [
     # the headline on the general kernel, beside the box kernel's row 0
     ("row 0 on bilinear", (4096, 4096, 256, 256, 0, 0), 8, "bilinear"),
 ]
-BUSY_ROWS = ["row 0", "row 3e", "row 8", "rgb24", "row 1b", "row 3d"]
+BUSY_ROWS = ["row 0", "row 3e", "row 8", "rgb24", "row 1b", "row 3d", "row 7b", "row 9c"]
 HBM_PEAK_GBS = 3350.0  # H100 SXM data sheet, at the 700 W power limit
 
 
@@ -192,7 +259,7 @@ def main() -> int:
         return 1
 
     import smolscale_tpu_torch as stt
-    from smolscale_tpu_torch.ops import _build, bilinear, box
+    from smolscale_tpu_torch.ops import _build, bilinear, box, deep
     from smolscale_tpu_torch.utils.timing import cuda_time_ms, device_busy
 
     t_start = time.perf_counter()
@@ -214,7 +281,7 @@ def main() -> int:
             log(f"[build] {line.strip()}")
 
     # 3. kernels against their plain versions
-    err = {"box": 0, "bilinear": 0}
+    err = {"box": 0, "bilinear": 0, "deep": 0}
 
     def check(kind, label, got, plain):
         torch.cuda.synchronize()
@@ -230,6 +297,9 @@ def main() -> int:
         rng = np.random.default_rng(seed)
         return torch.from_numpy(rng.integers(0, 256, (2, key[1], key[0], nb),
                                              dtype=np.uint8)).to(dev)
+
+    def plan_of(key):
+        return stt.ScalePlan(*key) if len(key) == 7 else stt.ScalePlan(*key, False)
 
     for i, key in enumerate(CHECK_PLANS):
         plan = stt.ScalePlan(*key, False)
@@ -249,12 +319,29 @@ def main() -> int:
         check("bilinear", f"{key} rows [{first}, {first + n})",
               bilinear.scale_rows_fn(plan, x, first, n),
               bilinear.bilinear_scale_ref(plan, x, first, n))
+    for i, key in enumerate(DEEP_CHECK_PLANS):
+        plan = stt.ScalePlan(*key)
+        if not deep.applicable(plan):
+            raise AssertionError(f"{key}: outside the deep box class")
+        x = random_images(key, 4000 + i)
+        check("deep", key, deep.scale_fn(plan, x), deep.deep_scale_ref(plan, x))
+    plan = stt.ScalePlan(*DEEP_CONST_PLAN)
+    x = torch.full((2, plan.height_in, plan.width_in, 4), 255, dtype=torch.uint8, device=dev)
+    got = deep.scale_fn(plan, x)
+    check("deep", f"{DEEP_CONST_PLAN} constant 255", got, deep.deep_scale_ref(plan, x))
+    log(f"[check] deep {DEEP_CONST_PLAN} constant 255: pixel (0, 0) {got[0, 0, 0].tolist()}")
+    for i, (key, first, n) in enumerate(DEEP_CHECK_ROWS):
+        plan = stt.ScalePlan(*key)
+        x = random_images(key, 5000 + i)
+        check("deep", f"{key} rows [{first}, {first + n})",
+              deep.scale_rows_fn(plan, x, first, n), deep.deep_scale_ref(plan, x, first, n))
     # a 4-byte input that is not 4-byte aligned takes the byte-load paths
     for kind, mod, plain, key in (
         ("box", box, box.box_scale_ref, CHECK_PLANS[0]),
         ("bilinear", bilinear, bilinear.bilinear_scale_ref, BILINEAR_CHECK_PLANS[3]),
+        ("deep", deep, deep.deep_scale_ref, DEEP_CHECK_PLANS[2]),
     ):
-        plan = stt.ScalePlan(*key, False)
+        plan = plan_of(key)
         imgs = random_images(key, 7)
         flat = torch.empty(imgs.numel() + 1, dtype=torch.uint8, device=dev)
         shifted = flat[1:].view(imgs.shape)
@@ -268,11 +355,13 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[main] input {tuple(x.shape)} uint8 ({x.numel() / 2**20:.0f} MiB) "
         f"made and uploaded in {time.perf_counter() - t0:.1f} s")
-    all_rows = MAIN_ROWS + BILINEAR_ROWS + [STREAM_ROW] + [r[:3] for r in EXTRA_ROWS]
-    plans = {name: stt.ScalePlan(*key, False) for name, key, _ in all_rows}
+    all_rows = (MAIN_ROWS + BILINEAR_ROWS + [STREAM_ROW] + DEEP_ROWS
+                + [r[:3] for r in EXTRA_ROWS])
+    plans = {name: plan_of(key) for name, key, _ in all_rows}
     inputs = {name: view_input(x, plans[name], batch) for name, _, batch in all_rows}
     kernels = {"box": (box.scale_fn, box.box_scale_ref),
-               "bilinear": (bilinear.scale_fn, bilinear.bilinear_scale_ref)}
+               "bilinear": (bilinear.scale_fn, bilinear.bilinear_scale_ref),
+               "deep": (deep.scale_fn, deep.deep_scale_ref)}
 
     def check_rows(kind, rows, outs, plain_fn):
         for name, _, batch in rows:
@@ -313,6 +402,27 @@ def main() -> int:
     check_rows("bilinear", BILINEAR_ROWS + [STREAM_ROW], outs, bilinear.bilinear_scale_ref)
     del outs
 
+    deep.launches = 0
+    outs = {name: stt.scale(plans[name], inputs[name]) for name, _, _ in DEEP_ROWS}
+    chunks = list(stt.scale_streamed(plans[DEEP_STREAM_ROW], inputs[DEEP_STREAM_ROW],
+                                     n_chunks=DEEP_STREAM_CHUNKS))
+    torch.cuda.synchronize()
+    deep_launches = deep.launches
+    log(f"[main] deep box kernel launches in the deep rows' main path: {deep_launches} "
+        f"({len(DEEP_ROWS)} rows + {len(chunks)} chunks of {DEEP_STREAM_ROW})")
+    if deep_launches != len(DEEP_ROWS) + DEEP_STREAM_CHUNKS or len(chunks) != DEEP_STREAM_CHUNKS:
+        raise AssertionError("the main path did not launch the deep box kernel once per "
+                             "row and once per chunk")
+    check_rows("deep", DEEP_ROWS, outs, deep.deep_scale_ref)
+    plan = plans[DEEP_STREAM_ROW]
+    step = -(-plan.height_out // DEEP_STREAM_CHUNKS)
+    if [f for f, _ in chunks] != list(range(0, plan.height_out, step)):
+        raise AssertionError(f"{DEEP_STREAM_ROW}: chunks start at {[f for f, _ in chunks]}")
+    check("deep", f"{DEEP_STREAM_ROW} in {DEEP_STREAM_CHUNKS} chunks",
+          torch.cat([chunk for _, chunk in chunks], dim=1),
+          deep.deep_scale_ref(plan, inputs[DEEP_STREAM_ROW]))
+    del outs, chunks
+
     for name, _, batch, kind in EXTRA_ROWS:
         kernel_fn, plain_fn = kernels[kind]
         check(kind, f"{name} {plans[name].key} ({batch} images)",
@@ -327,6 +437,7 @@ def main() -> int:
     timed = [(row, *kernels["box"]) for row in MAIN_ROWS]
     timed += [(row, *kernels["bilinear"]) for row in BILINEAR_ROWS]
     timed += [(STREAM_ROW, stream_kernel, bilinear.bilinear_scale_ref)]
+    timed += [(row, *kernels["deep"]) for row in DEEP_ROWS]
     timed += [(row[:3], *kernels[row[3]]) for row in EXTRA_ROWS]
     times = {}
     for (name, _, batch), kernel_fn, plain_fn in timed:
@@ -402,6 +513,16 @@ def main() -> int:
             "max_abs_err": err["bilinear"],
             "ms": times["row 1b"][0],
             "plain_ms": times["row 1b"][1],
+        },
+        {
+            "name": "deep_box",
+            "route": "cuda",
+            "source": "smolscale_tpu_torch/csrc/deep.cu",
+            "replaces": "smolscale_tpu/ops/pallas_deep.py:238,469,911",
+            "launches": deep_launches,
+            "max_abs_err": err["deep"],
+            "ms": times["row 9"][0],
+            "plain_ms": times["row 9"][1],
         },
     ]}))
     log(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """Fixed-point lookup tables: sRGB<->linear and inverse-division-by-alpha.
 
 Counterpart of ``smolscale_tpu.luts``; tests/test_torch_plan.py holds every
-table byte-equal to it.  The box path reads ``INV_DIV_P8`` and
-``INVERTED_DIV_SHIFT_P8`` (unassociated output); the other tables wait for
-the kernels that use them (ROADMAP B5, B6).
+table byte-equal to it.  ``ops/pixels.py`` reads them for the unpack and
+pack of every (internal alpha, gamma) pair, and puts them on the device for
+the kernels (``pixels.inv_div_table``, ``pixels.lut_table``).
 
 Four of the six tables are generated at import time by ports of the
 reference's offline tools (tools/gen-gamma.c:8-84 and a generalized

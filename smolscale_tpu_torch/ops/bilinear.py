@@ -5,9 +5,10 @@ ladder, a box with fractional edge weights, COPY or ONE, as a CUDA kernel
 Counterpart of ``smolscale_tpu.ops.pallas_bilinear`` (``scale_fn``, the row
 form ``scale_rows_fn`` and the 24bpp ``scale_fn_planes``).  The class: S64
 storage with internal PREMUL8 and compressed gamma, 3- or 4-byte pixels in
-and out, any axis kind, and box axes no deeper than 64:1; deeper boxes are
-the deep box kernels' class (ROADMAP B3).  The TPU kernel's geometry and
-VMEM limits play no part.  The numbers are those of ``backends/numpy_ref``
+and out, any axis kind, and box axes no deeper than 64:1; deeper box x box
+plans are the deep box kernel's class (``ops.deep``, which reads the box
+tables built here).  The TPU kernel's geometry and VMEM limits play no
+part.  The numbers are those of ``backends/numpy_ref``
 for the class (see the note at the top of ``csrc/bilinear.cu``).
 
 ``scale_fn`` and ``scale_rows_fn`` take ``(B, H, W, nb_in)`` or
@@ -104,36 +105,42 @@ def box_h_arrays(ax: AxisPlan) -> dict:
     )
 
 
-def box_v_arrays(ax: AxisPlan) -> dict:
+def box_v_arrays(ax: AxisPlan, storage: StorageType = StorageType.S64) -> dict:
     """The reference's V box edges (scale_outrow_box_64bpp,
     generic.c:2112-2161): span i weights row offsets[i] by w1 (256 for span
     0, else 255 - frac[i-1]), sums the rows strictly between, and weights
     row offsets[i+1] by w2 = frac[i], its index clamped to the last row
     (w2 is 0 where the clamp acts).  Same tables as
-    ``smolscale_tpu.backends.xla._box_v_arrays``."""
+    ``smolscale_tpu.backends.xla._box_v_arrays``.  At 128bpp the last row
+    is weighted by w2 - 1, and not at all where w2 is 0
+    (scale_outrow_box_128bpp, generic.c:2198-2260): w2 is then
+    max(frac[i] - 1, 0), the TPU's ``w2p``."""
     n_out = ax.dim_out
     ofs = ax.offsets
+    w2 = ax.factors if storage == StorageType.S64 else np.maximum(ax.factors - 1, 0)
     return dict(
         first_idx=ofs[:n_out].astype(np.int32),
         last_idx=np.minimum(ofs[1 : n_out + 1], ax.dim_in - 1).astype(np.int32),
         w1=np.concatenate([[256], 255 - ax.factors[:-1]]).astype(np.int32),
-        w2=ax.factors.astype(np.int32),
+        w2=w2.astype(np.int32),
         mid_start=(ofs[:n_out] + 1).astype(np.int32),
         mid_len=np.maximum(ofs[1 : n_out + 1] - ofs[:n_out] - 1, 0).astype(np.int32),
     )
 
 
-def axis_table(ax: AxisPlan, vertical: bool) -> np.ndarray:
+def axis_table(ax: AxisPlan, vertical: bool,
+               storage: StorageType = StorageType.S64) -> np.ndarray:
     """The int32 table the kernel reads for one axis.  BILINEAR: offsets
     then factors, each ``dim_bilin`` long (sample k of output j is entry
     j*2^n + k).  BOX: six rows of ``dim_out`` -- first index, first weight,
-    mid start, mid length, last index, last weight.  COPY, ONE: empty."""
+    mid start, mid length, last index, last weight (the V last weight at
+    ``storage``).  COPY, ONE: empty."""
     kind = _kind(ax)
     if kind == BILINEAR:
         return np.concatenate([ax.offsets, ax.factors]).astype(np.int32)
     if kind == BOX:
         if vertical:
-            t = box_v_arrays(ax)
+            t = box_v_arrays(ax, storage)
             rows = ("first_idx", "w1", "mid_start", "mid_len", "last_idx", "w2")
         else:
             t = box_h_arrays(ax)
@@ -154,6 +161,25 @@ def _tables(plan: ScalePlan, device: torch.device) -> tuple[torch.Tensor, torch.
 # Plain PyTorch version
 # ----------------------------------------------------------------------------
 
+def box_axis(x: torch.Tensor, table: torch.Tensor, dim: int, first: int, n: int,
+             span_mul: int, mask: int = 0xFF, out_mask: int = 0xFF) -> torch.Tensor:
+    """Outputs [first, first+n) of a box axis along ``dim`` of int64 ``x``,
+    from its six-row ``axis_table``: each edge element weighted and masked
+    with ``mask`` on its own, the elements between summed by cumsum
+    differences, then (acc * span_mul + 2^23) >> 24 and ``out_mask``
+    (numpy_ref._box_axis; both masks are 0xFF at 64bpp)."""
+    bcast = [1] * x.dim()
+    bcast[dim] = -1
+    first_idx, first_w, mid_start, mid_len, last_idx, last_w = (
+        table.long().view(6, -1)[:, first : first + n]
+    )
+    sums = torch.cat([torch.zeros_like(x.narrow(dim, 0, 1)), x.cumsum(dim)], dim)
+    acc = ((x.index_select(dim, first_idx) * first_w.view(bcast)) >> 8) & mask
+    acc += sums.index_select(dim, mid_start + mid_len) - sums.index_select(dim, mid_start)
+    acc += ((x.index_select(dim, last_idx) * last_w.view(bcast)) >> 8) & mask
+    return ((acc * span_mul + (1 << 23)) >> 24) & out_mask
+
+
 def _filter_axis(x: torch.Tensor, ax: AxisPlan, table: torch.Tensor, dim: int,
                  first: int, n: int) -> torch.Tensor:
     """Outputs [first, first+n) of axis ``ax`` along ``dim`` of int64 ``x``
@@ -166,25 +192,17 @@ def _filter_axis(x: torch.Tensor, ax: AxisPlan, table: torch.Tensor, dim: int,
         shape = list(x.shape)
         shape[dim] = n
         return x.narrow(dim, 0, 1).expand(shape)
+    if kind == BOX:
+        return box_axis(x, table, dim, first, n, int(ax.span_mul))
     bcast = [1] * x.dim()
     bcast[dim] = -1
-    table = table.long()
-    if kind == BILINEAR:
-        k = 1 << ax.halvings
-        ofs, fac = table.view(2, -1)[:, first * k : (first + n) * k]
-        p, q = x.index_select(dim, ofs), x.index_select(dim, ofs + 1)
-        s = ((((p - q) * fac.view(bcast)) >> 8) + q) & 0xFF
-        if k == 1:
-            return s
-        return (s.unflatten(dim, (n, k)).sum(dim + 1) >> ax.halvings) & 0xFF
-    first_idx, first_w, mid_start, mid_len, last_idx, last_w = (
-        table.view(6, -1)[:, first : first + n]
-    )
-    sums = torch.cat([torch.zeros_like(x.narrow(dim, 0, 1)), x.cumsum(dim)], dim)
-    acc = (((x.index_select(dim, first_idx) * first_w.view(bcast)) >> 8) & 0xFF)
-    acc += sums.index_select(dim, mid_start + mid_len) - sums.index_select(dim, mid_start)
-    acc += ((x.index_select(dim, last_idx) * last_w.view(bcast)) >> 8) & 0xFF
-    return ((acc * int(ax.span_mul) + (1 << 23)) >> 24) & 0xFF
+    k = 1 << ax.halvings
+    ofs, fac = table.long().view(2, -1)[:, first * k : (first + n) * k]
+    p, q = x.index_select(dim, ofs), x.index_select(dim, ofs + 1)
+    s = ((((p - q) * fac.view(bcast)) >> 8) + q) & 0xFF
+    if k == 1:
+        return s
+    return (s.unflatten(dim, (n, k)).sum(dim + 1) >> ax.halvings) & 0xFF
 
 
 def bilinear_scale_ref(plan: ScalePlan, imgs: torch.Tensor, first: int = 0,

@@ -1,11 +1,22 @@
-"""Pixel unpack and pack for the 64bpp PREMUL8 class, shared by the kernels'
-wrappers and plain versions (``ops.box``, ``ops.bilinear``).
+"""Pixel unpack and pack for every (internal alpha, gamma) pair, shared by the
+kernels' wrappers and plain versions (``ops.box``, ``ops.bilinear``,
+``ops.deep``).
 
 The work channels are the input bytes in order; 24bpp input gets a constant
 alpha of 255 as channel 3 (the reference unpacks 24bpp with alpha 0xff and
-filters it like any channel, generic.c:353-358).  Unassociated input is
-premultiplied on unpack and unassociated output unpremultiplied on pack, as
-``backends/numpy_ref.unpack`` / ``pack`` do for this class.
+filters it like any channel, generic.c:353-358).  The colour channels are
+converted as ``backends/numpy_ref.unpack`` / ``pack`` specify for the plan's
+internal alpha and gamma:
+
+  PREMUL8 compressed: unassociated input premultiplied, ((v+1)*(a+1)-1) >> 8;
+  PREMUL8 linear: premultiplied input unpremultiplied first, then the 11-bit
+    linear value of from_srgb re-premultiplied (premul_p8l);
+  PREMUL16 compressed: v*a, alpha (a << 8) | 0x80;
+  PREMUL16 linear: from_srgb(v)*a, alpha (a << 8) | 0x80;
+
+and packed back with the matching unpremultiply (unpremul_p8, _p8l, _p16,
+_p16l) and to_srgb, keeping the 24bpp asymmetry that
+``plan.pack24_linear_direct`` selects.
 """
 
 from __future__ import annotations
@@ -16,8 +27,12 @@ import numpy as np
 import torch
 
 from .. import luts
-from ..formats import AlphaType
+from ..formats import AlphaType, GammaType
 from ..plan import ScalePlan
+
+# the tables of lut_table, in order; csrc/deep.cu reads them at these offsets
+LUT_NAMES = ("FROM_SRGB", "TO_SRGB", "INV_DIV_P8", "INV_DIV_P8L", "INV_DIV_P16",
+             "INV_DIV_P16L")
 
 
 def alpha_channel(plan: ScalePlan) -> int:
@@ -63,26 +78,71 @@ def _colour(plan: ScalePlan, device) -> torch.Tensor:
     return colour
 
 
+@functools.cache
+def _lut(name: str, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(getattr(luts, name), dtype=torch.int64, device=device)
+
+
+def _premul_p8(v, a):
+    return (((v + 1) * (a + 1) - 1) >> 8) & 0xFF
+
+
+def _unpremul(v, a, name: str, shift: int, mask: int):
+    return ((v * _lut(name, v.device)[a]) >> shift) & mask
+
+
 def unpack(plan: ScalePlan, img: torch.Tensor) -> torch.Tensor:
-    """(H, W, nb_in) uint8 -> (H, W, 4) int64 premultiplied work channels."""
+    """(H, W, nb_in) uint8 -> (H, W, 4) int64 work channels at the plan's
+    internal alpha and gamma."""
     x = img.to(torch.int64)
     if plan.meta_in.n_bytes == 3:
         x = torch.cat([x, torch.full_like(x[..., :1], 255)], dim=-1)
-    if plan.meta_in.alpha == AlphaType.UNASSOCIATED:
-        a_ch = alpha_channel(plan)
-        a = x[..., a_ch : a_ch + 1]
-        x = torch.where(_colour(plan, x.device), (((x + 1) * (a + 1) - 1) >> 8) & 0xFF, x)
-    return x
+    a_ch = alpha_channel(plan)
+    a = x[..., a_ch : a_ch + 1]
+    colour = _colour(plan, x.device)
+    in_premul = plan.meta_in.alpha == AlphaType.PREMUL8
+    linear = plan.gamma == GammaType.SRGB_LINEAR
+    if plan.internal_alpha == AlphaType.PREMUL8 and not linear:
+        return x if in_premul else torch.where(colour, _premul_p8(x, a), x)
+    if plan.internal_alpha == AlphaType.PREMUL8:
+        c = x
+        if in_premul:
+            c = _unpremul(c, a, "INV_DIV_P8", luts.INVERTED_DIV_SHIFT_P8, 0xFF)
+        lin = _lut("FROM_SRGB", x.device)[c]
+        # premul_ul_to_p8l (generic.c:261-269)
+        c = (((lin + 1) * ((a << 3) + 1) - 1) >> 11) & 0x7FF
+        return torch.where(colour, c, x)
+    c = _lut("FROM_SRGB", x.device)[x] if linear else x
+    return torch.where(colour, c * a, (a << 8) | 0x80)
 
 
 def pack(plan: ScalePlan, x: torch.Tensor) -> torch.Tensor:
     """(h, w, 4) int64 work channels -> (h, w, nb_out) uint8."""
-    if plan.meta_out.alpha == AlphaType.UNASSOCIATED:
-        a_ch = alpha_channel(plan)
-        inv_div = torch.as_tensor(luts.INV_DIV_P8, dtype=torch.int64, device=x.device)
-        inv = inv_div[x[..., a_ch : a_ch + 1]]
-        x = torch.where(_colour(plan, x.device),
-                        ((x * inv) >> luts.INVERTED_DIV_SHIFT_P8) & 0xFF, x)
+    a_ch = alpha_channel(plan)
+    alpha = x[..., a_ch : a_ch + 1]
+    out_premul = plan.meta_out.alpha == AlphaType.PREMUL8
+    linear = plan.gamma == GammaType.SRGB_LINEAR
+    to_srgb = _lut("TO_SRGB", x.device)
+    if plan.internal_alpha == AlphaType.PREMUL8:
+        a = alpha & 0xFF
+        if not linear:
+            if out_premul:
+                return x[..., out_sources(plan)].to(torch.uint8)
+            c = _unpremul(x, a, "INV_DIV_P8", luts.INVERTED_DIV_SHIFT_P8, 0xFF)
+        elif out_premul and plan.pack24_linear_direct:
+            # to_srgb of the premultiplied linear value (generic.c:922-935)
+            c = to_srgb[x & 0x7FF]
+        else:
+            c = to_srgb[_unpremul(x, a, "INV_DIV_P8L", luts.INVERTED_DIV_SHIFT_P8L, 0x7FF)]
+            if out_premul and plan.meta_out.n_bytes == 4:
+                c = _premul_p8(c, a)
+    else:
+        a = (alpha >> 8) & 0xFF
+        if linear:
+            c = to_srgb[_unpremul(x, a, "INV_DIV_P16L", luts.INVERTED_DIV_SHIFT_P16L, 0x7FF)]
+        else:
+            c = _unpremul(x, a, "INV_DIV_P16", luts.INVERTED_DIV_SHIFT_P16, 0xFF)
+    x = torch.where(_colour(plan, x.device), c, a) & 0xFF
     return x[..., out_sources(plan)].to(torch.uint8)
 
 
@@ -90,3 +150,13 @@ def pack(plan: ScalePlan, x: torch.Tensor) -> torch.Tensor:
 def inv_div_table(device: torch.device) -> torch.Tensor:
     """inv_div_p8 as int32 on ``device``, for the kernels' unpremultiply."""
     return torch.as_tensor(luts.INV_DIV_P8.astype(np.int32), device=device)
+
+
+@functools.cache
+def lut_table(device: torch.device) -> torch.Tensor:
+    """The six tables of ``LUT_NAMES`` as one int32 tensor on ``device``,
+    one after the other (256 entries each, TO_SRGB 2048)."""
+    return torch.as_tensor(
+        np.concatenate([getattr(luts, name) for name in LUT_NAMES]).astype(np.int32),
+        device=device,
+    )

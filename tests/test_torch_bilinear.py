@@ -290,7 +290,7 @@ def test_kernel_params_follow_plan():
         ((640, 640, 64, 64, 0, 0), True),      # integer box: both kernels' class
         ((4096, 4096, 300, 300, 0, 0), True),  # non-integer box 13.65:1
         ((6400, 100, 100, 100, 0, 0), True),   # box at exactly 64:1
-        ((6500, 100, 100, 100, 0, 0), False),  # box past 64:1: deep (B3)
+        ((6500, 100, 100, 100, 0, 0), False),  # box past 64:1: the deep box kernel
         ((4096, 512, 16, 2, 0, 0), False),     # 256:1 at 128bpp
         ((256, 256, 100, 100, 4, 4), False),   # PREMUL16
         ((256, 256, 100, 100, 0, 0, True), False),  # sRGB linear

@@ -1,5 +1,5 @@
-"""The CUDA kernels (box, and the general 64bpp kernel) against their plain
-PyTorch versions, on the card.
+"""The CUDA kernels (box, the general 64bpp kernel and the deep box kernel)
+against their plain PyTorch versions, on the card.
 
 Tests marked ``cuda`` skip without a CUDA device.  This file imports no JAX
 (of the JAX package it uses only the numpy-only ``numpy_ref`` and planner),
@@ -9,6 +9,9 @@ conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +19,7 @@ import torch
 import smolscale_tpu_torch as stt
 from smolscale_tpu.backends import numpy_ref
 from smolscale_tpu.plan import ScalePlan as RefPlan
-from smolscale_tpu_torch.ops import _build, bilinear, box
+from smolscale_tpu_torch.ops import _build, bilinear, box, deep
 from smolscale_tpu_torch.utils import timing
 
 PLANS = [
@@ -49,6 +52,19 @@ BILINEAR_PLANS = [
     (300, 200, 290, 190, 0, 9),    # RGBA -> BGR24
     (640, 300, 80, 110, 8, 4),     # RGB24 box x box -> unassociated RGBA
 ]
+
+
+
+def _smoke_deep_plans():
+    """chip_smoke.py's DEEP_CHECK_PLANS (7-tuples, with_srgb last)."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.DEEP_CHECK_PLANS
+
+
+DEEP_PLANS = _smoke_deep_plans()
 
 
 @pytest.fixture
@@ -141,6 +157,46 @@ def test_bilinear_row_api(cuda_device):
         bilinear.scale_fn(plan, x[:, :, ::1].transpose(1, 2))
     with pytest.raises(ValueError, match="row range"):
         bilinear.scale_rows_fn(plan, x, 1020, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", DEEP_PLANS, ids=_id)
+def test_deep_kernel_matches_plain(cuda_device, key):
+    plan = stt.ScalePlan(*key)
+    rng = np.random.default_rng(sum(key))
+    imgs = rng.integers(0, 256, (2, key[1], key[0], plan.meta_in.n_bytes), dtype=np.uint8)
+    x = torch.from_numpy(imgs).to(cuda_device)
+    before = deep.launches
+    got = deep.scale_fn(plan, x)
+    assert deep.launches == before + 1
+    plain = deep.deep_scale_ref(plan, x)
+    torch.cuda.synchronize()
+    assert got.device == cuda_device and torch.equal(got, plain)
+    assert np.array_equal(got[1].cpu().numpy(), numpy_ref.scale(RefPlan(*key), imgs[1]))
+    # row ranges: a middle one, the last row
+    h = plan.height_out
+    for first, n in ((h // 3, max(1, h // 2)), (h - 1, 1)):
+        assert torch.equal(deep.scale_rows_fn(plan, x, first, n), plain[:, first : first + n])
+
+
+@pytest.mark.cuda
+def test_deep_row_api(cuda_device):
+    plan = stt.ScalePlan(4096, 4096, 12, 12, 0, 0)
+    x = torch.randint(0, 256, (2, 4096, 4096, 4), dtype=torch.uint8, device=cuda_device)
+    want = deep.deep_scale_ref(plan, x)
+    before = deep.launches
+    assert torch.equal(stt.scale(plan, x), want)
+    chunks = list(stt.scale_streamed(plan, x, n_chunks=4))
+    assert deep.launches == before + 5
+    assert [f for f, _ in chunks] == [0, 3, 6, 9]
+    assert torch.equal(torch.cat([r for _, r in chunks], dim=1), want)
+    # unaligned 4-byte pixels take the byte-load path
+    flat = torch.empty(x.numel() + 1, dtype=torch.uint8, device=cuda_device)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert torch.equal(stt.scale_rows(plan, shifted, 5, 2), want[:, 5:7])
+    with pytest.raises(ValueError, match="contiguous"):
+        deep.scale_fn(plan, x.transpose(1, 2))
 
 
 @pytest.mark.cuda

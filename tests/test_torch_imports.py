@@ -30,6 +30,7 @@ def test_port_imports_no_jax():
         "import smolscale_tpu_torch",
         "import smolscale_tpu_torch.ops.box",
         "import smolscale_tpu_torch.ops.bilinear",
+        "import smolscale_tpu_torch.ops.deep",
         "import smolscale_tpu_torch.ops.pixels",
         "import smolscale_tpu_torch.ops._build",
         "import smolscale_tpu_torch.backends.torch_ops",

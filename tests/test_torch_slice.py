@@ -5,9 +5,10 @@ tensors against the JAX package's public API on its XLA op graph
 Small analogues of the suite rows on the ported path: 0 (box x box), 3e
 (premultiplied -> unassociated) and 8 (COPY x box) on the box kernel; 1
 (2h ladder), 2 (0h upscale, BGRA unassociated -> RGBA), 3a / 3b (RGB24 1h /
-0h), 3c (2h) and 3d (non-integer box) on the general kernel; plus 24bpp,
-unassociated input and a COPY x COPY repack.  The tolerance is byte
-equality.
+0h), 3c (2h) and 3d (non-integer box) on the general kernel; 7b (256:1 at
+128bpp), 9 (ragged 341.3:1), 9b (PREMUL16), 9c (sRGB linear light) and 9d
+(RGB24) on the deep box kernel; plus 24bpp, unassociated input and a COPY x
+COPY repack.  The tolerance is byte equality.
 """
 
 import numpy as np
@@ -34,6 +35,14 @@ SLICE_PLANS = [
     (256, 256, 100, 100, 0, 0),  # bilinear
     (300, 300, 22, 22, 0, 0),    # non-integer box
     (64, 64, 64, 64, 0, 1),      # COPY x COPY repack
+    (1000, 1000, 7, 7, 0, 0),    # ragged deep box, 142.9:1
+    (4096, 512, 16, 2, 0, 0),    # 256:1 box at 128bpp
+    (1000, 1000, 15, 15, 0, 0),  # non-integer 64bpp box past 64:1
+    (512, 512, 2, 2, 0, 0),      # row 7b analogue: 256:1 at 128bpp
+    (1024, 1024, 3, 3, 0, 0),    # row 9 analogue: ragged 341.3:1
+    (512, 512, 3, 3, 4, 4),      # row 9b analogue: PREMUL16, 170.7:1
+    (572, 572, 2, 2, 0, 0, True),  # row 9c analogue: sRGB linear light, 286:1
+    (999, 999, 3, 3, 8, 8),      # row 9d analogue: RGB24, 333:1
 ]
 
 
@@ -108,11 +117,11 @@ def test_scale_simple():
 @pytest.mark.parametrize(
     "key,item",
     [
-        ((256, 256, 16, 16, 0, 0, True), "B6"),      # sRGB linear light
-        ((256, 256, 16, 16, 4, 4, False), "B5"),     # PREMUL16
-        ((1000, 1000, 7, 7, 0, 0, False), "B3"),     # ragged deep box
-        ((4096, 512, 16, 2, 0, 0, False), "B3"),     # 256:1 box at 128bpp
-        ((1000, 1000, 15, 15, 0, 0, False), "B3"),   # non-integer S64 box past 64:1
+        ((256, 256, 100, 100, 0, 0, True), "B6"),    # sRGB linear light, bilinear
+        ((256, 256, 100, 100, 4, 4, False), "B5"),   # PREMUL16, bilinear
+        ((4096, 512, 16, 500, 0, 0, False), "B5"),   # 256:1 box x bilinear at 128bpp
+        ((5000, 5000, 1, 40, 0, 0, False), "A3"),    # box x box with one output column
+        ((256, 256, 256, 16, 0, 0, True), "A3"),     # COPY x box in linear light
     ],
     ids=lambda v: v if isinstance(v, str) else _id(v),
 )
@@ -126,18 +135,37 @@ def test_other_plans_raise(key, item):
 @pytest.mark.parametrize(
     "key,item",
     [
-        ((384, 256, 3, 2, 0, 1, False), "B3"),       # integer box past 64:1
-        ((256, 256, 16, 16, 4, 4, False), "B5"),     # PREMUL16
+        ((5000, 5000, 1, 40, 0, 0, False), "A3"),    # one output column
+        ((256, 256, 100, 100, 4, 4, False), "B5"),   # PREMUL16
         ((256, 256, 100, 100, 0, 0, True), "B6"),    # sRGB linear light
     ],
     ids=lambda v: v if isinstance(v, str) else _id(v),
 )
 def test_other_plans_raise_for_rows(key, item):
-    """The row API runs on the general kernel only: an integer box past
-    64:1 computes whole (box kernel) but not by rows."""
+    """The row API runs on the general and the deep box kernels; other
+    plans raise by rows as they do whole."""
     plan = stt.ScalePlan(*key)
     imgs = torch.zeros((key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match=item):
         stt.scale_rows(plan, imgs, 0, 1)
     with pytest.raises(NotImplementedError, match=item):
         next(stt.scale_streamed(plan, imgs))
+
+
+@pytest.mark.parametrize(
+    "key,first,n",
+    [
+        ((384, 256, 3, 2, 0, 1, False), 1, 1),       # integer box past 64:1: deep by rows
+        ((1024, 1024, 3, 3, 0, 0, False), 1, 2),     # row 9 analogue
+        ((572, 572, 2, 2, 0, 0, True), 0, 1),        # row 9c analogue
+    ],
+    ids=lambda v: _id(v) if isinstance(v, tuple) else str(v),
+)
+def test_deep_rows_match_jax_and_spec(key, first, n):
+    """Box x box plans computed by rows, whole-image box kernel class
+    included, against the JAX package's row API and numpy_ref."""
+    img = _images(key, sum(key) + first, batch=1)[0]
+    got = stt.scale_rows(stt.ScalePlan(*key), img, first, n, device="cpu")
+    rp = smolscale_tpu.ScalePlan(*key)
+    assert np.array_equal(got.numpy(), smolscale_tpu.scale_rows(rp, img, first, n, backend="jax"))
+    assert np.array_equal(got.numpy(), numpy_ref.scale(rp, img)[first : first + n])
