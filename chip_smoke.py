@@ -16,21 +16,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``BILINEAR_CHECK_PLANS`` and each row range of ``BILINEAR_CHECK_ROWS``
    (``ops.bilinear.bilinear_scale_ref``), the deep box kernel on each plan
    of ``DEEP_CHECK_PLANS`` (one of them also on a constant-255 batch) and
-   each row range of ``DEEP_CHECK_ROWS`` (``ops.deep.deep_scale_ref``), and
-   all three on an input that is not 4-byte aligned.  Bytes must be equal.
-   The plain versions are held against the numpy spec
-   (``backends/numpy_ref`` of the JAX package) and the Pallas kernels on
-   the CPU by ``tests/test_torch_box.py``, ``tests/test_torch_bilinear.py``
-   and ``tests/test_torch_deep.py``; this script imports nothing of the JAX
-   package.
+   each row range of ``DEEP_CHECK_ROWS`` (``ops.deep.deep_scale_ref``), the
+   128bpp kernel on each plan of ``WIDE_CHECK_PLANS`` (one of them also on
+   a constant-255 batch) and each row range of ``WIDE_CHECK_ROWS``
+   (``ops.bilinear128.bilinear128_scale_ref``), and all four on an input
+   that is not 4-byte aligned.  Bytes must be equal.  The plain versions
+   are held against the numpy spec (``backends/numpy_ref`` of the JAX
+   package) and the Pallas kernels on the CPU by
+   ``tests/test_torch_box.py``, ``tests/test_torch_bilinear.py``,
+   ``tests/test_torch_deep.py`` and ``tests/test_torch_bilinear128.py``;
+   this script imports nothing of the JAX package.
 4. Main paths at the suite rows' full published sizes
    (``benchmarks/suite.py``), each with its kernel's launch counter set to
    0 just before and read just after: ``smolscale_tpu_torch.scale`` on rows
    0, 3e and 8 (box kernel, batch 8 of 4096^2 RGBA); then on rows 1, 1b, 2,
    3a, 3b, 3c and 3d, and ``scale_streamed`` on row 4 in 16 chunks
    (general kernel); then on rows 7b, 9, 9b, 9c and 9d, and
-   ``scale_streamed`` on row 9 in 4 chunks (deep box kernel).  Every
-   image's bytes must equal the plain version.
+   ``scale_streamed`` on row 9 in 4 chunks (deep box kernel); then on rows
+   6, 6b and 7, and ``scale_streamed`` on row 7 in 4 chunks (128bpp
+   kernel).  Every image's bytes must equal the plain version.
 5. Times: kernel and plain version by CUDA events, in turns plain, kernel,
    kernel, plain; Mpix/s and GB/s of input (and of output) with the share
    of HBM peak.  Also the rows of ``EXTRA_ROWS``, on no suite row and
@@ -185,6 +189,58 @@ DEEP_CHECK_ROWS = [
     ((2048, 1024, 8, 8, 1, 6, False), 7, 1),   # the last row
 ]
 
+# the plan lists of tests/test_pallas_128.py (:25-35) and
+# tests/test_pallas_srgb.py (:24-33, :58-63 at 512x256 -> 96x56, :82-86),
+# the low-alpha plan of test_pallas_128.py:55 and two box x box plans with
+# one output column past 255:1; tests/test_torch_bilinear128.py holds the
+# plain version against numpy_ref and the Pallas kernels #10-#12 on each
+WIDE_CHECK_PLANS = [
+    (512, 256, 96, 56, 4, 4, False),    # PREMUL16, 2h ladder both axes
+    (512, 256, 96, 56, 5, 6, False),    # PREMUL16, reorders
+    (256, 256, 200, 190, 7, 4, False),  # PREMUL16, 0h
+    (1100, 300, 80, 100, 4, 5, False),  # PREMUL16, box H x bilinear V
+    (900, 1100, 70, 90, 6, 7, False),   # PREMUL16, non-integer box x box
+    (600, 2, 2, 1, 4, 4, False),        # PREMUL16 300:1 box x bilinear
+    (520, 300, 2, 40, 0, 0, False),     # 260:1 box H -> S128 PREMUL8
+    (16, 600, 8, 2, 4, 0, False),       # 300:1 box V, unassociated in
+    (300, 280, 1, 1, 0, 4, False),      # box x box to 1x1
+    (1024, 512, 128, 64, 4, 4, False),  # uniform 2h ladder
+    (2048, 160, 8, 16, 4, 4, False),    # 256:1 box H, 10:1 box V
+    (512, 256, 96, 56, 4, 4, True),     # PREMUL16-linear, 2h ladder
+    (512, 256, 96, 56, 4, 0, True),     # PREMUL8-linear, unassociated in
+    (512, 256, 96, 56, 0, 0, True),     # PREMUL8-linear, premultiplied in
+    (512, 256, 96, 56, 2, 5, True),     # premultiplied in -> unassociated out
+    (256, 256, 200, 190, 5, 6, True),   # 0h, reorders
+    (1100, 300, 80, 100, 4, 4, True),   # box H x bilinear V
+    (1024, 512, 128, 64, 4, 4, True),   # uniform 2h ladder
+    (1024, 512, 128, 64, 0, 0, True),   # uniform ladder, premultiplied in
+    (1024, 300, 128, 30, 8, 8, True),   # 24bpp, ladder H x 10:1 box V
+    (1000, 1024, 100, 128, 4, 4, True),  # box H x ladder V
+    (512, 256, 96, 56, 8, 8, True),     # RGB24 -> RGB24: pack24 direct
+    (512, 256, 96, 56, 8, 9, True),     # RGB24 -> BGR24: unpremultiplied
+    (512, 256, 96, 56, 0, 8, True),     # 4 bytes in, 3 out
+    (512, 256, 96, 56, 4, 9, True),
+    (512, 256, 96, 56, 8, 4, True),     # 24bpp -> unassociated (PREMUL16)
+    (512, 256, 96, 56, 9, 0, True),
+    (512, 256, 96, 56, 9, 9, True),     # the planes feed's plans (kernel #12)
+    (1024, 300, 128, 30, 8, 0, True),
+    (333, 200, 111, 40, 8, 8, True),    # ragged, box V
+    (64, 64, 32, 32, 4, 4, False),      # low alpha (PREMUL16's reason)
+    (2000, 400, 1, 20, 0, 0, False),    # box x box, one column, 2000:1
+    (2000, 400, 1, 20, 4, 4, True),     # same, PREMUL16-linear
+]
+# checked on a constant-255 batch too: numpy_ref gives (97, 97, 97, 255)
+WIDE_CONST_PLAN = (1100, 300, 80, 100, 4, 4, True)
+# (plan, first output row, rows) through the row form
+WIDE_CHECK_ROWS = [
+    ((512, 256, 96, 56, 4, 4, True), 10, 20),
+    ((1024, 512, 128, 64, 4, 4, False), 61, 3),
+    ((1100, 300, 80, 100, 4, 4, True), 0, 1),
+    ((16, 600, 8, 2, 4, 0, False), 1, 1),
+    ((2000, 400, 1, 20, 0, 0, False), 5, 7),
+    ((1024, 300, 128, 30, 8, 8, True), 29, 1),
+]
+
 # suite rows (benchmarks/suite.py:277-346) at their published sizes:
 # (name, plan key, batch); box kernel
 MAIN_ROWS = [
@@ -214,6 +270,13 @@ DEEP_ROWS = [
     ("row 9d", (3000, 3000, 9, 9, 8, 8), 8),
 ]
 DEEP_STREAM_ROW, DEEP_STREAM_CHUNKS = "row 9", 4
+# 128bpp kernel (suite.py:314-324), and row 7 through scale_streamed
+WIDE_ROWS = [
+    ("row 6", (2048, 2048, 256, 256, 4, 4, True), 8),
+    ("row 6b", (1920, 1080, 400, 225, 8, 8, True), 8),
+    ("row 7", (2048, 2048, 256, 256, 4, 4, False), 8),
+]
+WIDE_STREAM_ROW, WIDE_STREAM_CHUNKS = "row 7", 4
 # on no suite row, checked and timed beside them: (name, plan key, batch,
 # kernel)
 EXTRA_ROWS = [
@@ -225,7 +288,8 @@ EXTRA_ROWS = [
     # the headline on the general kernel, beside the box kernel's row 0
     ("row 0 on bilinear", (4096, 4096, 256, 256, 0, 0), 8, "bilinear"),
 ]
-BUSY_ROWS = ["row 0", "row 3e", "row 8", "rgb24", "row 1b", "row 3d", "row 7b", "row 9c"]
+BUSY_ROWS = ["row 0", "row 3e", "row 8", "rgb24", "row 1b", "row 3d", "row 7b", "row 9c",
+             "row 6"]
 HBM_PEAK_GBS = 3350.0  # H100 SXM data sheet, at the 700 W power limit
 
 
@@ -259,7 +323,7 @@ def main() -> int:
         return 1
 
     import smolscale_tpu_torch as stt
-    from smolscale_tpu_torch.ops import _build, bilinear, box, deep
+    from smolscale_tpu_torch.ops import _build, bilinear, bilinear128, box, deep
     from smolscale_tpu_torch.utils.timing import cuda_time_ms, device_busy
 
     t_start = time.perf_counter()
@@ -281,7 +345,7 @@ def main() -> int:
             log(f"[build] {line.strip()}")
 
     # 3. kernels against their plain versions
-    err = {"box": 0, "bilinear": 0, "deep": 0}
+    err = {"box": 0, "bilinear": 0, "deep": 0, "bilinear128": 0}
 
     def check(kind, label, got, plain):
         torch.cuda.synchronize()
@@ -335,11 +399,32 @@ def main() -> int:
         x = random_images(key, 5000 + i)
         check("deep", f"{key} rows [{first}, {first + n})",
               deep.scale_rows_fn(plan, x, first, n), deep.deep_scale_ref(plan, x, first, n))
+    for i, key in enumerate(WIDE_CHECK_PLANS):
+        plan = stt.ScalePlan(*key)
+        if not bilinear128.applicable(plan):
+            raise AssertionError(f"{key}: outside the 128bpp class")
+        x = random_images(key, 6000 + i)
+        check("bilinear128", key, bilinear128.scale_fn(plan, x),
+              bilinear128.bilinear128_scale_ref(plan, x))
+    plan = stt.ScalePlan(*WIDE_CONST_PLAN)
+    x = torch.full((2, plan.height_in, plan.width_in, 4), 255, dtype=torch.uint8, device=dev)
+    got = bilinear128.scale_fn(plan, x)
+    check("bilinear128", f"{WIDE_CONST_PLAN} constant 255", got,
+          bilinear128.bilinear128_scale_ref(plan, x))
+    log(f"[check] bilinear128 {WIDE_CONST_PLAN} constant 255: pixel (0, 0) "
+        f"{got[0, 0, 0].tolist()}")
+    for i, (key, first, n) in enumerate(WIDE_CHECK_ROWS):
+        plan = stt.ScalePlan(*key)
+        x = random_images(key, 6500 + i)
+        check("bilinear128", f"{key} rows [{first}, {first + n})",
+              bilinear128.scale_rows_fn(plan, x, first, n),
+              bilinear128.bilinear128_scale_ref(plan, x, first, n))
     # a 4-byte input that is not 4-byte aligned takes the byte-load paths
     for kind, mod, plain, key in (
         ("box", box, box.box_scale_ref, CHECK_PLANS[0]),
         ("bilinear", bilinear, bilinear.bilinear_scale_ref, BILINEAR_CHECK_PLANS[3]),
         ("deep", deep, deep.deep_scale_ref, DEEP_CHECK_PLANS[2]),
+        ("bilinear128", bilinear128, bilinear128.bilinear128_scale_ref, WIDE_CHECK_PLANS[11]),
     ):
         plan = plan_of(key)
         imgs = random_images(key, 7)
@@ -355,13 +440,14 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[main] input {tuple(x.shape)} uint8 ({x.numel() / 2**20:.0f} MiB) "
         f"made and uploaded in {time.perf_counter() - t0:.1f} s")
-    all_rows = (MAIN_ROWS + BILINEAR_ROWS + [STREAM_ROW] + DEEP_ROWS
+    all_rows = (MAIN_ROWS + BILINEAR_ROWS + [STREAM_ROW] + DEEP_ROWS + WIDE_ROWS
                 + [r[:3] for r in EXTRA_ROWS])
     plans = {name: plan_of(key) for name, key, _ in all_rows}
     inputs = {name: view_input(x, plans[name], batch) for name, _, batch in all_rows}
     kernels = {"box": (box.scale_fn, box.box_scale_ref),
                "bilinear": (bilinear.scale_fn, bilinear.bilinear_scale_ref),
-               "deep": (deep.scale_fn, deep.deep_scale_ref)}
+               "deep": (deep.scale_fn, deep.deep_scale_ref),
+               "bilinear128": (bilinear128.scale_fn, bilinear128.bilinear128_scale_ref)}
 
     def check_rows(kind, rows, outs, plain_fn):
         for name, _, batch in rows:
@@ -423,6 +509,27 @@ def main() -> int:
           deep.deep_scale_ref(plan, inputs[DEEP_STREAM_ROW]))
     del outs, chunks
 
+    bilinear128.launches = 0
+    outs = {name: stt.scale(plans[name], inputs[name]) for name, _, _ in WIDE_ROWS}
+    chunks = list(stt.scale_streamed(plans[WIDE_STREAM_ROW], inputs[WIDE_STREAM_ROW],
+                                     n_chunks=WIDE_STREAM_CHUNKS))
+    torch.cuda.synchronize()
+    wide_launches = bilinear128.launches
+    log(f"[main] 128bpp kernel launches in the 128bpp rows' main path: {wide_launches} "
+        f"({len(WIDE_ROWS)} rows + {len(chunks)} chunks of {WIDE_STREAM_ROW})")
+    if wide_launches != len(WIDE_ROWS) + WIDE_STREAM_CHUNKS or len(chunks) != WIDE_STREAM_CHUNKS:
+        raise AssertionError("the main path did not launch the 128bpp kernel once per "
+                             "row and once per chunk")
+    check_rows("bilinear128", WIDE_ROWS, outs, bilinear128.bilinear128_scale_ref)
+    plan = plans[WIDE_STREAM_ROW]
+    step = -(-plan.height_out // WIDE_STREAM_CHUNKS)
+    if [f for f, _ in chunks] != list(range(0, plan.height_out, step)):
+        raise AssertionError(f"{WIDE_STREAM_ROW}: chunks start at {[f for f, _ in chunks]}")
+    check("bilinear128", f"{WIDE_STREAM_ROW} in {WIDE_STREAM_CHUNKS} chunks",
+          torch.cat([chunk for _, chunk in chunks], dim=1),
+          bilinear128.bilinear128_scale_ref(plan, inputs[WIDE_STREAM_ROW]))
+    del outs, chunks
+
     for name, _, batch, kind in EXTRA_ROWS:
         kernel_fn, plain_fn = kernels[kind]
         check(kind, f"{name} {plans[name].key} ({batch} images)",
@@ -438,6 +545,7 @@ def main() -> int:
     timed += [(row, *kernels["bilinear"]) for row in BILINEAR_ROWS]
     timed += [(STREAM_ROW, stream_kernel, bilinear.bilinear_scale_ref)]
     timed += [(row, *kernels["deep"]) for row in DEEP_ROWS]
+    timed += [(row, *kernels["bilinear128"]) for row in WIDE_ROWS]
     timed += [(row[:3], *kernels[row[3]]) for row in EXTRA_ROWS]
     times = {}
     for (name, _, batch), kernel_fn, plain_fn in timed:
@@ -523,6 +631,16 @@ def main() -> int:
             "max_abs_err": err["deep"],
             "ms": times["row 9"][0],
             "plain_ms": times["row 9"][1],
+        },
+        {
+            "name": "bilinear128_scale",
+            "route": "cuda",
+            "source": "smolscale_tpu_torch/csrc/bilinear128.cu",
+            "replaces": "smolscale_tpu/ops/pallas_128.py:86; smolscale_tpu/ops/pallas_srgb.py:162,415",
+            "launches": wide_launches,
+            "max_abs_err": err["bilinear128"],
+            "ms": times["row 6"][0],
+            "plain_ms": times["row 6"][1],
         },
     ]}))
     log(json.dumps({"ok": True, "device": {

@@ -7,13 +7,16 @@ Pallas TPU kernels.  Ported so far: every plan at 8-bit premultiplied
 working precision (64bpp storage, compressed gamma) whose box axes are no
 deeper than 64:1 -- per axis a bilinear halving ladder, a box, COPY or ONE,
 with the integer-ratio box class (the headline batched 4096^2 -> 256^2
-thumbnail workload) on a kernel of its own -- and every box x box plan with
-at least two output pixels per axis, at 64 or 128bpp, internal PREMUL8 or
+thumbnail workload) on a kernel of its own; every box x box plan with at
+least two output pixels per axis, at 64 or 128bpp, internal PREMUL8 or
 PREMUL16 (unassociated in and out), compressed gamma or sRGB linear light
-(the deep box kernel: 4096^2 -> 16^2 and other ratios past 64:1); and the
-row API over both the general and the deep class.  Other plans (sRGB
-linear light or PREMUL16 with a bilinear axis, a COPY or ONE axis at 128bpp)
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+(the deep box kernel: 4096^2 -> 16^2 and other ratios past 64:1); every
+other 128bpp plan whose axes are each bilinear or box, at either internal
+alpha and gamma (the 128bpp kernel: PREMUL16 and linear-light ladders); and
+the row API over the last three classes.  Other plans (a COPY or ONE axis at
+128bpp, a 64bpp box past 64:1 beside a bilinear, COPY or ONE axis or with
+one output) raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 
     plan = ScalePlan(4096, 4096, 256, 256, PixelType.RGBA8_PREMULTIPLIED,
                      PixelType.RGBA8_PREMULTIPLIED)

@@ -1,0 +1,144 @@
+// Pixel unpack and pack for every (internal alpha, gamma) pair, shared by the
+// kernels that run at the plan's own alpha and gamma (deep.cu,
+// bilinear128.cu): the device form of ops/pixels.py `unpack` and `pack`, as
+// backends/numpy_ref.py specifies them.
+//
+// Bounds: unpacked values are at most 255 (PREMUL8), 2047 (PREMUL8 linear),
+// 65408 (PREMUL16, alpha (255 << 8) | 0x80) and 2047*255 = 521985 (PREMUL16
+// linear), all below 2^24; the pack multiplies them by an inv_div entry in
+// 64 bits.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// (internal alpha, gamma), as ops/deep.py
+enum Mode { kP8Compressed = 0, kP8Linear = 1, kP16Compressed = 2, kP16Linear = 3 };
+
+namespace {
+
+// offsets into the LUT block, ops/pixels.LUT_NAMES in order
+constexpr int kFromSrgb = 0, kToSrgb = 256, kInvDivP8 = 2304, kInvDivP8L = 2560,
+              kInvDivP16 = 2816, kInvDivP16L = 3072;
+
+__device__ __forceinline__ uint32_t weigh(uint32_t v, uint32_t w, uint32_t mask) {
+  return ((v * w) >> 8) & mask;  // v <= 521985, w <= 256: < 2^27
+}
+
+__device__ __forceinline__ uint32_t normalise(uint32_t acc, int64_t span_mul,
+                                              uint32_t out_mask) {
+  return static_cast<uint32_t>(
+             (static_cast<uint64_t>(acc) * static_cast<uint64_t>(span_mul) +
+              (uint64_t{1} << 23)) >> 24) & out_mask;
+}
+
+struct Fmt {
+  int nb;
+  bool alpha_first;  // alpha in work channel 0, else 3
+  bool unassoc;
+};
+
+// Pixel x of a row as four bytes, byte k in bits 8k; 24bpp gets alpha 255.
+template <bool PACKED>
+__device__ __forceinline__ uint32_t load_pixel(const uint8_t* __restrict__ row,
+                                               int64_t x, const Fmt& f) {
+  if (PACKED) return __ldg(reinterpret_cast<const uint32_t*>(row) + x);
+  const uint8_t* p = row + x * f.nb;
+  return static_cast<uint32_t>(__ldg(p)) | (static_cast<uint32_t>(__ldg(p + 1)) << 8) |
+         (static_cast<uint32_t>(__ldg(p + 2)) << 16) |
+         (static_cast<uint32_t>(f.nb == 4 ? __ldg(p + 3) : 255) << 24);
+}
+
+// The work channels of a pixel at the plan's (alpha, gamma): numpy_ref.unpack.
+// `lut` is the shared copy of FROM_SRGB (256) then INV_DIV_P8 (256).
+template <int MODE>
+__device__ __forceinline__ void unpack(uint32_t px, const Fmt& f,
+                                       const int32_t* lut, uint32_t v[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) v[c] = (px >> (8 * c)) & 0xff;
+  const uint32_t a = f.alpha_first ? v[0] : v[3];
+  const int a_ch = f.alpha_first ? 0 : 3;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (c == a_ch) {
+      if (MODE == kP16Compressed || MODE == kP16Linear) v[c] = (a << 8) | 0x80;
+      continue;
+    }
+    if (MODE == kP8Compressed) {
+      // premul_u_to_p8 (generic.c:238-244)
+      if (f.unassoc) v[c] = (((v[c] + 1) * (a + 1) - 1) >> 8) & 0xff;
+    } else if (MODE == kP8Linear) {
+      uint32_t u = v[c];
+      // unpremul_p8 (generic.c:227-236): 255 * 1581055 < 2^29
+      if (!f.unassoc) u = ((u * static_cast<uint32_t>(lut[256 + a])) >> 13) & 0xff;
+      const uint32_t l = static_cast<uint32_t>(lut[u]);
+      // premul_ul_to_p8l (generic.c:261-269)
+      v[c] = (((l + 1) * ((a << 3) + 1) - 1) >> 11) & 0x7ff;
+    } else if (MODE == kP16Compressed) {
+      v[c] = v[c] * a;  // generic.c:616-634
+    } else {
+      v[c] = static_cast<uint32_t>(lut[v[c]]) * a;  // generic.c:636-660
+    }
+  }
+}
+
+// Copies FROM_SRGB then INV_DIV_P8 from the LUT block into the block's
+// shared `s_lut` (512 entries), for unpack<MODE> in linear light.
+__device__ __forceinline__ void load_unpack_luts(const int32_t* __restrict__ luts,
+                                                 int32_t* s_lut) {
+  for (int k = threadIdx.x; k < 512; k += blockDim.x)
+    s_lut[k] = __ldg(luts + (k < 256 ? kFromSrgb + k : kInvDivP8 + k - 256));
+  __syncthreads();
+}
+
+__device__ __forceinline__ uint32_t lut_at(const int32_t* __restrict__ luts, int off,
+                                           uint32_t idx) {
+  return static_cast<uint32_t>(__ldg(luts + off + idx));
+}
+
+// numpy_ref.pack for one output pixel of normalised work channels `o`.
+// `Params` has the pixel-format fields of ops/pixels.kernel_fields and
+// `pack24_direct`.
+template <int MODE, class Params>
+__device__ __forceinline__ void pack_store(uint32_t o[4], const Params& p,
+                                           const int32_t* __restrict__ luts,
+                                           uint8_t* dst) {
+  const int a_ch = p.alpha_ch == 0 ? 0 : 3;
+  const uint32_t a = (MODE == kP16Compressed || MODE == kP16Linear)
+                         ? (o[a_ch] >> 8) & 0xff
+                         : o[a_ch] & 0xff;
+  const bool out_premul = !p.unassoc_out;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (c == a_ch) continue;
+    const uint64_t v = o[c];
+    uint32_t r;
+    if (MODE == kP8Compressed) {
+      // unpremul_p8 (generic.c:227-236)
+      r = out_premul ? o[c] : static_cast<uint32_t>((v * lut_at(luts, kInvDivP8, a)) >> 13);
+    } else if (MODE == kP8Linear) {
+      if (out_premul && p.pack24_direct) {
+        // to_srgb of the premultiplied linear value (generic.c:922-935)
+        r = lut_at(luts, kToSrgb, o[c] & 0x7ff);
+      } else {
+        // unpremul_p8l (generic.c:271-280), to_srgb
+        const uint32_t u = static_cast<uint32_t>((v * lut_at(luts, kInvDivP8L, a)) >> 10) & 0x7ff;
+        r = lut_at(luts, kToSrgb, u);
+        if (out_premul && p.nb_out == 4) r = (((r + 1) * (a + 1) - 1) >> 8) & 0xff;
+      }
+    } else if (MODE == kP16Compressed) {
+      // unpremul_p16 (generic.c:290-299)
+      r = static_cast<uint32_t>((v * lut_at(luts, kInvDivP16, a)) >> 16);
+    } else {
+      // unpremul_p16l (generic.c:309-318), to_srgb
+      const uint32_t u = static_cast<uint32_t>((v * lut_at(luts, kInvDivP16L, a)) >> 19) & 0x7ff;
+      r = lut_at(luts, kToSrgb, u);
+    }
+    o[c] = r & 0xff;
+  }
+  o[a_ch] = a;
+  for (int k = 0; k < p.nb_out; ++k) dst[k] = static_cast<uint8_t>(o[p.src[k]]);
+}
+
+}  // namespace

@@ -4,10 +4,11 @@ Each of ``csrc/*.cu`` compiles to an object with its own ``nvcc``, all at
 once, and the objects link into one shared library with a plain C
 interface, ``build/kernels/libsmolscale_torch_kernels.so`` under the
 repository root, on first use.  A stamp beside the library holds a hash of
-the sources and flags, so an edited source rebuilds and an unchanged one
-loads at once.  The library is written under a temporary name and renamed
-into place, so processes that build at the same time never load a half
-written file.
+the flags and of every file under ``csrc/`` (sources and the ``.cuh``
+headers they include), so an edited source or header rebuilds and an
+unchanged tree loads at once.  The library is written under a temporary
+name and renamed into place, so processes that build at the same time never
+load a half written file.
 
 Nothing here runs at import time: this module is imported on machines
 without ``nvcc`` or a GPU, where only the kernels' plain versions run.
@@ -52,11 +53,13 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest(sources: list[Path]) -> str:
+def _digest() -> str:
+    """A hash of the flags and of every file under ``csrc/`` (the headers
+    the sources include as well as the sources), by name and bytes."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(path.relative_to(CSRC).as_posix().encode())
+        h.update(path.read_bytes())
     return h.hexdigest()
 
 
@@ -68,7 +71,7 @@ def build() -> tuple[Path, str, float]:
     sources = _sources()
     lib = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
-    digest = _digest(sources)
+    digest = _digest()
     if lib.is_file() and stamp.is_file() and stamp.read_text() == digest:
         return lib, "", 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -37,7 +37,7 @@ MAX_BOX_RATIO = 64
 COPY, ONE, BILINEAR, BOX = range(4)
 
 
-def _kind(ax: AxisPlan) -> int:
+def axis_kind(ax: AxisPlan) -> int:
     if ax.filter.is_bilinear:
         return BILINEAR
     return {FilterType.COPY: COPY, FilterType.ONE: ONE, FilterType.BOX: BOX}[ax.filter]
@@ -135,7 +135,7 @@ def axis_table(ax: AxisPlan, vertical: bool,
     j*2^n + k).  BOX: six rows of ``dim_out`` -- first index, first weight,
     mid start, mid length, last index, last weight (the V last weight at
     ``storage``).  COPY, ONE: empty."""
-    kind = _kind(ax)
+    kind = axis_kind(ax)
     if kind == BILINEAR:
         return np.concatenate([ax.offsets, ax.factors]).astype(np.int32)
     if kind == BOX:
@@ -181,11 +181,13 @@ def box_axis(x: torch.Tensor, table: torch.Tensor, dim: int, first: int, n: int,
 
 
 def _filter_axis(x: torch.Tensor, ax: AxisPlan, table: torch.Tensor, dim: int,
-                 first: int, n: int) -> torch.Tensor:
+                 first: int, n: int, mask: int, out_mask: int) -> torch.Tensor:
     """Outputs [first, first+n) of axis ``ax`` along ``dim`` of int64 ``x``
-    (numpy_ref.hfilter / vfilter on this class: gathers for the lerp, a
-    reshape-sum for the halvings, cumsum differences for the box spans)."""
-    kind = _kind(ax)
+    (numpy_ref.hfilter / vfilter: gathers for the lerp, a reshape-sum for
+    the halvings, cumsum differences for the box spans), with the working
+    mask ``mask`` and the box's normalised mask ``out_mask`` (0xff and 0xff
+    at 64bpp, 0xffffff and 0xffff at 128bpp)."""
+    kind = axis_kind(ax)
     if kind == COPY:
         return x.narrow(dim, first, n)
     if kind == ONE:
@@ -193,26 +195,26 @@ def _filter_axis(x: torch.Tensor, ax: AxisPlan, table: torch.Tensor, dim: int,
         shape[dim] = n
         return x.narrow(dim, 0, 1).expand(shape)
     if kind == BOX:
-        return box_axis(x, table, dim, first, n, int(ax.span_mul))
+        return box_axis(x, table, dim, first, n, int(ax.span_mul), mask, out_mask)
     bcast = [1] * x.dim()
     bcast[dim] = -1
     k = 1 << ax.halvings
     ofs, fac = table.long().view(2, -1)[:, first * k : (first + n) * k]
     p, q = x.index_select(dim, ofs), x.index_select(dim, ofs + 1)
-    s = ((((p - q) * fac.view(bcast)) >> 8) + q) & 0xFF
+    s = ((((p - q) * fac.view(bcast)) >> 8) + q) & mask
     if k == 1:
         return s
-    return (s.unflatten(dim, (n, k)).sum(dim + 1) >> ax.halvings) & 0xFF
+    return (s.unflatten(dim, (n, k)).sum(dim + 1) >> ax.halvings) & mask
 
 
-def bilinear_scale_ref(plan: ScalePlan, imgs: torch.Tensor, first: int = 0,
-                       n: int | None = None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on any device: output rows
-    [first, first+n) (all by default), int64 channels, one image at a
-    time.  H is rounded per input row before V, as the reference does."""
-    n = plan.height_out - first if n is None else n
-    _check(plan, imgs, first, n)
-    tx, ty = _tables(plan, imgs.device)
+def filter_scale(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int,
+                 tables: tuple[torch.Tensor, torch.Tensor], mask: int = 0xFF,
+                 out_mask: int = 0xFF) -> torch.Tensor:
+    """Output rows [first, first+n) of ``imgs`` through ``pixels.unpack``,
+    the H then the V filter of ``plan`` over the axes' ``tables`` and
+    ``pixels.pack``, one image at a time in int64.  H is rounded per input
+    row before V, as the reference does."""
+    tx, ty = tables
     batch = imgs if imgs.dim() == 4 else imgs[None]
     out = torch.empty(
         (batch.shape[0], n, plan.width_out, plan.meta_out.n_bytes),
@@ -220,10 +222,19 @@ def bilinear_scale_ref(plan: ScalePlan, imgs: torch.Tensor, first: int = 0,
     )
     for b in range(batch.shape[0]):
         x = pixels.unpack(plan, batch[b])
-        x = _filter_axis(x, plan.x, tx, 1, 0, plan.width_out)
-        x = _filter_axis(x, plan.y, ty, 0, first, n)
+        x = _filter_axis(x, plan.x, tx, 1, 0, plan.width_out, mask, out_mask)
+        x = _filter_axis(x, plan.y, ty, 0, first, n, mask, out_mask)
         out[b] = pixels.pack(plan, x)
     return out if imgs.dim() == 4 else out[0]
+
+
+def bilinear_scale_ref(plan: ScalePlan, imgs: torch.Tensor, first: int = 0,
+                       n: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, on any device: output rows
+    [first, first+n) (all by default)."""
+    n = plan.height_out - first if n is None else n
+    _check(plan, imgs, first, n)
+    return filter_scale(plan, imgs, first, n, _tables(plan, imgs.device))
 
 
 # ----------------------------------------------------------------------------
@@ -243,8 +254,8 @@ class _BilinearParams(ctypes.Structure):
     ] + [("src", ctypes.c_int64 * 4)]
 
 
-def _table_len(ax: AxisPlan) -> int:
-    kind = _kind(ax)
+def table_len(ax: AxisPlan) -> int:
+    kind = axis_kind(ax)
     return ax.dim_bilin if kind == BILINEAR else ax.dim_out if kind == BOX else 0
 
 
@@ -254,9 +265,9 @@ def _params(plan: ScalePlan, batch: int, first: int, n: int) -> _BilinearParams:
     return _BilinearParams(
         batch=batch, h_in=plan.height_in, w_in=plan.width_in,
         h_out=plan.height_out, w_out=plan.width_out, row0=first, n_rows=n,
-        kind_x=_kind(plan.x), kind_y=_kind(plan.y),
+        kind_x=axis_kind(plan.x), kind_y=axis_kind(plan.y),
         halvings_x=plan.x.halvings, halvings_y=plan.y.halvings,
-        len_x=_table_len(plan.x), len_y=_table_len(plan.y),
+        len_x=table_len(plan.x), len_y=table_len(plan.y),
         span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul), **f,
     )
 

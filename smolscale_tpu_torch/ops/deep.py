@@ -31,7 +31,7 @@ import torch
 from ..formats import AlphaType, GammaType, StorageType
 from ..plan import FilterType, ScalePlan
 from . import pixels
-from .bilinear import axis_table, box_axis
+from .bilinear import axis_table, filter_scale
 
 launches = 0
 
@@ -92,23 +92,10 @@ def _tables(plan: ScalePlan, device: torch.device) -> tuple[torch.Tensor, torch.
 def deep_scale_ref(plan: ScalePlan, imgs: torch.Tensor, first: int = 0,
                    n: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device: output rows
-    [first, first+n) (all by default), int64 channels, one image at a
-    time.  H is rounded per input row before V, as the reference does."""
+    [first, first+n) (all by default)."""
     n = plan.height_out - first if n is None else n
     _check(plan, imgs, first, n)
-    tx, ty = _tables(plan, imgs.device)
-    mask, out_mask = masks(plan)
-    batch = imgs if imgs.dim() == 4 else imgs[None]
-    out = torch.empty(
-        (batch.shape[0], n, plan.width_out, plan.meta_out.n_bytes),
-        dtype=torch.uint8, device=imgs.device,
-    )
-    for b in range(batch.shape[0]):
-        x = pixels.unpack(plan, batch[b])
-        x = box_axis(x, tx, 1, 0, plan.width_out, int(plan.x.span_mul), mask, out_mask)
-        x = box_axis(x, ty, 0, first, n, int(plan.y.span_mul), mask, out_mask)
-        out[b] = pixels.pack(plan, x)
-    return out if imgs.dim() == 4 else out[0]
+    return filter_scale(plan, imgs, first, n, _tables(plan, imgs.device), *masks(plan))
 
 
 # ----------------------------------------------------------------------------

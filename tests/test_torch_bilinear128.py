@@ -1,0 +1,393 @@
+"""The port's 128bpp class with bilinear or box axes
+(smolscale_tpu_torch.ops.bilinear128) against numpy_ref, the JAX package's
+Pallas kernels in interpret mode (``pallas_128``, ``pallas_srgb`` and its
+24bpp planes form through the dispatcher) and its row API and public API.
+
+On the CPU ``bilinear128.scale_fn`` runs the kernel's plain PyTorch version;
+the CUDA kernel itself is compared with it on the card (test_torch_cuda.py,
+chip_smoke.py).  All arithmetic is integer: the tolerance is byte equality.
+"""
+
+import importlib.util
+from pathlib import Path
+from unittest import mock
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import smolscale_tpu
+import smolscale_tpu_torch as stt
+from smolscale_tpu import plan as ref_plan
+from smolscale_tpu.backends import numpy_ref, xla
+from smolscale_tpu.ops import pallas_128, pallas_srgb
+from smolscale_tpu_torch import luts
+from smolscale_tpu_torch.backends import torch_ops
+from smolscale_tpu_torch.formats import AlphaType, GammaType, StorageType
+from smolscale_tpu_torch.ops import bilinear, bilinear128, box, deep
+from smolscale_tpu_torch.plan import ScalePlan
+
+_ORIG = pl.pallas_call
+
+
+def _interp_call(*a, **k):
+    return _ORIG(*a, **k, interpret=True)
+
+
+# tests/test_pallas_128.py:25-35, with_srgb last
+COMPRESSED = [
+    (512, 256, 96, 56, 4, 4, False),    # PREMUL16, 2h ladder both axes
+    (512, 256, 96, 56, 5, 6, False),    # PREMUL16, reorders
+    (256, 256, 200, 190, 7, 4, False),  # PREMUL16, 0h
+    (1100, 300, 80, 100, 4, 5, False),  # PREMUL16, box H x bilinear V
+    (900, 1100, 70, 90, 6, 7, False),   # PREMUL16, non-integer box x box
+    (600, 2, 2, 1, 4, 4, False),        # PREMUL16 300:1 box x bilinear
+    (520, 300, 2, 40, 0, 0, False),     # 260:1 box H -> S128 PREMUL8
+    (16, 600, 8, 2, 4, 0, False),       # 300:1 box V, unassociated in
+    (300, 280, 1, 1, 0, 4, False),      # box x box to 1x1
+    (1024, 512, 128, 64, 4, 4, False),  # uniform 2h ladder
+    (2048, 160, 8, 16, 4, 4, False),    # 256:1 box H, 10:1 box V
+]
+# tests/test_pallas_srgb.py:24-33
+LINEAR = [
+    (512, 256, 96, 56, 4, 4, True),     # PREMUL16-linear, 2h ladder
+    (512, 256, 96, 56, 4, 0, True),     # PREMUL8-linear, unassociated -> premultiplied
+    (512, 256, 96, 56, 0, 0, True),     # PREMUL8-linear, premultiplied in
+    (512, 256, 96, 56, 2, 5, True),     # premultiplied in -> unassociated out
+    (256, 256, 200, 190, 5, 6, True),   # 0h, reorders
+    (1100, 300, 80, 100, 4, 4, True),   # box H x bilinear V
+    (1024, 512, 128, 64, 4, 4, True),   # uniform 2h ladder
+    (1024, 512, 128, 64, 0, 0, True),   # uniform ladder, premultiplied in
+    (1024, 300, 128, 30, 8, 8, True),   # 24bpp, ladder H x 10:1 box V
+    (1000, 1024, 100, 128, 4, 4, True),  # box H x ladder V
+]
+# tests/test_pallas_srgb.py:58-63: the 24bpp pack asymmetry both ways
+RGB24 = [(512, 256, 96, 56, ti, to, True)
+         for ti, to in [(8, 8), (8, 9), (0, 8), (4, 9), (8, 4), (9, 0)]]
+# tests/test_pallas_srgb.py:82-86: 24bpp input, the planes feed on the TPU
+PLANES = [
+    (512, 256, 96, 56, 8, 8, True),
+    (512, 256, 96, 56, 9, 9, True),
+    (512, 256, 96, 56, 8, 4, True),
+    (1024, 300, 128, 30, 8, 0, True),
+    (333, 200, 111, 40, 8, 8, True),
+]
+# tests/test_pallas_128.py:55: unassociated in and out, alpha 1
+LOW_ALPHA = (64, 64, 32, 32, 4, 4, False)
+# box x box with one output past 255:1: ``(5000, 5000, 1, 40, 0, 0)`` at a
+# width the CPU tests and the card's checks can unpack
+ONE_OUTPUT = [(2000, 400, 1, 20, 0, 0, False), (2000, 400, 1, 20, 4, 4, True)]
+ALL = list(dict.fromkeys(COMPRESSED + LINEAR + RGB24 + PLANES + [LOW_ALPHA] + ONE_OUTPUT))
+# (key, first, n): chip_smoke.py's WIDE_CHECK_ROWS
+ROWS = [
+    ((512, 256, 96, 56, 4, 4, True), 10, 20),
+    ((1024, 512, 128, 64, 4, 4, False), 61, 3),
+    ((1100, 300, 80, 100, 4, 4, True), 0, 1),
+    ((16, 600, 8, 2, 4, 0, False), 1, 1),
+    ((2000, 400, 1, 20, 0, 0, False), 5, 7),
+    ((1024, 300, 128, 30, 8, 8, True), 29, 1),
+]
+# suite rows 6, 6b and 7 (benchmarks/suite.py:314-324) cut to a small size
+SUITE = [
+    (256, 256, 32, 32, 4, 4, True),     # row 6: sRGB, PREMUL16-linear, 2h
+    (480, 270, 100, 56, 8, 8, True),    # row 6b: RGB24 sRGB, PREMUL8-linear, 2h
+    (256, 256, 32, 32, 4, 4, False),    # row 7: PREMUL16, 2h
+]
+
+
+def _id(key):
+    return "-".join(map(str, key))
+
+
+def _images(key, seed, batch=2):
+    rng = np.random.default_rng(seed)
+    nb = stt.get_meta(key[4]).n_bytes
+    return rng.integers(0, 256, (batch, key[1], key[0], nb), dtype=np.uint8)
+
+
+def _spec(key, imgs):
+    rp = ref_plan.ScalePlan(*key)
+    return np.stack([numpy_ref.scale(rp, im) for im in imgs])
+
+
+def _port(key, imgs, first=0, n=None):
+    """The plain version through the wrapper; the CPU path launches
+    nothing."""
+    plan = ScalePlan(*key)
+    n = plan.height_out if n is None else n
+    before = bilinear128.launches
+    got = bilinear128.scale_rows_fn(plan, torch.from_numpy(imgs), first, n)
+    assert bilinear128.launches == before
+    return got.numpy()
+
+
+def _interpret(built, fn):
+    """``fn()`` with every pallas_call in interpret mode; ``built``, the
+    Pallas kernel's cached builder, must have built it."""
+    built.cache_clear()
+    try:
+        with mock.patch.object(pl, "pallas_call", _interp_call):
+            out = np.asarray(fn())
+        assert built.cache_info().misses >= 1
+        return out
+    finally:
+        built.cache_clear()
+
+
+@pytest.mark.parametrize("key", ALL, ids=_id)
+def test_matches_numpy_ref(key):
+    plan = ScalePlan(*key)
+    assert bilinear128.applicable(plan) and plan.storage == StorageType.S128
+    imgs = _images(key, sum(key))
+    assert np.array_equal(_port(key, imgs), _spec(key, imgs))
+
+
+@pytest.mark.parametrize("key", COMPRESSED, ids=_id)
+def test_vs_pallas_128_interpret(key):
+    """TPU kernel #10, built for the plan and run in interpret mode."""
+    rp = ref_plan.ScalePlan(*key)
+    assert pallas_128.applicable(rp)
+    imgs = _images(key, sum(key) + 1)
+    tpu = _interpret(pallas_128._built, lambda: pallas_128.scale_fn(rp, imgs))
+    assert np.array_equal(_port(key, imgs), tpu)
+
+
+@pytest.mark.parametrize("key", LINEAR + RGB24, ids=_id)
+def test_vs_pallas_srgb_interpret(key):
+    """TPU kernel #11, built for the plan and run in interpret mode."""
+    rp = ref_plan.ScalePlan(*key)
+    assert pallas_srgb.applicable(rp)
+    imgs = _images(key, sum(key) + 1)
+    tpu = _interpret(pallas_srgb._built, lambda: pallas_srgb.scale_fn(rp, imgs))
+    assert np.array_equal(_port(key, imgs), tpu)
+
+
+@pytest.mark.parametrize("key", PLANES, ids=_id)
+def test_vs_pallas_srgb_planes_interpret(key):
+    """TPU kernel #12 (24bpp u8 planes) through the JAX dispatcher with its
+    module switches set, as tests/test_pallas_srgb.py runs it."""
+    rp = ref_plan.ScalePlan(*key)
+    assert pallas_srgb.applicable(rp) and rp.meta_in.n_bytes == 3
+    imgs = _images(key, sum(key) + 1)
+    xla._FORCE_PALLAS = True
+    xla._RGB24_PLANES = True
+    try:
+        tpu = _interpret(pallas_srgb._built_planes,
+                         lambda: jax.jit(lambda v: xla.scale_fn(rp, v))(imgs))
+    finally:
+        xla._FORCE_PALLAS = None
+        xla._RGB24_PLANES = False
+    assert np.array_equal(_port(key, imgs), tpu)
+
+
+def test_low_alpha_color_preserved():
+    """PREMUL16 keeps the colour of a nearly transparent pixel
+    (smolscale.c:751-758), as numpy_ref and TPU kernel #10 do."""
+    plan = ScalePlan(*LOW_ALPHA)
+    assert plan.internal_alpha == AlphaType.PREMUL16
+    img = np.zeros((1, 64, 64, 4), dtype=np.uint8)
+    img[..., 0] = 200
+    img[..., 3] = 1
+    got = _port(LOW_ALPHA, img)
+    assert np.array_equal(got, _spec(LOW_ALPHA, img))
+    rp = ref_plan.ScalePlan(*LOW_ALPHA)
+    assert np.array_equal(got, _interpret(pallas_128._built, lambda: pallas_128.scale_fn(rp, img)))
+    assert (np.abs(got[..., 0].astype(int) - 200) <= 1).all()
+
+
+def test_constant_255_keeps_the_16_bit_mask():
+    """A box axis at PREMUL16-linear: span sums of 2047*255 normalise past
+    16 bits and are masked (numpy_ref._scale_span), so a white image does
+    not stay white; the bilinear axis alone would keep it."""
+    key = (1100, 300, 80, 100, 4, 4, True)
+    imgs = np.full((1, 300, 1100, 4), 255, dtype=np.uint8)
+    got = _port(key, imgs)
+    assert np.array_equal(got, _spec(key, imgs))
+    assert got[0, 0, 0].tolist() == [97, 97, 97, 255]
+    key = (512, 256, 96, 56, 4, 4, True)
+    assert (_port(key, np.full((1, 256, 512, 4), 255, dtype=np.uint8)) == 255).all()
+
+
+@pytest.mark.parametrize("key,first,n", ROWS, ids=lambda v: _id(v) if isinstance(v, tuple) else str(v))
+def test_rows_match_jax(key, first, n):
+    imgs = _images(key, sum(key) + first)
+    want = smolscale_tpu.scale_rows(smolscale_tpu.ScalePlan(*key), imgs[0], first, n,
+                                    backend="jax")
+    got = _port(key, imgs, first, n)
+    assert got.shape == (2, n, key[2], stt.get_meta(key[5]).n_bytes)
+    assert np.array_equal(got[0], want)
+    assert np.array_equal(got, _spec(key, imgs)[:, first : first + n])
+
+
+@pytest.mark.parametrize("key", SUITE, ids=_id)
+def test_suite_rows_end_to_end(key):
+    """Rows 6, 6b and 7 at a small size through both packages' public
+    API: the port's dispatch reaches this kernel and gives the JAX
+    package's bytes, whole and streamed."""
+    imgs = _images(key, sum(key) + 2)
+    plan, rp = stt.ScalePlan(*key), smolscale_tpu.ScalePlan(*key)
+    assert bilinear128.applicable(plan)
+    assert not any(k.applicable(plan) for k in (box, bilinear, deep))
+    got = stt.scale(plan, torch.from_numpy(imgs))
+    want = smolscale_tpu.scale(rp, imgs, backend="jax")
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy(), _spec(key, imgs))
+    chunks = list(stt.scale_streamed(plan, imgs[0], n_chunks=4, device="cpu"))
+    assert np.array_equal(torch.cat([c for _, c in chunks]).numpy(), want[0])
+
+
+def _sweep():
+    for w_in, w_out in [(512, 96), (256, 200), (1100, 80), (2048, 8), (600, 2), (1000, 100),
+                        (333, 111), (9000, 1), (5000, 1), (64, 32), (300, 300)]:
+        for ti, to in [(0, 0), (4, 4), (4, 0), (8, 8), (2, 9), (8, 4)]:
+            for srgb in (False, True):
+                yield (w_in, w_in // 2 + 7, w_out, w_out + 1, ti, to, srgb)
+
+
+def test_class_covers_pallas_128_and_srgb():
+    """Every plan that TPU kernel #10 or #11 takes and the deep box kernel
+    does not, this kernel takes; it also takes S128 plans they refuse for
+    their geometry.  No plan of the class raises in the port's dispatch."""
+    taken = extra = 0
+    for key in _sweep():
+        rp, plan = ref_plan.ScalePlan(*key), ScalePlan(*key)
+        if (pallas_128.applicable(rp) or pallas_srgb.applicable(rp)) and not deep.applicable(plan):
+            assert bilinear128.applicable(plan), key
+            taken += 1
+        elif bilinear128.applicable(plan) and not deep.applicable(plan):
+            extra += 1
+        if bilinear128.applicable(plan):
+            assert plan.storage == StorageType.S128
+            assert any(k.applicable(plan) for k in torch_ops.WHOLE_KERNELS)
+            assert any(k.applicable(plan) for k in torch_ops.ROW_KERNELS)
+    assert taken > 40 and extra > 0
+    assert not bilinear128.applicable(ScalePlan(256, 256, 100, 100, 0, 0))        # 64bpp
+    assert not bilinear128.applicable(ScalePlan(256, 256, 256, 16, 0, 0, True))   # COPY x box
+
+
+def test_sum_bounds():
+    """csrc/bilinear128.cu holds box span sums in unsigned 32 bits and the
+    lerp in int32: the longest span the class admits, of the largest value
+    it can hold (65408 at compressed gamma; 2047*255 in linear light, which
+    the planner keeps to 8191:1), stays below 2^32; the lerp product and a
+    6-halving sum of 24-bit values stay below 2^31."""
+    p16 = (255 << 8) | 0x80
+    lin = int(luts.FROM_SRGB.max()) * 255
+    assert lin == 521985
+    for key, top in [((65535, 65535, 1, 1, 4, 4, False), p16),
+                     ((8191, 8191, 1, 1, 4, 4, True), lin)]:
+        plan = ScalePlan(*key)
+        assert bilinear128.applicable(plan)
+        assert (plan.gamma == GammaType.SRGB_LINEAR) == key[6]
+        for t in bilinear128.tables(plan):
+            first, _, _, mid_len, last, _ = t.reshape(6, -1)
+            assert (int(mid_len.max()) + 2) * top < 2**32
+    assert ScalePlan(8192, 8192, 1, 1, 4, 4, True).gamma == GammaType.SRGB_COMPRESSED
+    f_max = max(int(ScalePlan(w, 2, o, 2, 4, 4, True).x.factors.max())
+                for w, o in [(512, 96), (256, 200), (1000, 999), (65535, 300)])
+    assert f_max <= 256 and lin * f_max < 2**31
+    assert 64 * 0xFFFFFF < 2**31
+
+
+def test_5000_plan_no_longer_raises(monkeypatch):
+    """(5000, 5000, 1, 40): box x box with one output column plans into this
+    class and dispatches to this kernel, whole and by rows (not computed
+    here: 5000^2 in int64 is 800 MB; ONE_OUTPUT holds its stand-ins)."""
+    plan = stt.ScalePlan(5000, 5000, 1, 40, 0, 0)
+    assert plan.storage == StorageType.S128 and plan.x.filter == stt.FilterType.BOX
+    assert bilinear128.applicable(plan) and not deep.applicable(plan)
+    calls = []
+    monkeypatch.setattr(bilinear128, "scale_fn", lambda p, x: calls.append("whole"))
+    monkeypatch.setattr(bilinear128, "scale_rows_fn", lambda p, x, f, n: calls.append("rows"))
+    img = torch.zeros((1, 1, 4), dtype=torch.uint8).expand(5000, 5000, 4)
+    stt.scale(plan, img)
+    stt.scale_rows(plan, img, 3, 2)
+    assert calls == ["whole", "rows"]
+
+
+def test_dispatch_order(monkeypatch):
+    """Whole images: box, bilinear, deep, then this kernel; rows: bilinear,
+    deep, then this kernel."""
+    calls = []
+    for mod, name in ((box, "box"), (bilinear, "bilinear"), (deep, "deep"),
+                      (bilinear128, "bilinear128")):
+        monkeypatch.setattr(mod, "scale_fn", lambda plan, x, name=name: calls.append(name))
+        monkeypatch.setattr(mod, "scale_rows_fn",
+                            lambda plan, x, f, n, name=name: calls.append(name + " rows"),
+                            raising=False)
+    img = torch.zeros((2048, 2048, 4), dtype=torch.uint8)
+    stt.scale(ScalePlan(2048, 2048, 256, 256, 4, 4), img)         # row 7: PREMUL16 2h
+    stt.scale(ScalePlan(2048, 2048, 256, 256, 4, 4, True), img)   # row 6: linear light
+    stt.scale(ScalePlan(2048, 2048, 128, 128, 4, 4), img)         # PREMUL16 box x box
+    stt.scale(ScalePlan(2048, 2048, 1, 8, 0, 0), img)             # box x box, one column
+    stt.scale_rows(ScalePlan(2048, 2048, 256, 256, 4, 4), img, 0, 1)
+    stt.scale_rows(ScalePlan(2048, 2048, 8, 8, 0, 0), img, 0, 1)
+    assert calls == ["bilinear128", "bilinear128", "deep", "bilinear128",
+                     "bilinear128 rows", "deep rows"]
+
+
+def test_wrapper_rejects_bad_input():
+    plan = ScalePlan(512, 256, 96, 56, 4, 4, True)
+    with pytest.raises(TypeError):
+        bilinear128.scale_fn(plan, torch.zeros((256, 512, 4), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        bilinear128.scale_fn(plan, torch.zeros((256, 512, 3), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="class"):
+        bilinear128.scale_fn(ScalePlan(256, 256, 100, 100, 0, 0),
+                             torch.zeros((256, 256, 4), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="row range"):
+        bilinear128.scale_rows_fn(plan, torch.zeros((256, 512, 4), dtype=torch.uint8), 50, 7)
+    # a device with no kernel raises instead of falling back
+    with pytest.raises(ValueError, match="device"):
+        bilinear128.scale_fn(plan, torch.zeros((256, 512, 4), dtype=torch.uint8, device="meta"))
+
+
+def test_single_image_shape():
+    key = RGB24[0]
+    imgs = _images(key, 6, batch=1)
+    got = bilinear128.scale_fn(ScalePlan(*key), torch.from_numpy(imgs[0]))
+    assert tuple(got.shape) == (56, 96, 3)
+    assert np.array_equal(got.numpy(), _spec(key, imgs)[0])
+
+
+def test_kernel_params_follow_plan():
+    p = bilinear128._params(ScalePlan(2048, 2048, 256, 256, 4, 4, True), 8, 0, 256)
+    assert (p.batch, p.row0, p.n_rows, p.mode) == (8, 0, 256, deep.P16_LINEAR)
+    assert (p.kind_x, p.kind_y, p.halvings_x, p.len_x) == (bilinear.BILINEAR,) * 2 + (2, 1024)
+    q = bilinear128._params(ScalePlan(1920, 1080, 400, 225, 8, 8, True), 1, 7, 9)
+    assert (q.mode, q.row0, q.n_rows, q.nb_in, q.alpha_ch, q.pack24_direct) == (
+        deep.P8_LINEAR, 7, 9, 3, 3, 1)
+    r = bilinear128._params(ScalePlan(2000, 400, 1, 20, 0, 0), 2, 0, 20)
+    assert (r.kind_x, r.kind_y, r.len_x, r.len_y, r.mode) == (
+        bilinear.BOX, bilinear.BOX, 1, 20, deep.P8_COMPRESSED)
+    assert bilinear128._params(ScalePlan(2048, 2048, 256, 256, 4, 4), 1, 0, 1).mode == deep.P16_COMPRESSED
+    # the V box's last row at 128bpp: max(frac - 1, 0), as pallas_128's w2p
+    plan = ScalePlan(300, 1100, 100, 80, 4, 4)
+    assert plan.y.filter == stt.FilterType.BOX
+    ty = bilinear128.tables(plan)[1].reshape(6, -1)
+    assert np.array_equal(ty[5], np.maximum(plan.y.factors - 1, 0))
+    assert (ty[5] < plan.y.factors).any()
+
+
+def _smoke():
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_plans_are_held_here():
+    """chip_smoke.py holds the kernel against the plain version on the card;
+    every plan and row range it checks is held against numpy_ref by a test
+    of this file, and its suite rows are this class and no other's."""
+    mod = _smoke()
+    assert set(mod.WIDE_CHECK_PLANS) == set(ALL)
+    assert set(mod.WIDE_CHECK_ROWS) == set(ROWS)
+    assert mod.WIDE_CONST_PLAN in ALL
+    for _, key, _ in mod.WIDE_ROWS:
+        plan = stt.ScalePlan(*key)
+        assert bilinear128.applicable(plan)
+        assert not any(k.applicable(plan) for k in (box, bilinear, deep))

@@ -1,5 +1,5 @@
-"""The CUDA kernels (box, the general 64bpp kernel and the deep box kernel)
-against their plain PyTorch versions, on the card.
+"""The CUDA kernels (box, the general 64bpp kernel, the deep box kernel and
+the 128bpp kernel) against their plain PyTorch versions, on the card.
 
 Tests marked ``cuda`` skip without a CUDA device.  This file imports no JAX
 (of the JAX package it uses only the numpy-only ``numpy_ref`` and planner),
@@ -19,7 +19,7 @@ import torch
 import smolscale_tpu_torch as stt
 from smolscale_tpu.backends import numpy_ref
 from smolscale_tpu.plan import ScalePlan as RefPlan
-from smolscale_tpu_torch.ops import _build, bilinear, box, deep
+from smolscale_tpu_torch.ops import _build, bilinear, bilinear128, box, deep
 from smolscale_tpu_torch.utils import timing
 
 PLANS = [
@@ -54,17 +54,18 @@ BILINEAR_PLANS = [
 ]
 
 
-
-def _smoke_deep_plans():
-    """chip_smoke.py's DEEP_CHECK_PLANS (7-tuples, with_srgb last)."""
+def _smoke():
+    """chip_smoke.py as a module, for its check lists (7-tuples, with_srgb
+    last)."""
     path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.DEEP_CHECK_PLANS
+    return mod
 
 
-DEEP_PLANS = _smoke_deep_plans()
+DEEP_PLANS = _smoke().DEEP_CHECK_PLANS
+WIDE_PLANS = _smoke().WIDE_CHECK_PLANS
 
 
 @pytest.fixture
@@ -200,6 +201,47 @@ def test_deep_row_api(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("key", WIDE_PLANS, ids=_id)
+def test_bilinear128_kernel_matches_plain(cuda_device, key):
+    plan = stt.ScalePlan(*key)
+    rng = np.random.default_rng(sum(key))
+    imgs = rng.integers(0, 256, (2, key[1], key[0], plan.meta_in.n_bytes), dtype=np.uint8)
+    x = torch.from_numpy(imgs).to(cuda_device)
+    before = bilinear128.launches
+    got = bilinear128.scale_fn(plan, x)
+    assert bilinear128.launches == before + 1
+    plain = bilinear128.bilinear128_scale_ref(plan, x)
+    torch.cuda.synchronize()
+    assert got.device == cuda_device and torch.equal(got, plain)
+    assert np.array_equal(got[1].cpu().numpy(), numpy_ref.scale(RefPlan(*key), imgs[1]))
+    # row ranges: a middle one, the last row
+    h = plan.height_out
+    for first, n in ((h // 3, max(1, h // 2)), (h - 1, 1)):
+        assert torch.equal(bilinear128.scale_rows_fn(plan, x, first, n),
+                           plain[:, first : first + n])
+
+
+@pytest.mark.cuda
+def test_bilinear128_row_api(cuda_device):
+    plan = stt.ScalePlan(2048, 2048, 256, 256, 4, 4, True)   # row 6
+    x = torch.randint(0, 256, (2, 2048, 2048, 4), dtype=torch.uint8, device=cuda_device)
+    want = bilinear128.bilinear128_scale_ref(plan, x)
+    before = bilinear128.launches
+    assert torch.equal(stt.scale(plan, x), want)
+    chunks = list(stt.scale_streamed(plan, x, n_chunks=4))
+    assert bilinear128.launches == before + 5
+    assert [f for f, _ in chunks] == [0, 64, 128, 192]
+    assert torch.equal(torch.cat([r for _, r in chunks], dim=1), want)
+    # unaligned 4-byte pixels take the byte-load path
+    flat = torch.empty(x.numel() + 1, dtype=torch.uint8, device=cuda_device)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert torch.equal(stt.scale_rows(plan, shifted, 5, 2), want[:, 5:7])
+    with pytest.raises(ValueError, match="contiguous"):
+        bilinear128.scale_fn(plan, x.transpose(1, 2))
+
+
+@pytest.mark.cuda
 def test_cuda_timer(cuda_device):
     x = torch.zeros(1 << 20, device=cuda_device)
     ms = timing.cuda_time_ms(lambda: x.add_(1), warmup=1, iters=5)
@@ -230,6 +272,19 @@ def test_device_busy(cuda_device, tmp_path):
     x = torch.zeros(1 << 20, device=cuda_device)
     got = timing.device_busy(lambda: x.add_(1), str(tmp_path / "t.json"), iters=5)
     assert 0 < got["busy_share"] <= 1 and got["window_ms"] > 0
+
+
+def test_build_digest_follows_headers(monkeypatch, tmp_path):
+    """The build stamp hashes every file under csrc/, so an edited header
+    that a source includes rebuilds the library."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._digest()
+    assert _build._digest() == before
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build._digest() != before
+    assert [p.name for p in _build._sources()] == ["k.cu"]
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):

@@ -25,7 +25,7 @@ from smolscale_tpu.backends import numpy_ref, xla
 from smolscale_tpu.ops import pallas_deep
 from smolscale_tpu_torch.backends import torch_ops
 from smolscale_tpu_torch.formats import AlphaType, GammaType, StorageType
-from smolscale_tpu_torch.ops import bilinear, box, deep, pixels
+from smolscale_tpu_torch.ops import bilinear, bilinear128, box, deep, pixels
 from smolscale_tpu_torch.plan import ScalePlan
 
 _ORIG = pl.pallas_call
@@ -301,19 +301,36 @@ def test_dispatch_order(monkeypatch):
 @pytest.mark.parametrize(
     "key,item",
     [
-        ((5000, 5000, 1, 40, 0, 0, False), "A3"),     # one output column
         ((256, 256, 256, 16, 0, 0, True), "A3"),      # COPY x box, linear
         ((6500, 100, 100, 50, 0, 0, False), "A3"),    # 65:1 box x bilinear at 64bpp
-        ((256, 256, 100, 100, 4, 4, False), "B5"),    # PREMUL16, bilinear
-        ((4096, 512, 16, 500, 0, 0, False), "B5"),    # 128bpp box x bilinear
-        ((256, 256, 100, 100, 0, 0, True), "B6"),     # linear, bilinear
     ],
     ids=lambda v: v if isinstance(v, str) else _id(v),
 )
 def test_roadmap_item(key, item):
     plan = ScalePlan(*key)
-    assert not any(k.applicable(plan) for k in (box, bilinear, deep))
-    assert torch_ops._roadmap_item(plan).startswith(item)
+    assert not any(k.applicable(plan) for k in torch_ops.WHOLE_KERNELS)
+    with pytest.raises(NotImplementedError, match=item):
+        stt.scale(plan, torch.zeros((key[1], key[0], 4), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize(
+    "key",
+    [
+        (2000, 400, 1, 20, 0, 0, False),     # one output column, past 255:1
+        (256, 256, 100, 100, 4, 4, False),   # PREMUL16, bilinear
+        (4096, 512, 16, 500, 0, 0, False),   # 128bpp box x bilinear
+        (256, 256, 100, 100, 0, 0, True),    # linear, bilinear
+    ],
+    ids=_id,
+)
+def test_beside_the_class_runs_on_bilinear128(key):
+    """128bpp plans outside this class (a bilinear axis, or a box axis with
+    one output) go to the 128bpp kernel, which gives numpy_ref's bytes."""
+    plan = ScalePlan(*key)
+    assert not deep.applicable(plan) and bilinear128.applicable(plan)
+    imgs = _images(key, sum(key), batch=1)
+    got = stt.scale(plan, torch.from_numpy(imgs))
+    assert np.array_equal(got.numpy(), _spec(key, imgs))
 
 
 def test_wrapper_rejects_bad_input():

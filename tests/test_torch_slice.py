@@ -8,7 +8,8 @@ Small analogues of the suite rows on the ported path: 0 (box x box), 3e
 0h), 3c (2h) and 3d (non-integer box) on the general kernel; 7b (256:1 at
 128bpp), 9 (ragged 341.3:1), 9b (PREMUL16), 9c (sRGB linear light) and 9d
 (RGB24) on the deep box kernel; plus 24bpp, unassociated input and a COPY x
-COPY repack.  The tolerance is byte equality.
+COPY repack; and 128bpp plans with a bilinear axis or one output column on
+the 128bpp kernel.  The tolerance is byte equality.
 """
 
 import numpy as np
@@ -43,6 +44,11 @@ SLICE_PLANS = [
     (512, 512, 3, 3, 4, 4),      # row 9b analogue: PREMUL16, 170.7:1
     (572, 572, 2, 2, 0, 0, True),  # row 9c analogue: sRGB linear light, 286:1
     (999, 999, 3, 3, 8, 8),      # row 9d analogue: RGB24, 333:1
+    # 128bpp kernel
+    (256, 256, 100, 100, 0, 0, True),    # sRGB linear light, bilinear
+    (256, 256, 100, 100, 4, 4, False),   # PREMUL16, bilinear
+    (4096, 512, 16, 500, 0, 0, False),   # 256:1 box x bilinear at 128bpp
+    (2000, 400, 1, 20, 0, 0, False),     # box x box with one output column, 2000:1
 ]
 
 
@@ -117,11 +123,9 @@ def test_scale_simple():
 @pytest.mark.parametrize(
     "key,item",
     [
-        ((256, 256, 100, 100, 0, 0, True), "B6"),    # sRGB linear light, bilinear
-        ((256, 256, 100, 100, 4, 4, False), "B5"),   # PREMUL16, bilinear
-        ((4096, 512, 16, 500, 0, 0, False), "B5"),   # 256:1 box x bilinear at 128bpp
-        ((5000, 5000, 1, 40, 0, 0, False), "A3"),    # box x box with one output column
         ((256, 256, 256, 16, 0, 0, True), "A3"),     # COPY x box in linear light
+        ((6500, 100, 100, 50, 0, 0, False), "A3"),   # 65:1 box x bilinear at 64bpp
+        ((300, 600, 1, 600, 4, 4, False), "A3"),     # box x COPY at 128bpp
     ],
     ids=lambda v: v if isinstance(v, str) else _id(v),
 )
@@ -133,17 +137,39 @@ def test_other_plans_raise(key, item):
 
 
 @pytest.mark.parametrize(
+    "key",
+    [
+        (2000, 400, 1, 20, 0, 0, False),     # one output column
+        (256, 256, 100, 100, 4, 4, False),   # PREMUL16
+        (256, 256, 100, 100, 0, 0, True),    # sRGB linear light
+    ],
+    ids=_id,
+)
+def test_128bpp_rows_match_jax_and_spec(key):
+    """The same plans by rows and streamed, against the JAX package's row
+    API and numpy_ref."""
+    img = _images(key, sum(key), batch=1)[0]
+    plan, rp = stt.ScalePlan(*key), smolscale_tpu.ScalePlan(*key)
+    got = stt.scale_rows(plan, img, 3, 5, device="cpu")
+    assert np.array_equal(got.numpy(), smolscale_tpu.scale_rows(rp, img, 3, 5, backend="jax"))
+    assert np.array_equal(got.numpy(), numpy_ref.scale(rp, img)[3:8])
+    ours = list(stt.scale_streamed(plan, img, n_chunks=3, device="cpu"))
+    theirs = list(smolscale_tpu.scale_streamed(rp, img, n_chunks=3, backend="jax"))
+    assert [f for f, _ in ours] == [f for f, _ in theirs]
+    assert all(np.array_equal(a.numpy(), np.asarray(b)) for (_, a), (_, b) in zip(ours, theirs))
+
+
+@pytest.mark.parametrize(
     "key,item",
     [
-        ((5000, 5000, 1, 40, 0, 0, False), "A3"),    # one output column
-        ((256, 256, 100, 100, 4, 4, False), "B5"),   # PREMUL16
-        ((256, 256, 100, 100, 0, 0, True), "B6"),    # sRGB linear light
+        ((256, 256, 256, 16, 0, 0, True), "A3"),     # COPY x box in linear light
+        ((300, 600, 1, 600, 4, 4, False), "A3"),     # box x COPY at 128bpp
     ],
     ids=lambda v: v if isinstance(v, str) else _id(v),
 )
 def test_other_plans_raise_for_rows(key, item):
-    """The row API runs on the general and the deep box kernels; other
-    plans raise by rows as they do whole."""
+    """The row API runs on the general, the deep box and the 128bpp
+    kernels; other plans raise by rows as they do whole."""
     plan = stt.ScalePlan(*key)
     imgs = torch.zeros((key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match=item):
