@@ -19,13 +19,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    each row range of ``DEEP_CHECK_ROWS`` (``ops.deep.deep_scale_ref``), the
    128bpp kernel on each plan of ``WIDE_CHECK_PLANS`` (one of them also on
    a constant-255 batch) and each row range of ``WIDE_CHECK_ROWS``
-   (``ops.bilinear128.bilinear128_scale_ref``), and all four on an input
-   that is not 4-byte aligned.  Bytes must be equal.  The plain versions
-   are held against the numpy spec (``backends/numpy_ref`` of the JAX
-   package) and the Pallas kernels on the CPU by
-   ``tests/test_torch_box.py``, ``tests/test_torch_bilinear.py``,
-   ``tests/test_torch_deep.py`` and ``tests/test_torch_bilinear128.py``;
-   this script imports nothing of the JAX package.
+   (``ops.bilinear128.bilinear128_scale_ref``), all four on an input that
+   is not 4-byte aligned, and the pyramid kernel on each set of
+   ``PYRAMID_CHECK_SETS`` and the unaligned inputs of ``PYRAMID_UNALIGNED``
+   (``ops.pyramid.pyramid_scale_ref``, every level).  Bytes must be equal.
+   The plain versions are held against the numpy spec
+   (``backends/numpy_ref`` of the JAX package) and the Pallas kernels on
+   the CPU by ``tests/test_torch_box.py``, ``tests/test_torch_bilinear.py``,
+   ``tests/test_torch_deep.py``, ``tests/test_torch_bilinear128.py`` and
+   ``tests/test_torch_pyramid.py``; this script imports nothing of the JAX
+   package.
 4. Main paths at the suite rows' full published sizes
    (``benchmarks/suite.py``), each with its kernel's launch counter set to
    0 just before and read just after: ``smolscale_tpu_torch.scale`` on rows
@@ -34,23 +37,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (general kernel); then on rows 7b, 9, 9b, 9c and 9d, and
    ``scale_streamed`` on row 9 in 4 chunks (deep box kernel); then on rows
    6, 6b and 7, and ``scale_streamed`` on row 7 in 4 chunks (128bpp
-   kernel).  Every image's bytes must equal the plain version.
+   kernel); then ``make_pyramid_fn`` on row 5 (256 x 512^2 RGBA -> (64, 128,
+   256): exactly one pyramid launch, no general-kernel launch) and
+   ``scale_pyramid_mixed`` on row 5b (the suite's 10,000-image fleet, 192 MiB
+   sub-batches: one pyramid launch per sub-batch of the three fused groups,
+   one level-kernel launch per level of the other two).  Every image's
+   bytes must equal the plain version (row 5b: one probe image per group).
 5. Times: kernel and plain version by CUDA events, in turns plain, kernel,
    kernel, plain; Mpix/s and GB/s of input (and of output) with the share
-   of HBM peak.  Also the rows of ``EXTRA_ROWS``, on no suite row and
-   checked against the plain version first: RGB24 4096^2 -> 256^2 (the box
-   kernel's 24bpp form), COPY x COPY 1024^2 (the general kernel's cost per
-   output pixel without filtering, beside row 2) and row 0 on the general
-   kernel (beside the box kernel).
-6. Device busy share over 10 back-to-back ``scale`` calls per row of
+   of HBM peak, and each row's bound (its input and output bytes at the
+   HBM peak) with the kernel's share of it.  Also the rows of
+   ``EXTRA_ROWS``, on no suite row and checked against the plain version
+   first: RGB24 4096^2 -> 256^2 (the box kernel's 24bpp form), COPY x COPY
+   1024^2 (the general kernel's cost per output pixel without filtering,
+   beside row 2) and row 0 on the general kernel (beside the box kernel).
+   Row 5 is also timed level by level on the general kernel (three
+   launches); row 5b as pyramids/s on the pre-uploaded fleet (resident)
+   and end to end through ``scale_pyramid_mixed`` on 2,000 of its images
+   (cold), as ``benchmarks/suite.py`` reports them.
+6. Device busy share over 10 back-to-back calls of the public entry point
+   (``scale``; ``make_pyramid_fn``'s function for row 5) per row of
    ``BUSY_ROWS``, from a ``torch.profiler`` trace (written to
    ``build/traces/``); then the same calls unprofiled: host enqueue time
    per call, and the share of an event-pair window that the kernel's
    phase-5 time fills.
 
-All inputs are views of one random 512 MiB tensor made from a seed.  The
-line before the last is a JSON object describing each kernel; the last line
-is ``{"ok": true, "device": {...}}``.  Nothing here imports JAX.
+All inputs but row 5b's are views of one random 512 MiB tensor made from a
+seed; the row 5b fleet is made on the host from seed 0 as the suite makes
+it.  The line before the last is a JSON object describing each kernel (its
+launches summed over the main paths of phase 4, row 5b's level-by-level
+groups included); the last line is ``{"ok": true, "device": {...}}``.
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -288,8 +305,53 @@ EXTRA_ROWS = [
     # the headline on the general kernel, beside the box kernel's row 0
     ("row 0 on bilinear", (4096, 4096, 256, 256, 0, 0), 8, "bilinear"),
 ]
+# the pyramid kernel's sets: (w_in, h_in, ((w_out, h_out), ...), type_in,
+# type_out), with_srgb False.  Those of tests/test_torch_pyramid.py (the
+# sets of tests/test_pallas_pyramid.py, which hold the plain version against
+# numpy_ref and Pallas kernel #9), four that the TPU's gates keep out, one
+# with all nine (halvings x, halvings y) slots and a 24bpp set with one
+# halving-free axis
+_L3 = ((64, 32), (128, 64), (256, 128))
+PYRAMID_CHECK_SETS = [
+    (512, 512, ((64, 64), (128, 128), (256, 256)), 0, 0),  # row 5
+    (512, 512, ((64, 64), (128, 128), (256, 256)), 1, 0),  # BGRA -> RGBA
+    (256, 128, ((32, 16), (64, 32), (128, 64)), 2, 3),     # ARGB -> ABGR
+    (1280, 320, ((160, 40), (320, 80)), 3, 3),             # 8:1 / 4:1
+    (256, 256, ((32, 32), (64, 64)), 0, 0),
+    (512, 256, _L3, 4, 0),                                 # unassociated in
+    (512, 256, _L3, 5, 1),
+    (512, 256, _L3, 0, 4),                                 # unassociated out
+    (512, 256, _L3, 8, 8),                                 # RGB24
+    (512, 256, _L3, 9, 9),
+    (512, 256, _L3, 9, 8),
+    (96, 128, ((24, 32), (48, 64)), 0, 0),                 # width not a multiple of 128
+    (320, 256, ((40, 32), (80, 64)), 0, 0),
+    (2048, 2048, ((256, 256), (512, 512)), 0, 0),          # past the TPU's VMEM budget
+    (4096, 512, ((512, 64), (1024, 128)), 0, 0),           # 4096 wide
+    (64, 64, tuple((w, h) for w in (32, 16, 8) for h in (32, 16, 8)), 6, 1),
+    (24, 40, ((12, 20), (12, 10)), 9, 8),
+]
+# (index into PYRAMID_CHECK_SETS, byte offset of the input): inputs that are
+# not 16- or 4-byte aligned take the kernel's narrower load paths
+PYRAMID_UNALIGNED = [(0, 1), (0, 4), (8, 1), (15, 2)]
+# suite row 5 (benchmarks/suite.py:82-127): 256 x RGBA premul 512^2 -> (64,
+# 128, 256) through make_pyramid_fn
+PYRAMID_ROW = ("row 5", (512, 512, (64, 128, 256), 0), 256)
+# suite row 5b (suite.py:130-255): a fleet of 10,000 images, (share, (h, w),
+# pixel type) per group, 32 templates per group cycled, seed 0, sub-batches
+# of at most 192 MiB, through scale_pyramid_mixed; the cold figure on every
+# 5th image (2,000)
+FLEET_SPEC = [
+    (0.30, (512, 512), 0),
+    (0.20, (512, 512), 4),
+    (0.15, (512, 512), 1),
+    (0.20, (512, 512), 8),
+    (0.15, (384, 384), 0),
+]
+FLEET_SIZE, FLEET_TEMPLATES, FLEET_COLD = 10_000, 32, 2_000
+FLEET_SIZES, FLEET_BATCH_BYTES = (64, 128, 256), 192 * 2**20
 BUSY_ROWS = ["row 0", "row 3e", "row 8", "rgb24", "row 1b", "row 3d", "row 7b", "row 9c",
-             "row 6"]
+             "row 6", "row 5"]
 HBM_PEAK_GBS = 3350.0  # H100 SXM data sheet, at the 700 W power limit
 
 
@@ -315,6 +377,42 @@ def view_input(x, plan, batch):
     return x.view(-1)[: int(np.prod(shape))].view(shape)
 
 
+def bound_ms(in_bytes: int, out_bytes: int) -> float:
+    """The least time the card could take: each input byte read once and each
+    output byte written once at the HBM peak.  The kernels do a few integer
+    operations per byte, so the operations' bound is far below it."""
+    return (in_bytes + out_bytes) / (HBM_PEAK_GBS * 1e9) * 1e3
+
+
+def make_fleet():
+    """The row 5b fleet (suite.py:157-176): images and pixel types."""
+    rng = np.random.default_rng(0)
+    images, types = [], []
+    for share, (h, w), pt in FLEET_SPEC:
+        n = int(round(share * FLEET_SIZE))
+        nb = 3 if pt >= 8 else 4
+        tpl = [rng.integers(0, 256, (h, w, nb), dtype=np.uint8) for _ in range(FLEET_TEMPLATES)]
+        images += [tpl[i % FLEET_TEMPLATES] for i in range(n)]
+        types += [pt] * n
+    return images, types
+
+
+def fleet_batches(images, types):
+    """The sub-batches scale_pyramid_mixed makes of a fleet, as (group key,
+    indices, padded size): grouped by (shape, type), at most
+    FLEET_BATCH_BYTES each, a remainder padded to the group's size."""
+    groups: dict = {}
+    for i, (img, pt) in enumerate(zip(images, types)):
+        groups.setdefault((img.shape, pt), []).append(i)
+    out = []
+    for key, idxs in groups.items():
+        cap = max(1, min(len(idxs), FLEET_BATCH_BYTES // int(np.prod(key[0]))))
+        for c0 in range(0, len(idxs), cap):
+            sub = idxs[c0 : c0 + cap]
+            out.append((key, sub, cap if c0 > 0 else len(sub)))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -323,7 +421,8 @@ def main() -> int:
         return 1
 
     import smolscale_tpu_torch as stt
-    from smolscale_tpu_torch.ops import _build, bilinear, bilinear128, box, deep
+    from smolscale_tpu_torch.backends import torch_ops
+    from smolscale_tpu_torch.ops import _build, bilinear, bilinear128, box, deep, pyramid
     from smolscale_tpu_torch.utils.timing import cuda_time_ms, device_busy
 
     t_start = time.perf_counter()
@@ -345,7 +444,7 @@ def main() -> int:
             log(f"[build] {line.strip()}")
 
     # 3. kernels against their plain versions
-    err = {"box": 0, "bilinear": 0, "deep": 0, "bilinear128": 0}
+    err = {"box": 0, "bilinear": 0, "deep": 0, "bilinear128": 0, "pyramid": 0}
 
     def check(kind, label, got, plain):
         torch.cuda.synchronize()
@@ -432,6 +531,41 @@ def main() -> int:
         shifted = flat[1:].view(imgs.shape)
         shifted.copy_(imgs)
         check(kind, f"{key} unaligned", mod.scale_fn(plan, shifted), plain(plan, imgs))
+
+    def pyramid_plans(case):
+        w, h, outs, ti, to = case
+        return tuple(stt.ScalePlan(w, h, wo, ho, ti, to, False) for wo, ho in outs)
+
+    def check_levels(label, got, plain):
+        torch.cuda.synchronize()
+        if len(got) != len(plain):
+            raise AssertionError(f"{label}: {len(got)} levels, plain version {len(plain)}")
+        for g, want in zip(got, plain):
+            e = max_abs_err(g, want)
+            err["pyramid"] = max(err["pyramid"], e)
+            if g.shape != want.shape or not torch.equal(g, want):
+                raise AssertionError(f"{label}: pyramid kernel level {tuple(want.shape)} "
+                                     f"differs from plain version (max abs err {e})")
+        log(f"[check] pyramid {label}: kernel == plain, levels "
+            f"{[tuple(g.shape) for g in got]}")
+
+    for i, case in enumerate(PYRAMID_CHECK_SETS):
+        plans_ = pyramid_plans(case)
+        if not pyramid.applicable(plans_):
+            raise AssertionError(f"{case}: outside the pyramid class")
+        imgs = random_images((case[0], case[1], 0, 0, case[3]), 8000 + i)
+        check_levels(case, pyramid.pyramid_fn(plans_, imgs),
+                     pyramid.pyramid_scale_ref(plans_, imgs))
+    for i, offset in PYRAMID_UNALIGNED:
+        case = PYRAMID_CHECK_SETS[i]
+        plans_ = pyramid_plans(case)
+        imgs = random_images((case[0], case[1], 0, 0, case[3]), 8500 + i)
+        flat = torch.empty(imgs.numel() + offset, dtype=torch.uint8, device=dev)
+        shifted = flat[offset:].view(imgs.shape)
+        shifted.copy_(imgs)
+        check_levels(f"{case} at byte offset {offset}", pyramid.pyramid_fn(plans_, shifted),
+                     pyramid.pyramid_scale_ref(plans_, imgs))
+    del imgs, flat, shifted
 
     # 4. main paths at full size
     t0 = time.perf_counter()
@@ -530,6 +664,79 @@ def main() -> int:
           bilinear128.bilinear128_scale_ref(plan, inputs[WIDE_STREAM_ROW]))
     del outs, chunks
 
+    # row 5: one launch of the pyramid kernel for every level of 256 images
+    name5, (w5, h5, sizes5, pt5), batch5 = PYRAMID_ROW
+    plans5 = tuple(stt.ScalePlan(w5, h5, sz, sz, pt5, pt5, False) for sz in sizes5)
+    x5 = view_input(x, plans5[0], batch5)
+    pyr_fn = stt.make_pyramid_fn(w5, h5, pt5, sizes=sizes5)
+    pyramid.launches = bilinear.launches = 0
+    outs5 = pyr_fn(x5)
+    torch.cuda.synchronize()
+    row5_launches = pyramid.launches
+    log(f"[main] pyramid kernel launches in {name5}'s main path: {row5_launches}; bilinear "
+        f"kernel launches: {bilinear.launches}")
+    if row5_launches != 1 or bilinear.launches != 0:
+        raise AssertionError(f"{name5} did not run as one launch of the pyramid kernel")
+    check_levels(f"{name5} ({batch5} images)", outs5, pyramid.pyramid_scale_ref(plans5, x5))
+    del outs5
+
+    # row 5b: the mixed fleet through scale_pyramid_mixed
+    t0 = time.perf_counter()
+    images, types = make_fleet()
+    batches = fleet_batches(images, types)
+    group_plans = {
+        key: tuple(stt.ScalePlan(key[0][1], key[0][0], sz, sz, key[1], key[1], False)
+                   for sz in FLEET_SIZES)
+        for key, _, _ in batches
+    }
+    log(f"[main] row 5b fleet: {len(images)} images, {len(group_plans)} groups, "
+        f"{len(batches)} sub-batches, made in {time.perf_counter() - t0:.1f} s")
+    level_kernels = {"box": box, "bilinear": bilinear, "deep": deep,
+                     "bilinear128": bilinear128, "pyramid": pyramid}
+    plain_of = {"box": box.box_scale_ref, "bilinear": bilinear.bilinear_scale_ref,
+                "deep": deep.deep_scale_ref, "bilinear128": bilinear128.bilinear128_scale_ref}
+
+    def kernel_of(plan):
+        mod = next(m for m in torch_ops.WHOLE_KERNELS if m.applicable(plan))
+        return next(k for k, m in level_kernels.items() if m is mod)
+
+    expect = dict.fromkeys(level_kernels, 0)
+    for key, _, _ in batches:
+        if pyramid.applicable(group_plans[key]):
+            expect["pyramid"] += 1
+        else:
+            for p_ in group_plans[key]:
+                expect[kernel_of(p_)] += 1
+    for mod in level_kernels.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    fleet = stt.scale_pyramid_mixed(images, types, sizes=FLEET_SIZES,
+                                    max_batch_bytes=FLEET_BATCH_BYTES)
+    fleet_s = time.perf_counter() - t0
+    fleet_launches = {k: m.launches for k, m in level_kernels.items()}
+    log(f"[main] row 5b: {len(images)} pyramids end to end in {fleet_s:.3f} s "
+        f"(first call); launches {fleet_launches}, expected {expect}")
+    if fleet_launches != expect:
+        raise AssertionError("row 5b did not launch one pyramid kernel per fused sub-batch "
+                             "and one level kernel per level of the others")
+    for i, img in enumerate(images):
+        want = [(sz, sz, img.shape[2]) for sz in FLEET_SIZES]
+        if [o.shape for o in fleet[i]] != want or any(o.dtype != np.uint8 for o in fleet[i]):
+            raise AssertionError(f"row 5b image {i}: levels {[o.shape for o in fleet[i]]}")
+    probed = set()
+    for key, sub, _ in batches:  # the first image of each group
+        if key in probed:
+            continue
+        probed.add(key)
+        plans_, img = group_plans[key], torch.from_numpy(images[sub[0]]).to(dev)
+        if pyramid.applicable(plans_):
+            plain = pyramid.pyramid_scale_ref(plans_, img)
+        else:
+            plain = tuple(plain_of[kernel_of(p_)](p_, img) for p_ in plans_)
+        check_levels(f"row 5b probe image {sub[0]} {key}",
+                     [torch.from_numpy(o).to(dev) for o in fleet[sub[0]]], plain)
+    del fleet
+
     for name, _, batch, kind in EXTRA_ROWS:
         kernel_fn, plain_fn = kernels[kind]
         check(kind, f"{name} {plans[name].key} ({batch} images)",
@@ -547,7 +754,7 @@ def main() -> int:
     timed += [(row, *kernels["deep"]) for row in DEEP_ROWS]
     timed += [(row, *kernels["bilinear128"]) for row in WIDE_ROWS]
     timed += [(row[:3], *kernels[row[3]]) for row in EXTRA_ROWS]
-    times = {}
+    times, bounds = {}, {}
     for (name, _, batch), kernel_fn, plain_fn in timed:
         plan, xin = plans[name], inputs[name]
         p1 = cuda_time_ms(lambda: plain_fn(plan, xin), warmup=1, iters=5)
@@ -559,6 +766,10 @@ def main() -> int:
         pix = batch * plan.height_in * plan.width_in
         in_bytes = pix * plan.meta_in.n_bytes
         out_bytes = batch * plan.height_out * plan.width_out * plan.meta_out.n_bytes
+        bounds[name] = bound_ms(in_bytes, out_bytes)
+        log(f"[bound] {name}: {bounds[name]:.4f} ms ({in_bytes} + {out_bytes} bytes at "
+            f"{HBM_PEAK_GBS:.0f} GB/s); kernel at {100 * bounds[name] / k_ms:.1f}% of it, "
+            f"on {card}")
         for label, ms, turns in (("kernel", k_ms, (k1, k2)), ("plain", p_ms, (p1, p2))):
             sec = ms / 1e3
             in_gbs, out_gbs = in_bytes / 1e9 / sec, out_bytes / 1e9 / sec
@@ -568,13 +779,107 @@ def main() -> int:
                 f"{out_gbs:.1f} GB/s of output (in + out "
                 f"{100 * (in_gbs + out_gbs) / HBM_PEAK_GBS:.1f}%), on {card}")
 
+    # row 5: the pyramid kernel, its plain version, and the same levels level
+    # by level on the general kernel (three launches, each reading the batch)
+    def levels_on_bilinear():
+        for p_ in plans5:
+            bilinear.scale_fn(p_, x5)
+
+    p1 = cuda_time_ms(lambda: pyramid.pyramid_scale_ref(plans5, x5), warmup=1, iters=3)
+    k1 = cuda_time_ms(lambda: pyramid.pyramid_fn(plans5, x5))
+    l1 = cuda_time_ms(levels_on_bilinear)
+    k2 = cuda_time_ms(lambda: pyramid.pyramid_fn(plans5, x5))
+    l2 = cuda_time_ms(levels_on_bilinear)
+    p2 = cuda_time_ms(lambda: pyramid.pyramid_scale_ref(plans5, x5), warmup=1, iters=3)
+    k_ms, p_ms, l_ms = (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
+    times[name5] = (k_ms, p_ms)
+    in_bytes = x5.numel()
+    out_bytes = sum(batch5 * p_.height_out * p_.width_out * 4 for p_ in plans5)
+    bounds[name5] = bound_ms(in_bytes, out_bytes)
+    for label, ms, turns in (("kernel", k_ms, (k1, k2)), ("plain", p_ms, (p1, p2)),
+                             ("level by level on bilinear.cu", l_ms, (l1, l2))):
+        gbs = (in_bytes + out_bytes) / 1e9 / (ms / 1e3)
+        log(f"[time] {name5} {label}: {ms:.4f} ms (turns {turns[0]:.4f}, {turns[1]:.4f}), "
+            f"{batch5 / (ms / 1e3):.1f} pyramids/s, {gbs:.1f} GB/s in + out "
+            f"({100 * gbs / HBM_PEAK_GBS:.1f}% of {HBM_PEAK_GBS:.0f} GB/s), on {card}")
+    log(f"[bound] {name5}: {bounds[name5]:.4f} ms ({in_bytes} + {out_bytes} bytes at "
+        f"{HBM_PEAK_GBS:.0f} GB/s); kernel at {100 * bounds[name5] / k_ms:.1f}% of it, "
+        f"level by level at {100 * bounds[name5] / l_ms:.1f}%, on {card}")
+
+    # row 5b resident: every sub-batch uploaded first, then all of them
+    # called back to back (host clock to a synchronize, and an event pair)
+    fns = {key: stt.make_pyramid_fn(key[0][1], key[0][0], key[1], sizes=FLEET_SIZES)
+           for key in group_plans}
+    resident = []
+    for key, sub, size in batches:
+        idx = sub + [sub[-1]] * (size - len(sub))
+        resident.append((key, fns[key],
+                         torch.from_numpy(np.stack([images[i] for i in idx])).to(dev)))
+    fleet_in_bytes = sum(xb.numel() for _, _, xb in resident)
+
+    def sweep(group=None):
+        for key, fn, xb in resident:
+            if group is None or key == group:
+                fn(xb)
+
+    sweep()
+    torch.cuda.synchronize()
+    walls, windows = [], []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        sweep()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        windows.append(start.elapsed_time(end))
+    wall = min(walls)
+    log(f"[time] row 5b resident: {len(images) / wall:.1f} pyramids/s ({len(images)} images, "
+        f"{len(resident)} sub-batches of {fleet_in_bytes} input bytes, best of 3 sweeps "
+        f"{wall * 1e3:.3f} ms host clock, {[round(w, 4) for w in windows]} ms device "
+        f"windows), on {card}")
+    # each group's share of the sweep, beside its bound; a whole sweep is
+    # queued first, so that no group's window waits for the host's enqueue
+    marks = []
+    sweep()
+    for key in group_plans:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        sweep(key)
+        end.record()
+        marks.append((key, start, end))
+    torch.cuda.synchronize()
+    for key, start, end in marks:
+        xbs = [xb for k, _, xb in resident if k == key]
+        n_img = sum(xb.shape[0] for xb in xbs)
+        g_in = sum(xb.numel() for xb in xbs)
+        g_out = n_img * sum(sz * sz for sz in FLEET_SIZES) * key[0][2]
+        ms = start.elapsed_time(end)
+        route = ("pyramid kernel" if pyramid.applicable(group_plans[key]) else
+                 " + ".join(kernel_of(p_) for p_ in group_plans[key]) + ", level by level")
+        log(f"[time] row 5b resident group {key}: {ms:.4f} ms device for {n_img} images "
+            f"({len(xbs)} calls, {route}), {n_img / (ms / 1e3):.1f} pyramids/s; bound "
+            f"{bound_ms(g_in, g_out):.4f} ms ({g_in} + {g_out} bytes), "
+            f"{100 * bound_ms(g_in, g_out) / ms:.1f}% of it, on {card}")
+    del resident, fns
+    cold = list(range(0, len(images), len(images) // FLEET_COLD))[:FLEET_COLD]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stt.scale_pyramid_mixed([images[i] for i in cold], [types[i] for i in cold],
+                            sizes=FLEET_SIZES, max_batch_bytes=FLEET_BATCH_BYTES)
+    cold_s = time.perf_counter() - t0
+    log(f"[time] row 5b cold: {len(cold) / cold_s:.1f} pyramids/s end to end on {len(cold)} "
+        f"images ({cold_s:.3f} s: stacking, upload, kernels, download), on {card}")
+
     # 6. device busy share over back-to-back calls of the public entry point
     trace_dir = Path(__file__).resolve().parent / "build" / "traces"
     trace_dir.mkdir(parents=True, exist_ok=True)
+    calls = {name: (lambda plan=plans[name], xin=inputs[name]: stt.scale(plan, xin))
+             for name in BUSY_ROWS if name in plans}
+    calls[name5] = lambda: pyr_fn(x5)
     for name in BUSY_ROWS:
-        plan, xin = plans[name], inputs[name]
-        busy = device_busy(lambda: stt.scale(plan, xin),
-                           str(trace_dir / f"{name.replace(' ', '_')}.json"))
+        busy = device_busy(calls[name], str(trace_dir / f"{name.replace(' ', '_')}.json"))
         kernels = "; ".join(f"{k} x{c} mean {ms:.4f} ms"
                             for k, (c, ms) in busy["kernels"].items())
         log(f"[busy] {name}: device busy {100 * busy['busy_share']:.1f}% of a "
@@ -586,7 +891,7 @@ def main() -> int:
         t0 = time.perf_counter()
         start.record()
         for _ in range(10):
-            stt.scale(plan, xin)
+            calls[name]()
         end.record()
         host_ms = (time.perf_counter() - t0) * 1e3 / 10
         torch.cuda.synchronize()
@@ -607,40 +912,65 @@ def main() -> int:
             "route": "cuda",
             "source": "smolscale_tpu_torch/csrc/box.cu",
             "replaces": "smolscale_tpu/ops/pallas_box.py:150",
-            "launches": box_launches,
+            "launches": box_launches + fleet_launches["box"],
             "max_abs_err": err["box"],
             "ms": times["row 0"][0],
             "plain_ms": times["row 0"][1],
+            "bound_ms": bounds["row 0"],
+            "bound_by": "bytes",
+            "library_ms": None,
         },
         {
             "name": "bilinear_scale",
             "route": "cuda",
             "source": "smolscale_tpu_torch/csrc/bilinear.cu",
             "replaces": "smolscale_tpu/ops/pallas_bilinear.py:1482",
-            "launches": bilinear_launches,
+            "launches": bilinear_launches + fleet_launches["bilinear"],
             "max_abs_err": err["bilinear"],
             "ms": times["row 1b"][0],
             "plain_ms": times["row 1b"][1],
+            "bound_ms": bounds["row 1b"],
+            "bound_by": "bytes",
+            "library_ms": None,
         },
         {
             "name": "deep_box",
             "route": "cuda",
             "source": "smolscale_tpu_torch/csrc/deep.cu",
             "replaces": "smolscale_tpu/ops/pallas_deep.py:238,469,911",
-            "launches": deep_launches,
+            "launches": deep_launches + fleet_launches["deep"],
             "max_abs_err": err["deep"],
             "ms": times["row 9"][0],
             "plain_ms": times["row 9"][1],
+            "bound_ms": bounds["row 9"],
+            "bound_by": "bytes",
+            "library_ms": None,
         },
         {
             "name": "bilinear128_scale",
             "route": "cuda",
             "source": "smolscale_tpu_torch/csrc/bilinear128.cu",
             "replaces": "smolscale_tpu/ops/pallas_128.py:86; smolscale_tpu/ops/pallas_srgb.py:162,415",
-            "launches": wide_launches,
+            "launches": wide_launches + fleet_launches["bilinear128"],
             "max_abs_err": err["bilinear128"],
             "ms": times["row 6"][0],
             "plain_ms": times["row 6"][1],
+            "bound_ms": bounds["row 6"],
+            "bound_by": "bytes",
+            "library_ms": None,
+        },
+        {
+            "name": "pyramid_scale",
+            "route": "cuda",
+            "source": "smolscale_tpu_torch/csrc/pyramid.cu",
+            "replaces": "smolscale_tpu/ops/pallas_pyramid.py:276",
+            "launches": row5_launches + fleet_launches["pyramid"],
+            "max_abs_err": err["pyramid"],
+            "ms": times[name5][0],
+            "plain_ms": times[name5][1],
+            "bound_ms": bounds[name5],
+            "bound_by": "bytes",
+            "library_ms": None,
         },
     ]}))
     log(json.dumps({"ok": True, "device": {

@@ -12,30 +12,35 @@ least two output pixels per axis, at 64 or 128bpp, internal PREMUL8 or
 PREMUL16 (unassociated in and out), compressed gamma or sRGB linear light
 (the deep box kernel: 4096^2 -> 16^2 and other ratios past 64:1); every
 other 128bpp plan whose axes are each bilinear or box, at either internal
-alpha and gamma (the 128bpp kernel: PREMUL16 and linear-light ladders); and
-the row API over the last three classes.  Other plans (a COPY or ONE axis at
-128bpp, a 64bpp box past 64:1 beside a bilinear, COPY or ONE axis or with
-one output) raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+alpha and gamma (the 128bpp kernel: PREMUL16 and linear-light ladders); the
+row API over the last three classes; and the thumbnail-pyramid farm
+(``make_pyramid_fn``, ``scale_pyramid_mixed``), whose power-of-two level
+sets read each image once on a kernel of their own.  Other plans (a COPY or
+ONE axis at 128bpp, a 64bpp box past 64:1 beside a bilinear, COPY or ONE
+axis or with one output) raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 
     plan = ScalePlan(4096, 4096, 256, 256, PixelType.RGBA8_PREMULTIPLIED,
                      PixelType.RGBA8_PREMULTIPLIED)
     thumbs = scale(plan, imgs)        # imgs: (B, 4096, 4096, 4) uint8 on cuda
     for first, rows in scale_streamed(plan, imgs, n_chunks=16):
         ...                           # output rows [first, first + len) as they finish
+    levels = make_pyramid_fn(512, 512, PixelType.RGBA8_PREMULTIPLIED)(imgs512)
 
 Tensors are computed on the device where they lie: a CUDA tensor runs the
 CUDA kernel, a CPU tensor the kernel's plain PyTorch version.  A numpy input
-needs an explicit ``device``.
+runs on the card unless ``device`` says otherwise; with no card it raises
+rather than run on the CPU, which only ``device="cpu"`` selects.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from .backends import torch_ops
 from .formats import AlphaType, GammaType, PixelType, StorageType, get_meta
 from .plan import FilterType, ScalePlan, plan_from_reference
+from .pyramid import make_pyramid_fn, scale_pyramid_mixed
 
 __all__ = [
     "AlphaType",
@@ -45,26 +50,14 @@ __all__ = [
     "ScalePlan",
     "StorageType",
     "get_meta",
+    "make_pyramid_fn",
     "plan_from_reference",
     "scale",
+    "scale_pyramid_mixed",
     "scale_rows",
     "scale_simple",
     "scale_streamed",
 ]
-
-
-def _as_tensor(img, device) -> torch.Tensor:
-    if isinstance(img, torch.Tensor):
-        want = torch.device(device) if device is not None else img.device
-        if img.device.type != want.type or want.index not in (None, img.device.index):
-            raise ValueError(
-                f"input lies on {img.device} but device={device!r} was given; "
-                "move it explicitly"
-            )
-        return img
-    if device is None:
-        raise ValueError("a numpy input needs an explicit device=")
-    return torch.from_numpy(np.ascontiguousarray(img)).to(device)
 
 
 def scale(plan: ScalePlan, img, post_fn=None, out=None, device=None) -> torch.Tensor:
@@ -78,9 +71,7 @@ def scale(plan: ScalePlan, img, post_fn=None, out=None, device=None) -> torch.Te
     returned.  ``out``, if given, is a uint8 tensor that the result is
     copied into and that is returned.
     """
-    from .backends import torch_ops
-
-    x = _as_tensor(img, device)
+    x = torch_ops.as_tensor(img, device)
     res = torch_ops.scale_fn(plan, x, post_fn=post_fn)
     if out is not None:
         out.copy_(res)
@@ -94,9 +85,7 @@ def scale_rows(plan: ScalePlan, img, first_out_row: int, n_out_rows: int, out=No
     rows: the row-batch API (smol_scale_batch_full analogue,
     smolscale.c:998-1008).  ``out``, if given, is a uint8 tensor that the
     rows are copied into and that is returned."""
-    from .backends import torch_ops
-
-    x = _as_tensor(img, device)
+    x = torch_ops.as_tensor(img, device)
     res = torch_ops.scale_rows_fn(plan, x, int(first_out_row), int(n_out_rows))
     if out is not None:
         out.copy_(res)
@@ -111,7 +100,7 @@ def scale_streamed(plan: ScalePlan, img, n_chunks: int = 8, post_fn=None, device
     (smolscale.h:37-39, 74-76).  ``post_fn``, if given, is applied to each
     chunk.  Each chunk is one launch on the card; they queue on the
     current stream."""
-    x = _as_tensor(img, device)
+    x = torch_ops.as_tensor(img, device)
     h = plan.height_out
     n_chunks = max(1, min(n_chunks, h))
     step = -(-h // n_chunks)

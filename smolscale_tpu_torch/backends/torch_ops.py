@@ -16,6 +16,7 @@ not at all.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops import bilinear, bilinear128, box, deep
@@ -23,6 +24,35 @@ from ..plan import ScalePlan
 
 WHOLE_KERNELS = (box, bilinear, deep, bilinear128)
 ROW_KERNELS = (bilinear, deep, bilinear128)
+
+
+def numpy_device(device=None) -> torch.device:
+    """Where a numpy input runs: ``device``, by default the card.  With no
+    CUDA device the default raises: the CPU runs only when ``device="cpu"``
+    says so."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "a numpy input runs on the card by default, and no CUDA device is "
+                "available; pass device='cpu' to run the plain versions"
+            )
+        device = "cuda"
+    return torch.device(device)
+
+
+def as_tensor(img, device=None) -> torch.Tensor:
+    """The input of a public entry point as a tensor on the device it runs
+    on.  A tensor runs where it lies (``device``, if given, must name that
+    device); a numpy array goes to :func:`numpy_device`."""
+    if isinstance(img, torch.Tensor):
+        want = torch.device(device) if device is not None else img.device
+        if img.device.type != want.type or want.index not in (None, img.device.index):
+            raise ValueError(
+                f"input lies on {img.device} but device={device!r} was given; "
+                "move it explicitly"
+            )
+        return img
+    return torch.from_numpy(np.ascontiguousarray(img)).to(numpy_device(device))
 
 
 def _not_ported(plan: ScalePlan) -> NotImplementedError:

@@ -1,0 +1,131 @@
+"""Thumbnail-farm API: batched multi-resolution pyramids.
+
+Counterpart of ``smolscale_tpu.pyramid`` (``make_pyramid_fn``,
+``scale_pyramid_mixed``).  A plan set in the class of ``ops.pyramid`` (two
+or more power-of-two levels of one source, 64bpp PREMUL8) runs as one launch
+of the pyramid kernel, which reads each image once; any other set runs level
+by level through ``backends.torch_ops.scale_fn``, as the JAX package's
+``_pyramid_jit`` does.  Each level is scaled from the source, as repeated
+smol_scale_simple calls would be: cascading levels would change the bytes.
+
+Mixed fleets are grouped by (shape, pixel type) and streamed through
+sub-batches that a pinned host ring of two buffers feeds to the card.
+Sharding a batch over a device list (the JAX package's ``mesh`` and
+``axis``) waits for ROADMAP item A7.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .backends import torch_ops
+from .formats import PixelType
+from .ops import pyramid as pyramid_op
+from .plan import ScalePlan
+
+
+def make_pyramid_fn(
+    width_in: int,
+    height_in: int,
+    pixel_type_in: PixelType,
+    sizes: Sequence[int] = (64, 128, 256),
+    pixel_type_out: PixelType | None = None,
+    with_srgb: bool = False,
+    device=None,
+):
+    """A function ``(B, H, W, nb) uint8 -> tuple of (B, s, s, nb_out) uint8``
+    tensors, one per size (an unbatched ``(H, W, nb)`` image gives unbatched
+    levels).  A tensor runs where it lies; a numpy batch runs on ``device``,
+    by default the card."""
+    if pixel_type_out is None:
+        pixel_type_out = pixel_type_in
+    plans = tuple(
+        ScalePlan(width_in, height_in, s, s, pixel_type_in, pixel_type_out, with_srgb)
+        for s in sizes
+    )
+    fused = pyramid_op.applicable(plans)
+
+    def fn(imgs) -> tuple[torch.Tensor, ...]:
+        x = torch_ops.as_tensor(imgs, device)
+        if fused:
+            return pyramid_op.pyramid_fn(plans, x)
+        return tuple(torch_ops.scale_fn(p, x) for p in plans)
+
+    return fn
+
+
+class _PinnedRing:
+    """Two pinned host buffers that feed sub-batches to the card: sub-batch k
+    is stacked into buffer k % 2 once the copy that last read that buffer
+    has finished, then copied on the current stream without waiting."""
+
+    def __init__(self, nbytes: int, device: torch.device):
+        self.device = device
+        self.bufs = [torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+                     for _ in range(2)]
+        self.copied = [None, None]
+        self.k = 0
+
+    def upload(self, images: list) -> torch.Tensor:
+        slot = self.k % 2
+        self.k += 1
+        if self.copied[slot] is not None:
+            self.copied[slot].synchronize()
+        shape = (len(images), *images[0].shape)
+        host = self.bufs[slot][: int(np.prod(shape))].view(shape)
+        stage = host.numpy()
+        for i, img in enumerate(images):
+            stage[i] = img
+        dev = torch.empty(shape, dtype=torch.uint8, device=self.device)
+        dev.copy_(host, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        self.copied[slot] = event
+        return dev
+
+
+def scale_pyramid_mixed(images, pixel_types, sizes=(64, 128, 256), max_batch_bytes=None,
+                        device=None):
+    """Pyramids of a mixed-format, mixed-shape fleet of ``(H, W, nb)`` uint8
+    numpy images: grouped by (shape, pixel type), one batched call per
+    sub-batch, per-image tuples of numpy levels in input order.
+
+    ``max_batch_bytes`` bounds each sub-batch's input.  A group's remainder
+    sub-batch is padded to the group's sub-batch size by repeating its last
+    image, so every sub-batch of a group has one shape.  Every sub-batch is
+    dispatched before any result is fetched, so the copies and kernels of
+    different sub-batches queue back to back.  The fleet runs on ``device``,
+    by default the card.
+    """
+    dev = torch_ops.numpy_device(device)
+    groups: dict = {}
+    for i, (img, pt) in enumerate(zip(images, pixel_types)):
+        groups.setdefault((img.shape, int(pt)), []).append(i)
+    subs = []
+    for (shape, pt), idxs in groups.items():
+        cap = len(idxs)
+        if max_batch_bytes is not None:
+            cap = max(1, min(cap, int(max_batch_bytes) // int(np.prod(shape))))
+        fn = make_pyramid_fn(shape[1], shape[0], PixelType(pt), sizes=sizes, device=dev)
+        for c0 in range(0, len(idxs), cap):
+            sub = idxs[c0 : c0 + cap]
+            stack = [images[i] for i in sub]
+            if len(sub) < cap and c0 > 0:  # pad the remainder sub-batch
+                stack += [stack[-1]] * (cap - len(sub))
+            subs.append((fn, sub, stack))
+    ring = None
+    if dev.type == "cuda" and subs:
+        ring = _PinnedRing(max(len(s) * s[0].nbytes for _, _, s in subs), dev)
+    pending = []
+    for fn, sub, stack in subs:
+        x = ring.upload(stack) if ring is not None else torch.from_numpy(np.stack(stack))
+        pending.append((sub, fn(x)))
+    results = [None] * len(images)
+    for sub, outs in pending:
+        outs = [o.cpu().numpy() for o in outs]
+        for k, i in enumerate(sub):
+            results[i] = tuple(o[k] for o in outs)
+    return results

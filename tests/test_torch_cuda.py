@@ -1,5 +1,6 @@
-"""The CUDA kernels (box, the general 64bpp kernel, the deep box kernel and
-the 128bpp kernel) against their plain PyTorch versions, on the card.
+"""The CUDA kernels (box, the general 64bpp kernel, the deep box kernel, the
+128bpp kernel and the pyramid kernel) against their plain PyTorch versions,
+and the pyramid farm API, on the card.
 
 Tests marked ``cuda`` skip without a CUDA device.  This file imports no JAX
 (of the JAX package it uses only the numpy-only ``numpy_ref`` and planner),
@@ -19,7 +20,7 @@ import torch
 import smolscale_tpu_torch as stt
 from smolscale_tpu.backends import numpy_ref
 from smolscale_tpu.plan import ScalePlan as RefPlan
-from smolscale_tpu_torch.ops import _build, bilinear, bilinear128, box, deep
+from smolscale_tpu_torch.ops import _build, bilinear, bilinear128, box, deep, pyramid
 from smolscale_tpu_torch.utils import timing
 
 PLANS = [
@@ -66,6 +67,7 @@ def _smoke():
 
 DEEP_PLANS = _smoke().DEEP_CHECK_PLANS
 WIDE_PLANS = _smoke().WIDE_CHECK_PLANS
+PYRAMID_SETS = _smoke().PYRAMID_CHECK_SETS
 
 
 @pytest.fixture
@@ -239,6 +241,70 @@ def test_bilinear128_row_api(cuda_device):
     assert torch.equal(stt.scale_rows(plan, shifted, 5, 2), want[:, 5:7])
     with pytest.raises(ValueError, match="contiguous"):
         bilinear128.scale_fn(plan, x.transpose(1, 2))
+
+
+def _pyramid_id(case):
+    w, h, outs, ti, to = case
+    return f"{w}x{h}-" + "-".join(f"{wo}x{ho}" for wo, ho in outs) + f"-{ti}-{to}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PYRAMID_SETS, ids=_pyramid_id)
+def test_pyramid_kernel_matches_plain(cuda_device, case):
+    w, h, outs, ti, to = case
+    plans = tuple(stt.ScalePlan(w, h, wo, ho, ti, to) for wo, ho in outs)
+    nb = plans[0].meta_in.n_bytes
+    rng = np.random.default_rng(w + h + ti + to)
+    imgs = rng.integers(0, 256, (3, h, w, nb), dtype=np.uint8)
+    x = torch.from_numpy(imgs).to(cuda_device)
+    before = pyramid.launches
+    got = pyramid.pyramid_fn(plans, x)
+    assert pyramid.launches == before + 1
+    plain = pyramid.pyramid_scale_ref(plans, x)
+    torch.cuda.synchronize()
+    for p, g, want in zip(plans, got, plain):
+        assert g.device == cuda_device and torch.equal(g, want), p.key
+    rp = RefPlan(*plans[-1].key)
+    assert np.array_equal(got[-1][2].cpu().numpy(), numpy_ref.scale(rp, imgs[2]))
+    # byte offsets 1 and 4 take the byte-load and word-load paths; one image
+    # keeps its shape
+    for offset in (1, 4):
+        flat = torch.empty(x.numel() + offset, dtype=torch.uint8, device=cuda_device)
+        shifted = flat[offset:].view(x.shape)
+        shifted.copy_(x)
+        for g, want in zip(pyramid.pyramid_fn(plans, shifted), plain):
+            assert torch.equal(g, want)
+    for g, want in zip(pyramid.pyramid_fn(plans, x[1]), plain):
+        assert torch.equal(g, want[1])
+    with pytest.raises(ValueError, match="contiguous"):
+        pyramid.pyramid_fn(plans, x.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_pyramid_farm_on_card(cuda_device):
+    """make_pyramid_fn runs a numpy batch on the card by default; a small
+    mixed fleet (the row 5b groups, padded sub-batches) gives the CPU's
+    bytes."""
+    rng = np.random.default_rng(5)
+    imgs = rng.integers(0, 256, (3, 512, 512, 4), dtype=np.uint8)
+    before = pyramid.launches
+    got = stt.make_pyramid_fn(512, 512, 0)(imgs)
+    assert pyramid.launches == before + 1
+    want = stt.make_pyramid_fn(512, 512, 0, device="cpu")(imgs)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and np.array_equal(g.cpu().numpy(), w.numpy())
+    images, types = [], []
+    for (h, w), pt in [((512, 512), 0), ((512, 512), 4), ((512, 512), 1), ((512, 512), 8),
+                       ((384, 384), 0)]:
+        nb = 3 if pt >= 8 else 4
+        images += [rng.integers(0, 256, (h, w, nb), dtype=np.uint8) for _ in range(3)]
+        types += [pt] * 3
+    cap = 2 * 512 * 512 * 4
+    got = stt.scale_pyramid_mixed(images, types, sizes=(64, 128, 256), max_batch_bytes=cap)
+    want = stt.scale_pyramid_mixed(images, types, sizes=(64, 128, 256), max_batch_bytes=cap,
+                                   device="cpu")
+    for g, w in zip(got, want):
+        assert all(np.array_equal(a, b) for a, b in zip(g, w))
 
 
 @pytest.mark.cuda

@@ -33,6 +33,8 @@ def test_port_imports_no_jax():
         "import smolscale_tpu_torch.ops.deep",
         "import smolscale_tpu_torch.ops.bilinear128",
         "import smolscale_tpu_torch.ops.pixels",
+        "import smolscale_tpu_torch.ops.pyramid",
+        "import smolscale_tpu_torch.pyramid",
         "import smolscale_tpu_torch.ops._build",
         "import smolscale_tpu_torch.backends.torch_ops",
         "import smolscale_tpu_torch.utils.timing",

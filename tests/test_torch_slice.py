@@ -90,12 +90,24 @@ def test_post_fn_and_out():
     assert res is out and np.array_equal(out.numpy(), want)
 
 
-def test_numpy_input_needs_device():
+def test_numpy_input_needs_device(monkeypatch):
+    """A numpy input runs on the card unless ``device`` says otherwise: with
+    no card every entry point raises rather than run on the CPU, which only
+    ``device="cpu"`` (or a CPU tensor) selects."""
     key = SLICE_PLANS[0]
     imgs = _images(key, 4)
     plan = stt.ScalePlan(*key)
-    with pytest.raises(ValueError, match="device"):
-        stt.scale(plan, imgs)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (
+        lambda: stt.scale(plan, imgs),
+        lambda: stt.scale_simple(imgs[0], 0, 16, 16),
+        lambda: stt.scale_rows(plan, imgs, 0, 4),
+        lambda: next(stt.scale_streamed(plan, imgs)),
+        lambda: stt.make_pyramid_fn(256, 256, 0, sizes=(32, 64))(imgs),
+        lambda: stt.scale_pyramid_mixed(list(imgs), [0, 0], sizes=(32, 64)),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     got = stt.scale(plan, imgs, device="cpu")
     assert np.array_equal(got.numpy(), stt.scale(plan, torch.from_numpy(imgs)).numpy())
     # a tensor is computed where it lies: a different device is an error
