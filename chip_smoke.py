@@ -9,20 +9,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    limit (nvidia-smi), the torch and CUDA versions.
 2. Build: compiles the CUDA kernels from ``smolscale_tpu_torch/csrc`` into
    ``build/kernels/`` (one nvcc per source, all at once) and prints the
-   build time and ptxas's report.
+   build time, ptxas's report and each kernel's count of template
+   instances.
 3. Kernels against their plain versions, on the card for a batch of 2: the
    box kernel on each plan of ``CHECK_PLANS`` (plain version
    ``ops.box.box_scale_ref``), the general kernel on each plan of
    ``BILINEAR_CHECK_PLANS`` and each row range of ``BILINEAR_CHECK_ROWS``
-   (``ops.bilinear.bilinear_scale_ref``), the deep box kernel on each plan
+   (``ops.bilinear.bilinear_scale_ref``; boxes past 64:1 among them), the
+   deep box kernel on each plan
    of ``DEEP_CHECK_PLANS`` (one of them also on a constant-255 batch) and
    each row range of ``DEEP_CHECK_ROWS`` (``ops.deep.deep_scale_ref``), the
-   128bpp kernel on each plan of ``WIDE_CHECK_PLANS`` (one of them also on
-   a constant-255 batch) and each row range of ``WIDE_CHECK_ROWS``
+   128bpp kernel on each plan of ``WIDE_CHECK_PLANS`` (COPY and ONE axes
+   among them; two of them, box beside bilinear and box beside COPY, also
+   on a constant-255 batch) and each row range of ``WIDE_CHECK_ROWS``
    (``ops.bilinear128.bilinear128_scale_ref``), all four on an input that
-   is not 4-byte aligned, and the pyramid kernel on each set of
-   ``PYRAMID_CHECK_SETS`` and the unaligned inputs of ``PYRAMID_UNALIGNED``
-   (``ops.pyramid.pyramid_scale_ref``, every level).  Bytes must be equal.
+   is not 4-byte aligned (and the widened classes: a box past 64:1, COPY,
+   ONE), the pyramid kernel on each set of ``PYRAMID_CHECK_SETS`` and the
+   unaligned inputs of ``PYRAMID_UNALIGNED`` (``ops.pyramid.pyramid_scale_ref``,
+   every level), and row 5's set on a transposed (not contiguous) batch
+   through ``make_pyramid_fn``, against the contiguous batch.  Bytes must
+   be equal.
    The plain versions are held against the numpy spec
    (``backends/numpy_ref`` of the JAX package) and the Pallas kernels on
    the CPU by ``tests/test_torch_box.py``, ``tests/test_torch_bilinear.py``,
@@ -37,8 +43,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (general kernel); then on rows 7b, 9, 9b, 9c and 9d, and
    ``scale_streamed`` on row 9 in 4 chunks (deep box kernel); then on rows
    6, 6b and 7, and ``scale_streamed`` on row 7 in 4 chunks (128bpp
-   kernel); then ``make_pyramid_fn`` on row 5 (256 x 512^2 RGBA -> (64, 128,
-   256): exactly one pyramid launch, no general-kernel launch) and
+   kernel); then the rows of ``A1_ROWS``, the classes that every plan
+   reaching a kernel added: ``scale`` on a1-p16-copy and a1-srgb-field
+   (128bpp kernel, COPY axes) and on a1-strip (general kernel, a 128:1 box
+   beside a bilinear axis), ``scale_streamed`` on a1-strip-rows in 4
+   chunks (general kernel by rows, COPY x a 128:1 box), and ``scale`` on
+   a 128:1 x 8.5:1 box x box plan of TPU kernel #7's (deep box kernel);
+   then ``make_pyramid_fn`` on row 5 (256 x 512^2 RGBA -> (64, 128, 256):
+   exactly one pyramid launch, no general-kernel launch) and
    ``scale_pyramid_mixed`` on row 5b (the suite's 10,000-image fleet, 192 MiB
    sub-batches: one pyramid launch per sub-batch of the three fused groups,
    one level-kernel launch per level of the other two).  Every image's
@@ -47,10 +59,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernel, plain; Mpix/s and GB/s of input (and of output) with the share
    of HBM peak, and each row's bound (its input and output bytes at the
    HBM peak) with the kernel's share of it.  Also the rows of
-   ``EXTRA_ROWS``, on no suite row and checked against the plain version
-   first: RGB24 4096^2 -> 256^2 (the box kernel's 24bpp form), COPY x COPY
-   1024^2 (the general kernel's cost per output pixel without filtering,
-   beside row 2) and row 0 on the general kernel (beside the box kernel).
+   ``A1_ROWS`` and of ``EXTRA_ROWS``, on no suite row and checked against
+   the plain version first: RGB24 4096^2 -> 256^2 (the box kernel's 24bpp
+   form), COPY x COPY 1024^2 (the general kernel's cost per output pixel
+   without filtering, beside row 2) and row 0 on the general kernel
+   (beside the box kernel).
    Row 5 is also timed level by level on the general kernel (three
    launches); row 5b as pyramids/s on the pre-uploaded fleet (resident)
    and end to end through ``scale_pyramid_mixed`` on 2,000 of its images
@@ -65,8 +78,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 All inputs but row 5b's are views of one random 512 MiB tensor made from a
 seed; the row 5b fleet is made on the host from seed 0 as the suite makes
 it.  The line before the last is a JSON object describing each kernel (its
-launches summed over the main paths of phase 4, row 5b's level-by-level
-groups included); the last line is ``{"ok": true, "device": {...}}``.
+launches summed over the main paths of phase 4, the widened classes' rows
+and row 5b's level-by-level groups included); the last line is
+``{"ok": true, "device": {...}}``.
 Nothing here imports JAX.
 """
 
@@ -142,6 +156,21 @@ BILINEAR_CHECK_PLANS = [
     (512, 300, 512, 60, 8, 9),     # RGB24 COPY H x box V
     (512, 256, 96, 56, 8, 4),      # RGB24 -> unassociated RGBA
     (333, 200, 330, 190, 8, 8),    # RGB24 0h, ragged width
+    # PAST_64 of tests/test_torch_bilinear.py: a box past 64:1 beside each
+    # other axis kind, outside the deep box kernel's class
+    (6500, 100, 100, 50, 0, 0),    # 65:1 box H x bilinear V
+    (100, 6500, 50, 100, 0, 1),    # bilinear H x 65:1 box V, reorder
+    (25500, 10, 100, 7, 0, 0),     # 255:1 box H x bilinear V
+    (130, 2000, 130, 10, 2, 3),    # COPY H x 200:1 box V
+    (2000, 70, 10, 70, 0, 0),      # 200:1 box H x COPY V
+    (1, 9000, 3, 40, 0, 0),        # ONE H x 225:1 box V
+    (9000, 1, 40, 3, 0, 0),        # 225:1 box H x ONE V
+    (200, 650, 1, 10, 0, 0),       # box x box, one output column: 200:1 x 65:1
+    (650, 200, 10, 1, 0, 0),       # box x box, one output row
+    (6500, 60, 100, 30, 8, 8),     # RGB24
+    (6500, 60, 100, 30, 8, 4),     # RGB24 -> unassociated RGBA
+    (6500, 100, 100, 50, 4, 0),    # unassociated in
+    (6500, 100, 100, 50, 0, 4),    # unassociated out
 ]
 # (plan, first output row, rows) through the row form
 BILINEAR_CHECK_ROWS = [
@@ -151,6 +180,9 @@ BILINEAR_CHECK_ROWS = [
     ((512, 256, 96, 56, 0, 4), 10, 30),
     ((512, 512, 1024, 1024, 5, 0), 100, 200),
     ((512, 700, 512, 123, 0, 3), 40, 50),
+    ((4096, 512, 4096, 4, 0, 0), 1, 2),        # COPY x 128:1 integer box by rows
+    ((6500, 100, 100, 50, 0, 0), 10, 20),
+    ((1, 9000, 3, 40, 0, 0), 39, 1),
 ]
 
 # the three plan lists of tests/test_pallas_deep.py (:21-36, :50-71, :86-98),
@@ -208,9 +240,10 @@ DEEP_CHECK_ROWS = [
 
 # the plan lists of tests/test_pallas_128.py (:25-35) and
 # tests/test_pallas_srgb.py (:24-33, :58-63 at 512x256 -> 96x56, :82-86),
-# the low-alpha plan of test_pallas_128.py:55 and two box x box plans with
-# one output column past 255:1; tests/test_torch_bilinear128.py holds the
-# plain version against numpy_ref and the Pallas kernels #10-#12 on each
+# the low-alpha plan of test_pallas_128.py:55, two box x box plans with one
+# output column past 255:1, and COPY and ONE axes at each (alpha, gamma)
+# mode; tests/test_torch_bilinear128.py holds the plain version against
+# numpy_ref, the Pallas kernels #10-#12 and the JAX package on each
 WIDE_CHECK_PLANS = [
     (512, 256, 96, 56, 4, 4, False),    # PREMUL16, 2h ladder both axes
     (512, 256, 96, 56, 5, 6, False),    # PREMUL16, reorders
@@ -245,9 +278,34 @@ WIDE_CHECK_PLANS = [
     (64, 64, 32, 32, 4, 4, False),      # low alpha (PREMUL16's reason)
     (2000, 400, 1, 20, 0, 0, False),    # box x box, one column, 2000:1
     (2000, 400, 1, 20, 4, 4, True),     # same, PREMUL16-linear
+    (96, 54, 96, 54, 4, 4, False),      # PREMUL16: COPY x COPY
+    (96, 54, 96, 27, 4, 4, False),      # COPY x bilinear 0h
+    (96, 54, 48, 54, 5, 6, False),      # bilinear x COPY, reorders
+    (1, 300, 5, 20, 4, 4, False),       # ONE x box
+    (300, 1, 20, 5, 4, 4, False),       # box x ONE
+    (64, 600, 64, 2, 0, 0, False),      # PREMUL8 at 128bpp: COPY x 300:1 box
+    (600, 1, 2, 7, 0, 1, False),        # 300:1 box x ONE
+    (300, 600, 1, 600, 4, 4, False),    # box x COPY, one output column
+    (96, 54, 96, 54, 0, 0, True),       # PREMUL8-linear: COPY x COPY
+    (96, 54, 96, 27, 0, 0, True),       # COPY x bilinear
+    (1, 300, 5, 20, 0, 0, True),        # ONE x box
+    (300, 1, 20, 5, 2, 5, True),        # box x ONE, premultiplied in -> unassociated out
+    (256, 256, 256, 16, 0, 0, True),    # COPY x box
+    (96, 54, 96, 54, 4, 4, True),       # PREMUL16-linear: COPY x COPY
+    (54, 96, 27, 96, 4, 4, True),       # bilinear x COPY
+    (1, 300, 5, 20, 4, 4, True),        # ONE x box
+    (300, 1, 20, 5, 4, 4, True),        # box x ONE
+    (1, 1, 7, 5, 4, 4, True),           # ONE x ONE
+    (96, 54, 96, 27, 8, 8, True),       # RGB24 linear: COPY x bilinear, pack24 direct
+    (96, 54, 96, 54, 8, 4, True),       # RGB24 -> unassociated RGBA, COPY x COPY
+    (1, 300, 5, 20, 9, 9, True),        # BGR24: ONE x box
+    (1920, 1080, 1920, 1080, 0, 0, True),  # 1:1 in linear light
+    (256, 1100, 256, 80, 4, 4, True),   # COPY x box, PREMUL16-linear
 ]
-# checked on a constant-255 batch too: numpy_ref gives (97, 97, 97, 255)
+# checked on a constant-255 batch too: numpy_ref gives (97, 97, 97, 255),
+# on a box axis beside a bilinear one and beside a COPY one
 WIDE_CONST_PLAN = (1100, 300, 80, 100, 4, 4, True)
+WIDE_CONST_COPY_PLAN = (256, 1100, 256, 80, 4, 4, True)
 # (plan, first output row, rows) through the row form
 WIDE_CHECK_ROWS = [
     ((512, 256, 96, 56, 4, 4, True), 10, 20),
@@ -256,6 +314,9 @@ WIDE_CHECK_ROWS = [
     ((16, 600, 8, 2, 4, 0, False), 1, 1),
     ((2000, 400, 1, 20, 0, 0, False), 5, 7),
     ((1024, 300, 128, 30, 8, 8, True), 29, 1),
+    ((256, 256, 256, 16, 0, 0, True), 3, 5),     # COPY x box
+    ((96, 54, 96, 27, 4, 4, False), 10, 7),      # COPY x bilinear
+    ((1, 300, 5, 20, 4, 4, True), 19, 1),        # ONE x box, the last row
 ]
 
 # suite rows (benchmarks/suite.py:277-346) at their published sizes:
@@ -294,6 +355,24 @@ WIDE_ROWS = [
     ("row 7", (2048, 2048, 256, 256, 4, 4, False), 8),
 ]
 WIDE_STREAM_ROW, WIDE_STREAM_CHUNKS = "row 7", 4
+# the plans that no kernel took before every plan reached one, at full
+# width, and a 64bpp box x box plan past 64:1 that must stay on the deep box
+# kernel: (name, plan key, batch, kernel, chunks); a row with chunks runs
+# through scale_streamed in that many chunks, the others through scale
+A1_ROWS = [
+    # RGBA unassociated at 1:1: PREMUL16, COPY x COPY
+    ("a1-p16-copy", (1920, 1080, 1920, 1080, 4, 4, False), 8, "bilinear128", 0),
+    # a video field halving in linear light: COPY x bilinear 0h
+    ("a1-srgb-field", (3840, 2160, 3840, 1080, 0, 0, True), 4, "bilinear128", 0),
+    # a waveform strip of a very wide image: 128:1 box x bilinear 0h
+    ("a1-strip", (16384, 2048, 128, 1024, 0, 0, False), 2, "bilinear", 0),
+    # row 8's strip at 128:1, by rows: COPY x 128:1 integer box
+    ("a1-strip-rows", (4096, 4096, 4096, 32, 0, 0, False), 8, "bilinear", 4),
+    # 128:1 x 8.5:1: a plan of TPU kernel #7 (pallas_deep._built_general),
+    # which pallas_deep builds for it under its "general" knob only (no plan
+    # reaches it otherwise; tests/test_torch_deep.py::test_general_kernel_row)
+    ("deep general", (4096, 4096, 32, 480, 0, 0, False), 8, "deep", 0),
+]
 # on no suite row, checked and timed beside them: (name, plan key, batch,
 # kernel)
 EXTRA_ROWS = [
@@ -442,6 +521,21 @@ def main() -> int:
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             log(f"[build] {line.strip()}")
+    # each kernel's template instances and their registers, from ptxas's
+    # report (an instance's "Used N registers" follows its entry line)
+    regs: dict = {}
+    kernel = None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = next((k for k in ("box_kernel", "bilinear_kernel", "deep_kernel",
+                                       "bilinear128_kernel", "pyramid_kernel")
+                           if f"{len(k)}{k}" in line), None)
+        elif kernel is not None and "Used" in line and "registers" in line:
+            regs.setdefault(kernel, []).append(int(line.split("Used")[1].split()[0]))
+            kernel = None
+    for name, used in regs.items():
+        log(f"[build] {name}: {len(used)} template instances, {min(used)}-{max(used)} "
+            f"registers")
 
     # 3. kernels against their plain versions
     err = {"box": 0, "bilinear": 0, "deep": 0, "bilinear128": 0, "pyramid": 0}
@@ -512,6 +606,13 @@ def main() -> int:
           bilinear128.bilinear128_scale_ref(plan, x))
     log(f"[check] bilinear128 {WIDE_CONST_PLAN} constant 255: pixel (0, 0) "
         f"{got[0, 0, 0].tolist()}")
+    plan = stt.ScalePlan(*WIDE_CONST_COPY_PLAN)
+    x = torch.full((2, plan.height_in, plan.width_in, 4), 255, dtype=torch.uint8, device=dev)
+    got = bilinear128.scale_fn(plan, x)
+    check("bilinear128", f"{WIDE_CONST_COPY_PLAN} constant 255", got,
+          bilinear128.bilinear128_scale_ref(plan, x))
+    log(f"[check] bilinear128 {WIDE_CONST_COPY_PLAN} constant 255 (COPY x box): pixel "
+        f"(0, 0) {got[0, 0, 0].tolist()}")
     for i, (key, first, n) in enumerate(WIDE_CHECK_ROWS):
         plan = stt.ScalePlan(*key)
         x = random_images(key, 6500 + i)
@@ -524,6 +625,12 @@ def main() -> int:
         ("bilinear", bilinear, bilinear.bilinear_scale_ref, BILINEAR_CHECK_PLANS[3]),
         ("deep", deep, deep.deep_scale_ref, DEEP_CHECK_PLANS[2]),
         ("bilinear128", bilinear128, bilinear128.bilinear128_scale_ref, WIDE_CHECK_PLANS[11]),
+        # the widened classes: a box past 64:1, COPY and ONE at 128bpp
+        ("bilinear", bilinear, bilinear.bilinear_scale_ref, (6500, 100, 100, 50, 0, 0)),
+        ("bilinear128", bilinear128, bilinear128.bilinear128_scale_ref,
+         (96, 54, 96, 27, 4, 4, False)),
+        ("bilinear128", bilinear128, bilinear128.bilinear128_scale_ref,
+         (1, 300, 5, 20, 4, 4, True)),
     ):
         plan = plan_of(key)
         imgs = random_images(key, 7)
@@ -565,7 +672,17 @@ def main() -> int:
         shifted.copy_(imgs)
         check_levels(f"{case} at byte offset {offset}", pyramid.pyramid_fn(plans_, shifted),
                      pyramid.pyramid_scale_ref(plans_, imgs))
-    del imgs, flat, shifted
+    # a batch that is not contiguous through the public make_pyramid_fn
+    case = PYRAMID_CHECK_SETS[0]
+    imgs = random_images((case[0], case[1], 0, 0, case[3]), 8900)
+    strided = imgs.transpose(1, 2).contiguous().transpose(1, 2)
+    fn = stt.make_pyramid_fn(case[0], case[1], case[3], sizes=[wo for wo, _ in case[2]])
+    before = pyramid.launches
+    got = fn(strided)
+    if strided.is_contiguous() or pyramid.launches != before + 1:
+        raise AssertionError("the strided batch did not take one pyramid launch")
+    check_levels(f"{case} transposed view through make_pyramid_fn", got, fn(imgs))
+    del imgs, flat, shifted, strided
 
     # 4. main paths at full size
     t0 = time.perf_counter()
@@ -575,7 +692,7 @@ def main() -> int:
     log(f"[main] input {tuple(x.shape)} uint8 ({x.numel() / 2**20:.0f} MiB) "
         f"made and uploaded in {time.perf_counter() - t0:.1f} s")
     all_rows = (MAIN_ROWS + BILINEAR_ROWS + [STREAM_ROW] + DEEP_ROWS + WIDE_ROWS
-                + [r[:3] for r in EXTRA_ROWS])
+                + [r[:3] for r in A1_ROWS] + [r[:3] for r in EXTRA_ROWS])
     plans = {name: plan_of(key) for name, key, _ in all_rows}
     inputs = {name: view_input(x, plans[name], batch) for name, _, batch in all_rows}
     kernels = {"box": (box.scale_fn, box.box_scale_ref),
@@ -664,6 +781,35 @@ def main() -> int:
           bilinear128.bilinear128_scale_ref(plan, inputs[WIDE_STREAM_ROW]))
     del outs, chunks
 
+    # the widened classes: COPY and ONE at 128bpp, a 64bpp box past 64:1,
+    # whole and by rows; box x box past 64:1 on the deep box kernel
+    kernel_mods = {"box": box, "bilinear": bilinear, "deep": deep, "bilinear128": bilinear128}
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    outs = {}
+    for name, _, _, _, n_chunks in A1_ROWS:
+        if not n_chunks:
+            outs[name] = stt.scale(plans[name], inputs[name])
+            continue
+        chunks = list(stt.scale_streamed(plans[name], inputs[name], n_chunks=n_chunks))
+        step = -(-plans[name].height_out // n_chunks)
+        if [f for f, _ in chunks] != list(range(0, plans[name].height_out, step)):
+            raise AssertionError(f"{name}: chunks start at {[f for f, _ in chunks]}")
+        outs[name] = torch.cat([chunk for _, chunk in chunks], dim=1)
+    torch.cuda.synchronize()
+    a1_launches = {k: m.launches for k, m in kernel_mods.items()}
+    expect = dict.fromkeys(kernel_mods, 0)
+    for _, _, _, kind, n_chunks in A1_ROWS:
+        expect[kind] += max(1, n_chunks)
+    log(f"[main] kernel launches in the widened classes' main path: {a1_launches}, "
+        f"expected {expect}")
+    if a1_launches != expect:
+        raise AssertionError("the widened classes did not launch their kernels once per row "
+                             "and once per chunk")
+    for name, _, batch, kind, _ in A1_ROWS:
+        check_rows(kind, [(name, None, batch)], outs, kernels[kind][1])
+    del outs
+
     # row 5: one launch of the pyramid kernel for every level of 256 images
     name5, (w5, h5, sizes5, pt5), batch5 = PYRAMID_ROW
     plans5 = tuple(stt.ScalePlan(w5, h5, sz, sz, pt5, pt5, False) for sz in sizes5)
@@ -743,16 +889,20 @@ def main() -> int:
               kernel_fn(plans[name], inputs[name]), plain_fn(plans[name], inputs[name]))
 
     # 5. times (turns: plain, kernel, kernel, plain)
-    def stream_kernel(plan, xin):
-        step = -(-plan.height_out // STREAM_CHUNKS)
-        for first in range(0, plan.height_out, step):
-            bilinear.scale_rows_fn(plan, xin, first, min(step, plan.height_out - first))
+    def streamed(n_chunks):
+        def run(plan, xin):
+            step = -(-plan.height_out // n_chunks)
+            for first in range(0, plan.height_out, step):
+                bilinear.scale_rows_fn(plan, xin, first, min(step, plan.height_out - first))
+        return run
 
     timed = [(row, *kernels["box"]) for row in MAIN_ROWS]
     timed += [(row, *kernels["bilinear"]) for row in BILINEAR_ROWS]
-    timed += [(STREAM_ROW, stream_kernel, bilinear.bilinear_scale_ref)]
+    timed += [(STREAM_ROW, streamed(STREAM_CHUNKS), bilinear.bilinear_scale_ref)]
     timed += [(row, *kernels["deep"]) for row in DEEP_ROWS]
     timed += [(row, *kernels["bilinear128"]) for row in WIDE_ROWS]
+    timed += [(row[:3], streamed(row[4]) if row[4] else kernels[row[3]][0], kernels[row[3]][1])
+              for row in A1_ROWS]
     timed += [(row[:3], *kernels[row[3]]) for row in EXTRA_ROWS]
     times, bounds = {}, {}
     for (name, _, batch), kernel_fn, plain_fn in timed:
@@ -925,7 +1075,7 @@ def main() -> int:
             "route": "cuda",
             "source": "smolscale_tpu_torch/csrc/bilinear.cu",
             "replaces": "smolscale_tpu/ops/pallas_bilinear.py:1482",
-            "launches": bilinear_launches + fleet_launches["bilinear"],
+            "launches": bilinear_launches + a1_launches["bilinear"] + fleet_launches["bilinear"],
             "max_abs_err": err["bilinear"],
             "ms": times["row 1b"][0],
             "plain_ms": times["row 1b"][1],
@@ -938,7 +1088,7 @@ def main() -> int:
             "route": "cuda",
             "source": "smolscale_tpu_torch/csrc/deep.cu",
             "replaces": "smolscale_tpu/ops/pallas_deep.py:238,469,911",
-            "launches": deep_launches + fleet_launches["deep"],
+            "launches": deep_launches + a1_launches["deep"] + fleet_launches["deep"],
             "max_abs_err": err["deep"],
             "ms": times["row 9"][0],
             "plain_ms": times["row 9"][1],
@@ -951,7 +1101,8 @@ def main() -> int:
             "route": "cuda",
             "source": "smolscale_tpu_torch/csrc/bilinear128.cu",
             "replaces": "smolscale_tpu/ops/pallas_128.py:86; smolscale_tpu/ops/pallas_srgb.py:162,415",
-            "launches": wide_launches + fleet_launches["bilinear128"],
+            "launches": (wide_launches + a1_launches["bilinear128"]
+                         + fleet_launches["bilinear128"]),
             "max_abs_err": err["bilinear128"],
             "ms": times["row 6"][0],
             "plain_ms": times["row 6"][1],

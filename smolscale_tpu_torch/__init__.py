@@ -3,22 +3,20 @@ NVIDIA Hopper GPU.
 
 Same planner, formats and lookup tables as ``smolscale_tpu`` (whose JAX
 package stays the reference), with hand-written CUDA kernels in place of the
-Pallas TPU kernels.  Ported so far: every plan at 8-bit premultiplied
-working precision (64bpp storage, compressed gamma) whose box axes are no
-deeper than 64:1 -- per axis a bilinear halving ladder, a box, COPY or ONE,
-with the integer-ratio box class (the headline batched 4096^2 -> 256^2
-thumbnail workload) on a kernel of its own; every box x box plan with at
-least two output pixels per axis, at 64 or 128bpp, internal PREMUL8 or
-PREMUL16 (unassociated in and out), compressed gamma or sRGB linear light
-(the deep box kernel: 4096^2 -> 16^2 and other ratios past 64:1); every
-other 128bpp plan whose axes are each bilinear or box, at either internal
-alpha and gamma (the 128bpp kernel: PREMUL16 and linear-light ladders); the
-row API over the last three classes; and the thumbnail-pyramid farm
+Pallas TPU kernels.  Every plan the planner makes runs on one of them:
+the integer-ratio box class (the headline batched 4096^2 -> 256^2
+thumbnail workload) on a kernel of its own; every other plan at 8-bit
+premultiplied working precision (64bpp storage, compressed gamma) -- per
+axis a bilinear halving ladder, a box of any ratio up to 255:1, COPY or ONE
+-- on the general kernel; box x box plans with at least two output pixels
+per axis, at 64 or 128bpp, internal PREMUL8 or PREMUL16 (unassociated in
+and out), compressed gamma or sRGB linear light, on the deep box kernel
+(4096^2 -> 16^2 and other ratios past 64:1); every other 128bpp plan, each
+axis bilinear, box, COPY or ONE, at either internal alpha and gamma, on the
+128bpp kernel (PREMUL16 and linear-light ladders, 1:1 format conversions);
+the row API over the last three classes; and the thumbnail-pyramid farm
 (``make_pyramid_fn``, ``scale_pyramid_mixed``), whose power-of-two level
-sets read each image once on a kernel of their own.  Other plans (a COPY or
-ONE axis at 128bpp, a 64bpp box past 64:1 beside a bilinear, COPY or ONE
-axis or with one output) raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+sets read each image once on a kernel of their own.
 
     plan = ScalePlan(4096, 4096, 256, 256, PixelType.RGBA8_PREMULTIPLIED,
                      PixelType.RGBA8_PREMULTIPLIED)

@@ -7,11 +7,12 @@ kernel (``ops.box``) first, then the general 64bpp kernel
 kernel (``ops.bilinear128``), in the order of ``xla._scale_fn_impl``; row
 ranges go to the general kernel's row form for every plan of its class,
 integer box included, as ``xla._pallas_rows_ok`` does, then to the deep box
-kernel's and the 128bpp kernel's for theirs.  Any other plan -- a COPY or
-ONE axis at 128bpp, a 64bpp box past 64:1 beside a bilinear, COPY or ONE
-axis or with one output -- raises ``NotImplementedError`` naming ROADMAP
-item A3, the op-graph fallback that ports it: a plan runs on a kernel or
-not at all.
+kernel's and the 128bpp kernel's for theirs.  Together the classes hold
+every plan the planner makes: 64bpp plans go to the general kernel, or to
+the deep box kernel when both axes are boxes with two or more outputs and
+one is past 64:1; 128bpp plans go to the deep box kernel or the 128bpp
+kernel.  A plan that reaches no kernel raises ``NotImplementedError``: it
+would be a bug, and no plain version stands in for a kernel.
 """
 
 from __future__ import annotations
@@ -57,9 +58,8 @@ def as_tensor(img, device=None) -> torch.Tensor:
 
 def _not_ported(plan: ScalePlan) -> NotImplementedError:
     return NotImplementedError(
-        f"plan {plan.key} is outside the ported classes (integer-ratio box, "
-        f"the general 64bpp pipeline, box x box, and 128bpp with bilinear or "
-        f"box axes); ROADMAP item A3 (op-graph fallback) ports it"
+        f"plan {plan.key} reached no kernel; every plan the planner makes "
+        f"should reach one, so this is a bug"
     )
 
 

@@ -40,9 +40,10 @@
 // h rows in shared memory, so each is computed once per block, and keep more
 // loads in flight per thread.
 //
-// Arithmetic: span sums fit int32 (255 x 66 at the 64:1 limit); the
-// normalising multiply is 64-bit, and so are byte offsets (32 x 2048^2 x 4
-// bytes is 512 MiB, larger inputs pass 2^31).
+// Arithmetic: a box span at 64bpp is at most 255:1 (the planner goes to
+// 128bpp past it), so it holds at most 257 values of at most 255 and its
+// sum stays below 2^17; the normalising multiply is 64-bit, and so are byte
+// offsets (32 x 2048^2 x 4 bytes is 512 MiB, larger inputs pass 2^31).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

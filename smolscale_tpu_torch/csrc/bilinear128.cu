@@ -1,7 +1,7 @@
 // The 128bpp scale for Hopper (sm_90a): per axis a bilinear 0h-6h halving
-// ladder or a box with fractional edge weights, at 128bpp storage, internal
-// PREMUL8 or PREMUL16, compressed gamma or sRGB linear light; 3- or 4-byte
-// pixels in and out.
+// ladder, a box with fractional edge weights, COPY or ONE, at 128bpp
+// storage, internal PREMUL8 or PREMUL16, compressed gamma or sRGB linear
+// light; 3- or 4-byte pixels in and out.
 //
 // Replaces three Pallas TPU kernels: smolscale_tpu/ops/pallas_128.py
 // `_make_kernel` (:86, built by `_built`, pallas_call at :314: compressed
@@ -11,8 +11,9 @@
 // form `_built_planes` (:415, :459), together with the pack that follows
 // each in backends/xla.py `_pack`.  The three are TPU tilings of one
 // pipeline that differ only in the unpack and pack: unpack at the plan's
-// (alpha, gamma) (pixels.cuh), the bilinear or box filter per axis at
-// 128bpp masks, pack.  Their limb-split gather matmuls, 128-lane
+// (alpha, gamma) (pixels.cuh), the filter of each axis at 128bpp masks,
+// pack.  The COPY and ONE axes, which those kernels leave to the XLA op
+// graph, run here too.  Their limb-split gather matmuls, 128-lane
 // dynamic-gather LUT (`lut_gather`, `_lut_tables`) and int32 output planes
 // exist for the MXU and Mosaic; this kernel computes what
 // backends/numpy_ref.py `hfilter` / `vfilter` specify, one thread per
@@ -26,13 +27,17 @@
 //       >> n) & M;
 //     BOX: ((px[first]*w_first >> 8) & M) + px[mid..mid+len)
 //       + ((px[last]*w_last >> 8) & M), then ((acc*span_mul + 2^23) >> 24) & N;
+//     COPY: px[j];  ONE: px[0] -- one template kind, px[j*stride] with a
+//       stride of 1 or 0 set at run time, so the two cost one kind's
+//       instances;
 //   then the same filter over the h values of the tap rows, and the pack
 //   fused into the store (this replaces the TPU's int32 planes and the XLA
 //   pack, the 24bpp linear pack asymmetry included).
 //
 // M is the 128bpp working mask 0xffffff, N the normalised mask 0xffff
-// (numpy_ref._scale_span: a box value is cut to 16 bits).  The V box table
-// weights its last row by max(frac - 1, 0) (scale_outrow_box_128bpp,
+// (numpy_ref._scale_span: a box value is cut to 16 bits; COPY and ONE pass
+// their unpacked value on, which is below M, and normalise nothing).  The V
+// box table weights its last row by max(frac - 1, 0) (scale_outrow_box_128bpp,
 // generic.c:2198-2260; ops/bilinear.axis_table at S128).  Pixels are
 // unpacked where they are loaded: 24bpp input gets a constant alpha of 255
 // (this replaces #12's planes feed), the PREMUL16 alpha (a << 8) | 0x80 is
@@ -74,7 +79,7 @@
 struct Bilinear128Params {
   int64_t batch, h_in, w_in, h_out, w_out;
   int64_t row0, n_rows;            // output rows [row0, row0 + n_rows)
-  int64_t kind_x, kind_y;          // kBilinear or kBox
+  int64_t kind_x, kind_y;          // kCopy, kOne, kBilinear or kBox
   int64_t halvings_x, halvings_y;  // n of a BILINEAR axis
   int64_t len_x, len_y;            // table row length: dim_bilin or dim_out
   int64_t span_mul_x, span_mul_y;  // BOX normalisation
@@ -88,8 +93,9 @@ struct Bilinear128Params {
 
 namespace {
 
-// axis kinds, ops/bilinear.BILINEAR and BOX
-constexpr int kBilinear = 2, kBox = 3;
+// axis kinds, ops/bilinear.COPY, ONE, BILINEAR and BOX; kCopy is also the
+// template kind of ONE (stride 0)
+constexpr int kCopy = 0, kOne = 1, kBilinear = 2, kBox = 3;
 constexpr uint32_t kWorkMask = 0xffffff, kNormMask = 0xffff;
 constexpr int kThreads = 256;
 
@@ -99,6 +105,7 @@ struct Axis {
   int64_t len;
   int halvings;
   int64_t span_mul;
+  int64_t stride;  // kCopy: 1 for COPY, 0 for ONE
 };
 
 __device__ __forceinline__ uint32_t lerp(uint32_t p, uint32_t q, int32_t f) {
@@ -111,7 +118,9 @@ __device__ __forceinline__ uint32_t lerp(uint32_t p, uint32_t q, int32_t f) {
 template <int KIND, class Fetch>
 __device__ __forceinline__ void filter(const Fetch& fetch, const Axis& ax,
                                        int64_t j, uint32_t out[4]) {
-  if (KIND == kBilinear) {
+  if (KIND == kCopy) {
+    fetch(j * ax.stride, out);
+  } else if (KIND == kBilinear) {
     const int n = ax.halvings;
     uint32_t sum[4] = {0, 0, 0, 0};
     for (int k = 0; k < (1 << n); ++k) {
@@ -181,8 +190,10 @@ bilinear128_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   __shared__ int32_t s_lut[kLinear ? 512 : 1];
   if (kLinear) load_unpack_luts(luts, s_lut);
   const Fmt f{static_cast<int>(p.nb_in), p.alpha_ch == 0, p.unassoc_in != 0};
-  const Axis ax{tab_x, p.len_x, static_cast<int>(p.halvings_x), p.span_mul_x};
-  const Axis ay{tab_y, p.len_y, static_cast<int>(p.halvings_y), p.span_mul_y};
+  const Axis ax{tab_x, p.len_x, static_cast<int>(p.halvings_x), p.span_mul_x,
+                p.kind_x == kCopy};
+  const Axis ay{tab_y, p.len_y, static_cast<int>(p.halvings_y), p.span_mul_y,
+                p.kind_y == kCopy};
   const int64_t row_bytes = p.w_in * p.nb_in;
   const int64_t n_total = p.batch * p.n_rows * p.w_out;
   for (int64_t n = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
@@ -228,6 +239,8 @@ Launcher pick(int64_t mode, bool packed) {
 template <int KX>
 Launcher pick(int64_t ky, int64_t mode, bool packed) {
   switch (ky) {
+    case kCopy:
+    case kOne: return pick<KX, kCopy>(mode, packed);
     case kBilinear: return pick<KX, kBilinear>(mode, packed);
     case kBox: return pick<KX, kBox>(mode, packed);
   }
@@ -236,6 +249,8 @@ Launcher pick(int64_t ky, int64_t mode, bool packed) {
 
 Launcher pick(int64_t kx, int64_t ky, int64_t mode, bool packed) {
   switch (kx) {
+    case kCopy:
+    case kOne: return pick<kCopy>(ky, mode, packed);
     case kBilinear: return pick<kBilinear>(ky, mode, packed);
     case kBox: return pick<kBox>(ky, mode, packed);
   }

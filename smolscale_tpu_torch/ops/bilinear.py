@@ -5,11 +5,14 @@ ladder, a box with fractional edge weights, COPY or ONE, as a CUDA kernel
 Counterpart of ``smolscale_tpu.ops.pallas_bilinear`` (``scale_fn``, the row
 form ``scale_rows_fn`` and the 24bpp ``scale_fn_planes``).  The class: S64
 storage with internal PREMUL8 and compressed gamma, 3- or 4-byte pixels in
-and out, any axis kind, and box axes no deeper than 64:1; deeper box x box
-plans are the deep box kernel's class (``ops.deep``, which reads the box
-tables built here).  The TPU kernel's geometry and VMEM limits play no
-part.  The numbers are those of ``backends/numpy_ref``
-for the class (see the note at the top of ``csrc/bilinear.cu``).
+and out, any axis kind, box axes of any ratio the planner keeps at 64bpp
+(up to 255:1), whole and by rows.  Box x box plans with two or more outputs
+per axis and a box axis past 64:1 are left to the deep box kernel
+(``ops.deep``, which reads the box tables built here): one block per output
+pixel sums their spans faster than this kernel's serial span loop.  The
+TPU kernel's geometry and VMEM limits play no part.  The numbers are those
+of ``backends/numpy_ref`` for the class (see the note at the top of
+``csrc/bilinear.cu``).
 
 ``scale_fn`` and ``scale_rows_fn`` take ``(B, H, W, nb_in)`` or
 ``(H, W, nb_in)`` uint8 tensors.  A tensor on the CPU goes to
@@ -31,7 +34,8 @@ from . import pixels
 
 launches = 0
 
-MAX_BOX_RATIO = 64
+# box x box plans past this ratio on either axis go to the deep box kernel
+DEEP_BOX_RATIO = 64
 
 # axis kinds, as enum AxisKind in csrc/bilinear.cu
 COPY, ONE, BILINEAR, BOX = range(4)
@@ -44,16 +48,22 @@ def axis_kind(ax: AxisPlan) -> int:
 
 
 def applicable(plan: ScalePlan) -> bool:
+    # ops.deep.applicable past DEEP_BOX_RATIO, stated here because ops.deep
+    # imports this module
+    deep_box = (
+        plan.x.filter == FilterType.BOX
+        and plan.y.filter == FilterType.BOX
+        and plan.width_out >= 2
+        and plan.height_out >= 2
+        and any(ax.dim_in > DEEP_BOX_RATIO * ax.dim_out for ax in (plan.x, plan.y))
+    )
     return (
         plan.storage == StorageType.S64
         and plan.internal_alpha == AlphaType.PREMUL8
         and plan.gamma == GammaType.SRGB_COMPRESSED
         and plan.meta_in.n_bytes in (3, 4)
         and plan.meta_out.n_bytes in (3, 4)
-        and not any(
-            ax.filter == FilterType.BOX and ax.dim_in > MAX_BOX_RATIO * ax.dim_out
-            for ax in (plan.x, plan.y)
-        )
+        and not deep_box
     )
 
 

@@ -1,6 +1,6 @@
-"""The 128bpp path with a bilinear or box filter per axis, at either internal
-alpha and gamma, as a CUDA kernel (``csrc/bilinear128.cu``) and its plain
-PyTorch version.
+"""The 128bpp path with a bilinear, box, COPY or ONE filter per axis, at
+either internal alpha and gamma, as a CUDA kernel (``csrc/bilinear128.cu``)
+and its plain PyTorch version.
 
 Counterpart of ``smolscale_tpu.ops.pallas_128`` (``scale_fn``: 128bpp
 compressed gamma, internal PREMUL16 for unassociated input and output, or
@@ -8,13 +8,15 @@ PREMUL8 past 255:1) and ``smolscale_tpu.ops.pallas_srgb`` (``scale_fn`` and
 the 24bpp ``scale_fn_planes``: sRGB linear light, PREMUL16-linear or
 PREMUL8-linear), three TPU tilings of one pipeline that differ only in the
 unpack and pack.  The class is the union of their ``applicable`` without the
-TPU's geometry and VMEM gates: S128 storage, any internal alpha and gamma,
-3- or 4-byte pixels in and out, each axis bilinear (0h-6h) or box at any
-ratio the planner allows.  Box x box plans with two or more outputs per axis
-are in the class too, but dispatch gives them to the deep box kernel
-(``ops.deep``) first; a box x box plan with one output column or row runs
-here.  The numbers are those of ``backends/numpy_ref`` at 128bpp masks (see
-the note at the top of ``csrc/bilinear128.cu``).
+TPU's geometry and VMEM gates, and with the axis kinds those kernels leave
+to the op graph: S128 storage, any internal alpha and gamma, 3- or 4-byte
+pixels in and out, each axis bilinear (0h-6h), box at any ratio the planner
+allows, COPY (an unchanged dimension) or ONE (a dimension of 1).  Box x box
+plans with two or more outputs per axis are in the class too, but dispatch
+gives them to the deep box kernel (``ops.deep``) first; a box x box plan
+with one output column or row runs here.  The numbers are those of
+``backends/numpy_ref`` at 128bpp masks (see the note at the top of
+``csrc/bilinear128.cu``).
 
 ``scale_fn`` and ``scale_rows_fn`` take ``(B, H, W, nb_in)`` or
 ``(H, W, nb_in)`` uint8 tensors.  A tensor on the CPU goes to
@@ -30,7 +32,7 @@ import functools
 import torch
 
 from ..formats import StorageType
-from ..plan import FilterType, ScalePlan
+from ..plan import ScalePlan
 from . import pixels
 from .bilinear import axis_kind, axis_table, filter_scale, table_len
 from .deep import masks, mode
@@ -43,8 +45,6 @@ def applicable(plan: ScalePlan) -> bool:
         plan.storage == StorageType.S128
         and plan.meta_in.n_bytes in (3, 4)
         and plan.meta_out.n_bytes in (3, 4)
-        and all(ax.filter.is_bilinear or ax.filter == FilterType.BOX
-                for ax in (plan.x, plan.y))
     )
 
 

@@ -11,7 +11,7 @@ smol_scale_simple calls would be: cascading levels would change the bytes.
 Mixed fleets are grouped by (shape, pixel type) and streamed through
 sub-batches that a pinned host ring of two buffers feeds to the card.
 Sharding a batch over a device list (the JAX package's ``mesh`` and
-``axis``) waits for ROADMAP item A7.
+``axis``) waits for ROADMAP item A4.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def make_pyramid_fn(
     def fn(imgs) -> tuple[torch.Tensor, ...]:
         x = torch_ops.as_tensor(imgs, device)
         if fused:
-            return pyramid_op.pyramid_fn(plans, x)
+            return pyramid_op.pyramid_fn(plans, x.contiguous())
         return tuple(torch_ops.scale_fn(p, x) for p in plans)
 
     return fn
@@ -88,10 +88,13 @@ class _PinnedRing:
 
 
 def scale_pyramid_mixed(images, pixel_types, sizes=(64, 128, 256), max_batch_bytes=None,
-                        device=None):
+                        device=None, pixel_type_out: PixelType | None = None,
+                        with_srgb: bool = False):
     """Pyramids of a mixed-format, mixed-shape fleet of ``(H, W, nb)`` uint8
     numpy images: grouped by (shape, pixel type), one batched call per
     sub-batch, per-image tuples of numpy levels in input order.
+    ``pixel_type_out`` (by default each group's own type) and ``with_srgb``
+    go to :func:`make_pyramid_fn` for every group.
 
     ``max_batch_bytes`` bounds each sub-batch's input.  A group's remainder
     sub-batch is padded to the group's sub-batch size by repeating its last
@@ -109,7 +112,8 @@ def scale_pyramid_mixed(images, pixel_types, sizes=(64, 128, 256), max_batch_byt
         cap = len(idxs)
         if max_batch_bytes is not None:
             cap = max(1, min(cap, int(max_batch_bytes) // int(np.prod(shape))))
-        fn = make_pyramid_fn(shape[1], shape[0], PixelType(pt), sizes=sizes, device=dev)
+        fn = make_pyramid_fn(shape[1], shape[0], PixelType(pt), sizes=sizes,
+                             pixel_type_out=pixel_type_out, with_srgb=with_srgb, device=dev)
         for c0 in range(0, len(idxs), cap):
             sub = idxs[c0 : c0 + cap]
             stack = [images[i] for i in sub]

@@ -80,6 +80,31 @@ RGB24 = [
     (512, 256, 96, 56, 8, 4),      # RGB24 -> unassociated RGBA
     (333, 200, 330, 190, 8, 8),    # 0h both axes, ragged width
 ]
+# a 64bpp box past 64:1 (up to the planner's 255:1) beside each other axis
+# kind, outside the deep box kernel's class: the JAX package computes these
+# on this Pallas kernel where its geometry fits, else on its XLA op graph
+PAST_64 = [
+    (6500, 100, 100, 50, 0, 0),    # 65:1 box H x bilinear V
+    (100, 6500, 50, 100, 0, 1),    # bilinear H x 65:1 box V, reorder
+    (25500, 10, 100, 7, 0, 0),     # 255:1 box H x bilinear V
+    (130, 2000, 130, 10, 2, 3),    # COPY H x 200:1 box V
+    (2000, 70, 10, 70, 0, 0),      # 200:1 box H x COPY V
+    (1, 9000, 3, 40, 0, 0),        # ONE H x 225:1 box V
+    (9000, 1, 40, 3, 0, 0),        # 225:1 box H x ONE V
+    (200, 650, 1, 10, 0, 0),       # box x box, one output column: 200:1 x 65:1
+    (650, 200, 10, 1, 0, 0),       # box x box, one output row
+    (6500, 60, 100, 30, 8, 8),     # RGB24
+    (6500, 60, 100, 30, 8, 4),     # RGB24 -> unassociated RGBA
+    (6500, 100, 100, 50, 4, 0),    # unassociated in
+    (6500, 100, 100, 50, 0, 4),    # unassociated out
+]
+# (key, first, n): the row form past 64:1, the COPY x 128:1 integer box
+# strip among them, which ``scale`` runs on the box kernel
+PAST_64_ROWS = [
+    ((4096, 512, 4096, 4, 0, 0), 1, 2),
+    ((6500, 100, 100, 50, 0, 0), 10, 20),
+    ((1, 9000, 3, 40, 0, 0), 39, 1),
+]
 # (key, first, n) of test_pallas_rows_exact
 ROWS = [
     ((1024, 512, 128, 64, 0, 0), 16, 8),
@@ -178,6 +203,37 @@ def test_rows_vs_pallas_rows(key, first, n):
     assert got.shape == (2, n, key[2], 4)
     assert np.array_equal(got, tpu)
     assert np.array_equal(got, _spec(key, imgs)[:, first : first + n])
+
+
+@pytest.mark.parametrize("key", PAST_64, ids=_id)
+def test_past_64_matches_jax_and_spec(key):
+    """The class past 64:1: the plain version against numpy_ref and the
+    JAX package's public API."""
+    plan = ScalePlan(*key)
+    assert bilinear.applicable(plan)
+    assert any(ax.filter == port_plan.FilterType.BOX and ax.dim_in > 64 * ax.dim_out
+               for ax in (plan.x, plan.y))
+    imgs = _images(key, sum(key))
+    got = _port(key, imgs)
+    assert np.array_equal(got, _spec(key, imgs))
+    assert np.array_equal(got, smolscale_tpu.scale(smolscale_tpu.ScalePlan(*key), imgs,
+                                                   backend="jax"))
+
+
+@pytest.mark.parametrize("key,first,n", PAST_64_ROWS,
+                         ids=lambda v: _id(v) if isinstance(v, tuple) else str(v))
+def test_past_64_rows_match_jax(key, first, n):
+    """Row ranges past 64:1 through the public row API, against the JAX
+    package's ``scale_rows`` and ``scale_streamed`` and numpy_ref."""
+    plan, rp = ScalePlan(*key), smolscale_tpu.ScalePlan(*key)
+    img = _images(key, sum(key) + first, batch=1)[0]
+    got = stt.scale_rows(plan, img, first, n, device="cpu")
+    assert np.array_equal(got.numpy(), smolscale_tpu.scale_rows(rp, img, first, n, backend="jax"))
+    assert np.array_equal(got.numpy(), numpy_ref.scale(rp, img)[first : first + n])
+    ours = list(stt.scale_streamed(plan, img, n_chunks=4, device="cpu"))
+    theirs = list(smolscale_tpu.scale_streamed(rp, img, n_chunks=4, backend="jax"))
+    assert [f for f, _ in ours] == [f for f, _ in theirs]
+    assert all(np.array_equal(a.numpy(), np.asarray(b)) for (_, a), (_, b) in zip(ours, theirs))
 
 
 @pytest.mark.parametrize(
@@ -290,7 +346,10 @@ def test_kernel_params_follow_plan():
         ((640, 640, 64, 64, 0, 0), True),      # integer box: both kernels' class
         ((4096, 4096, 300, 300, 0, 0), True),  # non-integer box 13.65:1
         ((6400, 100, 100, 100, 0, 0), True),   # box at exactly 64:1
-        ((6500, 100, 100, 100, 0, 0), False),  # box past 64:1: the deep box kernel
+        ((6500, 100, 100, 100, 0, 0), True),   # box past 64:1 x COPY
+        ((6500, 6500, 100, 100, 0, 0), False), # box x box past 64:1: the deep box kernel
+        ((6500, 200, 100, 1, 0, 0), True),     # box x box past 64:1, one output row
+        ((25500, 100, 100, 100, 0, 0), True),  # 255:1 box x COPY
         ((4096, 512, 16, 2, 0, 0), False),     # 256:1 at 128bpp
         ((256, 256, 100, 100, 4, 4), False),   # PREMUL16
         ((256, 256, 100, 100, 0, 0, True), False),  # sRGB linear
@@ -352,6 +411,6 @@ def test_chip_smoke_plans_are_held_here():
     every plan it checks is held against numpy_ref and the Pallas kernel
     by a test of this file."""
     plans, rows = _smoke_check_plans()
-    assert set(plans) <= set(EXACT + UNASSOC_OUT + GENERAL_BOX + BOX_X_BOX + RGB24)
-    assert set(rows) <= set(ROWS)
+    assert set(plans) <= set(EXACT + UNASSOC_OUT + GENERAL_BOX + BOX_X_BOX + RGB24 + PAST_64)
+    assert set(rows) <= set(ROWS + PAST_64_ROWS)
     assert all(bilinear.applicable(ScalePlan(*k)) for k in plans)

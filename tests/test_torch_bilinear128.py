@@ -79,7 +79,38 @@ LOW_ALPHA = (64, 64, 32, 32, 4, 4, False)
 # box x box with one output past 255:1: ``(5000, 5000, 1, 40, 0, 0)`` at a
 # width the CPU tests and the card's checks can unpack
 ONE_OUTPUT = [(2000, 400, 1, 20, 0, 0, False), (2000, 400, 1, 20, 4, 4, True)]
-ALL = list(dict.fromkeys(COMPRESSED + LINEAR + RGB24 + PLANES + [LOW_ALPHA] + ONE_OUTPUT))
+# COPY and ONE axes, which TPU kernels #10-#12 leave to the XLA op graph, at
+# each (internal alpha, gamma) mode, beside every other kind in both axis
+# orders, and on 24bpp
+COPY_ONE = [
+    (96, 54, 96, 54, 4, 4, False),      # PREMUL16: COPY x COPY
+    (96, 54, 96, 27, 4, 4, False),      # COPY x bilinear 0h
+    (96, 54, 48, 54, 5, 6, False),      # bilinear x COPY, reorders
+    (1, 300, 5, 20, 4, 4, False),       # ONE x box
+    (300, 1, 20, 5, 4, 4, False),       # box x ONE
+    (64, 600, 64, 2, 0, 0, False),      # PREMUL8 at 128bpp: COPY x 300:1 box
+    (600, 1, 2, 7, 0, 1, False),        # 300:1 box x ONE
+    (300, 600, 1, 600, 4, 4, False),    # box x COPY, one output column
+    (96, 54, 96, 54, 0, 0, True),       # PREMUL8-linear: COPY x COPY
+    (96, 54, 96, 27, 0, 0, True),       # COPY x bilinear
+    (1, 300, 5, 20, 0, 0, True),        # ONE x box
+    (300, 1, 20, 5, 2, 5, True),        # box x ONE, premultiplied in -> unassociated out
+    (256, 256, 256, 16, 0, 0, True),    # COPY x box
+    (96, 54, 96, 54, 4, 4, True),       # PREMUL16-linear: COPY x COPY
+    (54, 96, 27, 96, 4, 4, True),       # bilinear x COPY
+    (1, 300, 5, 20, 4, 4, True),        # ONE x box
+    (300, 1, 20, 5, 4, 4, True),        # box x ONE
+    (1, 1, 7, 5, 4, 4, True),           # ONE x ONE
+    (96, 54, 96, 27, 8, 8, True),       # RGB24 linear: COPY x bilinear, pack24 direct
+    (96, 54, 96, 54, 8, 4, True),       # RGB24 -> unassociated RGBA, COPY x COPY
+    (1, 300, 5, 20, 9, 9, True),        # BGR24: ONE x box
+    (1920, 1080, 1920, 1080, 0, 0, True),  # 1:1 in linear light
+]
+# a constant-255 image through COPY x box at PREMUL16-linear: the box's
+# 16-bit mask gives (97, 97, 97, 255) beside the COPY axis too
+CONST_COPY = (256, 1100, 256, 80, 4, 4, True)
+ALL = list(dict.fromkeys(COMPRESSED + LINEAR + RGB24 + PLANES + [LOW_ALPHA] + ONE_OUTPUT
+                         + COPY_ONE + [CONST_COPY]))
 # (key, first, n): chip_smoke.py's WIDE_CHECK_ROWS
 ROWS = [
     ((512, 256, 96, 56, 4, 4, True), 10, 20),
@@ -88,6 +119,9 @@ ROWS = [
     ((16, 600, 8, 2, 4, 0, False), 1, 1),
     ((2000, 400, 1, 20, 0, 0, False), 5, 7),
     ((1024, 300, 128, 30, 8, 8, True), 29, 1),
+    ((256, 256, 256, 16, 0, 0, True), 3, 5),     # COPY x box
+    ((96, 54, 96, 27, 4, 4, False), 10, 7),      # COPY x bilinear
+    ((1, 300, 5, 20, 4, 4, True), 19, 1),        # ONE x box, the last row
 ]
 # suite rows 6, 6b and 7 (benchmarks/suite.py:314-324) cut to a small size
 SUITE = [
@@ -210,6 +244,32 @@ def test_constant_255_keeps_the_16_bit_mask():
     assert (_port(key, np.full((1, 256, 512, 4), 255, dtype=np.uint8)) == 255).all()
 
 
+def test_constant_255_beside_copy():
+    """The 16-bit mask stays on the box axis beside a COPY axis, which
+    normalises nothing; COPY x COPY keeps a white image white."""
+    plan = ScalePlan(*CONST_COPY)
+    assert plan.x.filter == stt.FilterType.COPY and plan.y.filter == stt.FilterType.BOX
+    imgs = np.full((1, CONST_COPY[1], CONST_COPY[0], 4), 255, dtype=np.uint8)
+    got = _port(CONST_COPY, imgs)
+    assert np.array_equal(got, _spec(CONST_COPY, imgs))
+    assert got[0, 0, 0].tolist() == [97, 97, 97, 255]
+    key = (96, 54, 96, 54, 4, 4, True)
+    assert (_port(key, np.full((1, 54, 96, 4), 255, dtype=np.uint8)) == 255).all()
+
+
+@pytest.mark.parametrize("key", COPY_ONE, ids=_id)
+def test_copy_one_matches_jax(key):
+    """COPY and ONE axes through the public API: the port's dispatch
+    reaches this kernel and gives the JAX package's bytes."""
+    plan = stt.ScalePlan(*key)
+    assert [k for k in torch_ops.WHOLE_KERNELS if k.applicable(plan)] == [bilinear128]
+    assert any(ax.filter in (stt.FilterType.COPY, stt.FilterType.ONE) for ax in (plan.x, plan.y))
+    imgs = _images(key, sum(key) + 3, batch=1)
+    got = stt.scale(plan, torch.from_numpy(imgs))
+    assert np.array_equal(got.numpy(), smolscale_tpu.scale(smolscale_tpu.ScalePlan(*key), imgs,
+                                                           backend="jax"))
+
+
 @pytest.mark.parametrize("key,first,n", ROWS, ids=lambda v: _id(v) if isinstance(v, tuple) else str(v))
 def test_rows_match_jax(key, first, n):
     imgs = _images(key, sum(key) + first)
@@ -264,7 +324,8 @@ def test_class_covers_pallas_128_and_srgb():
             assert any(k.applicable(plan) for k in torch_ops.ROW_KERNELS)
     assert taken > 40 and extra > 0
     assert not bilinear128.applicable(ScalePlan(256, 256, 100, 100, 0, 0))        # 64bpp
-    assert not bilinear128.applicable(ScalePlan(256, 256, 256, 16, 0, 0, True))   # COPY x box
+    assert bilinear128.applicable(ScalePlan(256, 256, 256, 16, 0, 0, True))       # COPY x box
+    assert bilinear128.applicable(ScalePlan(1, 1, 7, 5, 4, 4))                    # ONE x ONE
 
 
 def test_sum_bounds():
@@ -363,6 +424,10 @@ def test_kernel_params_follow_plan():
     assert (r.kind_x, r.kind_y, r.len_x, r.len_y, r.mode) == (
         bilinear.BOX, bilinear.BOX, 1, 20, deep.P8_COMPRESSED)
     assert bilinear128._params(ScalePlan(2048, 2048, 256, 256, 4, 4), 1, 0, 1).mode == deep.P16_COMPRESSED
+    c = bilinear128._params(ScalePlan(1, 300, 1, 20, 4, 4, True), 1, 0, 20)   # ONE x box
+    assert (c.kind_x, c.kind_y, c.len_x, c.len_y) == (bilinear.ONE, bilinear.BOX, 0, 20)
+    c = bilinear128._params(ScalePlan(300, 600, 1, 600, 4, 4), 1, 0, 600)    # box x COPY
+    assert (c.kind_x, c.kind_y, c.len_x, c.len_y) == (bilinear.BOX, bilinear.COPY, 1, 0)
     # the V box's last row at 128bpp: max(frac - 1, 0), as pallas_128's w2p
     plan = ScalePlan(300, 1100, 100, 80, 4, 4)
     assert plan.y.filter == stt.FilterType.BOX
@@ -386,7 +451,7 @@ def test_chip_smoke_plans_are_held_here():
     mod = _smoke()
     assert set(mod.WIDE_CHECK_PLANS) == set(ALL)
     assert set(mod.WIDE_CHECK_ROWS) == set(ROWS)
-    assert mod.WIDE_CONST_PLAN in ALL
+    assert mod.WIDE_CONST_PLAN in ALL and mod.WIDE_CONST_COPY_PLAN == CONST_COPY
     for _, key, _ in mod.WIDE_ROWS:
         plan = stt.ScalePlan(*key)
         assert bilinear128.applicable(plan)

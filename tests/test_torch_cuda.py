@@ -1,6 +1,6 @@
 """The CUDA kernels (box, the general 64bpp kernel, the deep box kernel, the
 128bpp kernel and the pyramid kernel) against their plain PyTorch versions,
-and the pyramid farm API, on the card.
+and the row and pyramid farm APIs, on the card.
 
 Tests marked ``cuda`` skip without a CUDA device.  This file imports no JAX
 (of the JAX package it uses only the numpy-only ``numpy_ref`` and planner),
@@ -52,6 +52,12 @@ BILINEAR_PLANS = [
     (512, 256, 96, 56, 8, 8),      # RGB24 -> RGB24
     (300, 200, 290, 190, 0, 9),    # RGBA -> BGR24
     (640, 300, 80, 110, 8, 4),     # RGB24 box x box -> unassociated RGBA
+    (6500, 100, 100, 50, 0, 0),    # 65:1 box x bilinear
+    (25500, 10, 100, 7, 0, 0),     # 255:1 box x bilinear
+    (130, 2000, 130, 10, 2, 3),    # COPY x 200:1 box
+    (9000, 1, 40, 3, 0, 0),        # 225:1 box x ONE
+    (200, 650, 1, 10, 0, 0),       # box x box past 64:1, one output column
+    (6500, 60, 100, 30, 8, 4),     # RGB24 past 64:1 -> unassociated RGBA
 ]
 
 
@@ -160,6 +166,21 @@ def test_bilinear_row_api(cuda_device):
         bilinear.scale_fn(plan, x[:, :, ::1].transpose(1, 2))
     with pytest.raises(ValueError, match="row range"):
         bilinear.scale_rows_fn(plan, x, 1020, 5)
+
+
+@pytest.mark.cuda
+def test_rows_past_64_on_bilinear(cuda_device):
+    """COPY x a 128:1 integer box: whole images take the box kernel, row
+    ranges and streamed chunks the general kernel, with the same bytes."""
+    plan = stt.ScalePlan(4096, 512, 4096, 4, 0, 0)
+    x = torch.randint(0, 256, (2, 512, 4096, 4), dtype=torch.uint8, device=cuda_device)
+    want = bilinear.bilinear_scale_ref(plan, x)
+    boxes, rows = box.launches, bilinear.launches
+    assert torch.equal(stt.scale(plan, x), want)
+    assert torch.equal(stt.scale_rows(plan, x, 1, 2), want[:, 1:3])
+    chunks = list(stt.scale_streamed(plan, x, n_chunks=4))
+    assert (box.launches, bilinear.launches) == (boxes + 1, rows + 5)
+    assert torch.equal(torch.cat([r for _, r in chunks], dim=1), want)
 
 
 @pytest.mark.cuda
@@ -305,6 +326,36 @@ def test_pyramid_farm_on_card(cuda_device):
                                    device="cpu")
     for g, w in zip(got, want):
         assert all(np.array_equal(a, b) for a, b in zip(g, w))
+
+
+@pytest.mark.cuda
+def test_pyramid_fn_takes_strided_batch(cuda_device):
+    """A transposed view of a CUDA batch through make_pyramid_fn: one
+    pyramid launch, the levels of the contiguous batch."""
+    x = torch.randint(0, 256, (3, 512, 512, 4), dtype=torch.uint8, device=cuda_device)
+    strided = x.transpose(1, 2).contiguous().transpose(1, 2)
+    fn = stt.make_pyramid_fn(512, 512, 0)
+    want = fn(x)
+    before = pyramid.launches
+    got = fn(strided)
+    assert pyramid.launches == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_pyramid_mixed_type_out_and_srgb(cuda_device):
+    """scale_pyramid_mixed forwards pixel_type_out and with_srgb: the card
+    gives the CPU's bytes, in linear light as in compressed gamma."""
+    rng = np.random.default_rng(6)
+    images = [rng.integers(0, 256, (256, 256, 4), dtype=np.uint8) for _ in range(3)]
+    images.append(rng.integers(0, 256, (128, 192, 3), dtype=np.uint8))
+    types = [0, 0, 4, 8]
+    for srgb in (False, True):
+        kw = dict(sizes=(32, 64), pixel_type_out=1, with_srgb=srgb)
+        got = stt.scale_pyramid_mixed(images, types, **kw)
+        want = stt.scale_pyramid_mixed(images, types, device="cpu", **kw)
+        for g, w in zip(got, want):
+            assert all(np.array_equal(a, b) for a, b in zip(g, w))
 
 
 @pytest.mark.cuda

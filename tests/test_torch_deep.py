@@ -307,10 +307,55 @@ def test_dispatch_order(monkeypatch):
     ids=lambda v: v if isinstance(v, str) else _id(v),
 )
 def test_roadmap_item(key, item):
+    """Plans beside this class that no kernel took while ROADMAP item
+    ``item`` was open: COPY x box in linear light goes to the 128bpp
+    kernel, a 65:1 box beside a bilinear axis at 64bpp to the general
+    kernel, and each gives numpy_ref's bytes."""
     plan = ScalePlan(*key)
-    assert not any(k.applicable(plan) for k in torch_ops.WHOLE_KERNELS)
-    with pytest.raises(NotImplementedError, match=item):
-        stt.scale(plan, torch.zeros((key[1], key[0], 4), dtype=torch.uint8))
+    kernel = bilinear128 if plan.storage == StorageType.S128 else bilinear
+    assert [k for k in torch_ops.WHOLE_KERNELS if k.applicable(plan)] == [kernel]
+    assert [k for k in torch_ops.ROW_KERNELS if k.applicable(plan)] == [kernel]
+    imgs = _images(key, sum(key), batch=1)
+    got = stt.scale(plan, torch.from_numpy(imgs))
+    assert np.array_equal(got.numpy(), _spec(key, imgs))
+
+
+# chip_smoke.py times this kernel on this plan for TPU kernel #7
+GENERAL_ROW = (4096, 4096, 32, 480, 0, 0, False)
+
+
+def test_general_kernel_row(monkeypatch):
+    """``pallas_deep.scale_fn`` builds ``_built_general`` (#7) only where
+    ``_chunk_centric`` gives None, which takes a V span shorter than 8 rows:
+    a box axis (past 8:1) has none, so no plan of a sweep of the class
+    reaches it, and ``GENERAL_ROW`` reaches it under the module's timing
+    knob ``_ABLATE = "general"``.  ``GENERAL_ROW`` is a 4096^2 plan with
+    the class's shortest spans (8-9 rows, the chunk-centric kernel's least
+    chunk height), not uniform, which the port gives to this kernel."""
+    rng = np.random.default_rng(7)
+    swept = 0
+    for _ in range(300):
+        h_out = int(rng.integers(2, 512))
+        w_out = int(rng.integers(2, 512))
+        rp = ref_plan.ScalePlan(4096, 4096, w_out, h_out, 0, 0, False)
+        if pallas_deep.applicable(rp) and not pallas_deep._uniform_deep(rp):
+            assert pallas_deep._chunk_centric(rp) is not None, (w_out, h_out)
+            swept += 1
+    assert swept > 100
+    rp = ref_plan.ScalePlan(*GENERAL_ROW)
+    assert pallas_deep.applicable(rp) and not pallas_deep._uniform_deep(rp)
+    assert pallas_deep._chunk_centric(rp) == (8, 512)
+    built = []
+    for name in ("_built", "_built_chunked", "_built_general"):
+        monkeypatch.setattr(pallas_deep, name,
+                            lambda plan, batch, name=name: built.append(name) or (lambda x: x))
+    imgs = np.zeros((1, 4096, 4096, 4), dtype=np.uint8)
+    pallas_deep.scale_fn(rp, imgs)
+    monkeypatch.setattr(pallas_deep, "_ABLATE", "general")
+    pallas_deep.scale_fn(rp, imgs)
+    assert built == ["_built_chunked", "_built_general"]
+    plan = ScalePlan(*GENERAL_ROW)
+    assert [k for k in torch_ops.WHOLE_KERNELS if k.applicable(plan)] == [deep]
 
 
 @pytest.mark.parametrize(

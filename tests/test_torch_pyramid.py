@@ -241,6 +241,18 @@ def test_make_pyramid_fn_fused_and_level_by_level_agree():
         make_pyramid_fn(128, 128, 0, sizes=(32, 64), device="meta")(torch.from_numpy(imgs))
 
 
+def test_make_pyramid_fn_takes_strided_input():
+    """A batch that is not contiguous (a transposed view) gives the levels
+    of its contiguous copy on the fused path, as on the level-by-level one
+    (the JAX farm takes any array)."""
+    imgs = torch.from_numpy(_random((2, 128, 128, 4), 6))
+    strided = imgs.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not strided.is_contiguous() and torch.equal(strided, imgs)
+    for sizes in ((16, 32, 64), (24, 48)):
+        fn = make_pyramid_fn(128, 128, 0, sizes=sizes)
+        _assert_levels_equal(fn(strided), fn(imgs))
+
+
 def _fleet_equal(got, want, n):
     assert len(got) == len(want) == n
     for g, w in zip(got, want):
@@ -258,6 +270,27 @@ def test_mixed_fleet_matches_jax():
     assert got[3][0].shape == (8, 8, 3)
     assert np.array_equal(
         got[2][1], numpy_ref.scale(RefPlan(64, 64, 16, 16, 4, 4, False), images[2]))
+
+
+def test_mixed_fleet_forwards_type_out_and_srgb():
+    """``pixel_type_out`` and ``with_srgb`` reach every group's plans, as the
+    JAX farm's ``**kw`` does: the fused class (RGBA premul 64^2 -> 8, 16,
+    BGRA out) leaves the pyramid kernel in linear light."""
+    rng = np.random.default_rng(57)
+    images = [rng.integers(0, 256, (64, 64, 4), np.uint8) for _ in range(2)]
+    images.append(rng.integers(0, 256, (32, 48, 3), np.uint8))
+    types = [0, 4, 8]
+    assert pyramid.applicable(_square(64, 64, (8, 16), 0, 1))
+    assert not pyramid.applicable(_square(64, 64, (8, 16), 0, 1, srgb=True))
+    for srgb in (False, True):
+        got = scale_pyramid_mixed(images, types, sizes=(8, 16), device="cpu",
+                                  pixel_type_out=1, with_srgb=srgb)
+        want = jax_pyramid.scale_pyramid_mixed(images, types, sizes=(8, 16),
+                                               pixel_type_out=1, with_srgb=srgb)
+        _fleet_equal(got, want, 3)
+        assert got[2][1].shape == (16, 16, 4)
+        plan = RefPlan(48, 32, 16, 16, 8, 1, srgb)
+        assert np.array_equal(got[2][1], numpy_ref.scale(plan, images[2]))
 
 
 def test_mixed_fleet_bounded_batches_pad_and_order(monkeypatch):

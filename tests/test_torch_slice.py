@@ -12,6 +12,8 @@ COPY repack; and 128bpp plans with a bilinear axis or one output column on
 the 128bpp kernel.  The tolerance is byte equality.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,9 @@ import torch
 import smolscale_tpu
 import smolscale_tpu_torch as stt
 from smolscale_tpu.backends import numpy_ref
+from smolscale_tpu_torch.backends import torch_ops
+from smolscale_tpu_torch.formats import PixelType
+from smolscale_tpu_torch.ops import bilinear, bilinear128, box, deep
 
 SLICE_PLANS = [
     (256, 256, 16, 16, 0, 0),    # row 0 analogue
@@ -132,20 +137,37 @@ def test_scale_simple():
         batch[1].numpy(), 1, 16, 16, backend="numpy"))
 
 
-@pytest.mark.parametrize(
-    "key,item",
-    [
-        ((256, 256, 256, 16, 0, 0, True), "A3"),     # COPY x box in linear light
-        ((6500, 100, 100, 50, 0, 0, False), "A3"),   # 65:1 box x bilinear at 64bpp
-        ((300, 600, 1, 600, 4, 4, False), "A3"),     # box x COPY at 128bpp
-    ],
-    ids=lambda v: v if isinstance(v, str) else _id(v),
-)
+# plans that raised NotImplementedError naming ROADMAP item A3 while no
+# kernel took them; ``item`` keeps that name in the tests' ids
+FORMER_GAPS = [
+    ((256, 256, 256, 16, 0, 0, True), "A3"),     # COPY x box in linear light
+    ((6500, 100, 100, 50, 0, 0, False), "A3"),   # 65:1 box x bilinear at 64bpp
+    ((300, 600, 1, 600, 4, 4, False), "A3"),     # box x COPY at 128bpp
+]
+# the kernel that computes each, whole and by rows
+FORMER_GAP_KERNEL = {
+    (256, 256, 256, 16, 0, 0, True): bilinear128,
+    (6500, 100, 100, 50, 0, 0, False): bilinear,
+    (300, 600, 1, 600, 4, 4, False): bilinear128,
+}
+
+
+def _kernel_of(plan, kernels):
+    return next(k for k in kernels if k.applicable(plan))
+
+
+@pytest.mark.parametrize("key,item", FORMER_GAPS,
+                         ids=lambda v: v if isinstance(v, str) else _id(v))
 def test_other_plans_raise(key, item):
+    """Plans outside the first slices' classes no longer raise: each reaches
+    a kernel and gives the JAX package's and numpy_ref's bytes."""
     plan = stt.ScalePlan(*key)
-    imgs = torch.zeros((key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match=item):
-        stt.scale(plan, imgs)
+    assert _kernel_of(plan, torch_ops.WHOLE_KERNELS) is FORMER_GAP_KERNEL[key]
+    imgs = _images(key, sum(key))
+    got = stt.scale(plan, torch.from_numpy(imgs))
+    rp = smolscale_tpu.ScalePlan(*key)
+    assert np.array_equal(got.numpy(), smolscale_tpu.scale(rp, imgs, backend="jax"))
+    assert np.array_equal(got.numpy(), np.stack([numpy_ref.scale(rp, im) for im in imgs]))
 
 
 @pytest.mark.parametrize(
@@ -171,23 +193,22 @@ def test_128bpp_rows_match_jax_and_spec(key):
     assert all(np.array_equal(a.numpy(), np.asarray(b)) for (_, a), (_, b) in zip(ours, theirs))
 
 
-@pytest.mark.parametrize(
-    "key,item",
-    [
-        ((256, 256, 256, 16, 0, 0, True), "A3"),     # COPY x box in linear light
-        ((300, 600, 1, 600, 4, 4, False), "A3"),     # box x COPY at 128bpp
-    ],
-    ids=lambda v: v if isinstance(v, str) else _id(v),
-)
+@pytest.mark.parametrize("key,item", [FORMER_GAPS[0], FORMER_GAPS[2]],
+                         ids=lambda v: v if isinstance(v, str) else _id(v))
 def test_other_plans_raise_for_rows(key, item):
-    """The row API runs on the general, the deep box and the 128bpp
-    kernels; other plans raise by rows as they do whole."""
-    plan = stt.ScalePlan(*key)
-    imgs = torch.zeros((key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match=item):
-        stt.scale_rows(plan, imgs, 0, 1)
-    with pytest.raises(NotImplementedError, match=item):
-        next(stt.scale_streamed(plan, imgs))
+    """The same plans by rows and streamed, on the kernel that takes them
+    whole, against the JAX package's row API and numpy_ref."""
+    plan, rp = stt.ScalePlan(*key), smolscale_tpu.ScalePlan(*key)
+    assert _kernel_of(plan, torch_ops.ROW_KERNELS) is FORMER_GAP_KERNEL[key]
+    img = _images(key, sum(key) + 1, batch=1)[0]
+    first, n = plan.height_out // 3, plan.height_out // 2
+    got = stt.scale_rows(plan, img, first, n, device="cpu")
+    assert np.array_equal(got.numpy(), smolscale_tpu.scale_rows(rp, img, first, n, backend="jax"))
+    assert np.array_equal(got.numpy(), numpy_ref.scale(rp, img)[first : first + n])
+    ours = list(stt.scale_streamed(plan, img, n_chunks=3, device="cpu"))
+    theirs = list(smolscale_tpu.scale_streamed(rp, img, n_chunks=3, backend="jax"))
+    assert [f for f, _ in ours] == [f for f, _ in theirs]
+    assert all(np.array_equal(a.numpy(), np.asarray(b)) for (_, a), (_, b) in zip(ours, theirs))
 
 
 @pytest.mark.parametrize(
@@ -207,3 +228,61 @@ def test_deep_rows_match_jax_and_spec(key, first, n):
     rp = smolscale_tpu.ScalePlan(*key)
     assert np.array_equal(got.numpy(), smolscale_tpu.scale_rows(rp, img, first, n, backend="jax"))
     assert np.array_equal(got.numpy(), numpy_ref.scale(rp, img)[first : first + n])
+
+
+SWEEP_SIZES = (1, 2, 5, 16, 100, 300, 1000, 5000)
+FORMAT_PAIRS = [(ti, to) for ti in PixelType for to in PixelType]
+
+
+def _coverage_sample():
+    """Every (w_in, h_in, w_out, h_out) over ``SWEEP_SIZES`` with and
+    without sRGB, each with one of the 100 (in, out) format pairs, which
+    the index walks through so that every pair comes up ~80 times: 8,192
+    plans of the 819,200 (the whole grid takes minutes to plan)."""
+    for c, dims in enumerate(itertools.product(SWEEP_SIZES, repeat=4)):
+        for srgb in (False, True):
+            yield (*dims, *FORMAT_PAIRS[(c * 37 + srgb * 53) % 100], srgb)
+
+
+def test_every_plan_reaches_a_kernel():
+    """No plan of the sample misses every kernel, whole or by rows, and
+    none that the deep box kernel takes past 64:1 goes to the general
+    kernel's serial span loop."""
+    n = 0
+    for key in _coverage_sample():
+        plan = stt.ScalePlan(*key)
+        assert any(k.applicable(plan) for k in torch_ops.WHOLE_KERNELS), key
+        assert any(k.applicable(plan) for k in torch_ops.ROW_KERNELS), key
+        if deep.applicable(plan) and any(
+            ax.filter == stt.FilterType.BOX and ax.dim_in > 64 * ax.dim_out
+            for ax in (plan.x, plan.y)
+        ):
+            assert not bilinear.applicable(plan), key
+        n += 1
+    assert n == len(SWEEP_SIZES) ** 4 * 2
+
+
+def test_dispatch_keeps_deep_and_box(monkeypatch):
+    """Box x box past 64:1 with two or more outputs per axis stays on the
+    deep box kernel, integer box stays on the box kernel whole, and the
+    general kernel takes the rest of 64bpp by rows and whole."""
+    calls = []
+    for mod in (box, bilinear, deep, bilinear128):
+        name = mod.__name__.rsplit(".", 1)[-1]
+        monkeypatch.setattr(mod, "scale_fn", lambda plan, x, name=name: calls.append(name))
+        monkeypatch.setattr(mod, "scale_rows_fn",
+                            lambda plan, x, f, n, name=name: calls.append(name + " rows"),
+                            raising=False)
+    img = torch.zeros((8, 8, 4), dtype=torch.uint8)
+    for key in [
+        (6550, 6500, 100, 50, 0, 0),   # 65.5:1 x 130:1 box x box: deep
+        (6550, 640, 100, 10, 0, 0),    # 65.5:1 x 64:1: deep
+        (6400, 6400, 100, 100, 0, 0),  # integer 64:1: box whole, general by rows
+        (200, 6500, 1, 100, 0, 0),     # 200:1 x 65:1, one output column: general
+        (4096, 512, 4096, 4, 0, 0),    # COPY x 128:1 integer box (C3)
+    ]:
+        plan = stt.ScalePlan(*key)
+        stt.scale(plan, img)
+        stt.scale_rows(plan, img, 0, 1)
+    assert calls == ["deep", "deep rows", "deep", "deep rows", "box", "bilinear rows",
+                     "bilinear", "bilinear rows", "box", "bilinear rows"]
