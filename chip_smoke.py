@@ -10,12 +10,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. Build: compiles the CUDA kernels from ``smolscale_tpu_torch/csrc`` into
    ``build/kernels/`` (one nvcc per source, all at once) and prints the
    build time, ptxas's report and each kernel's count of template
-   instances.
+   instances, and for each instance of the general kernel
+   (``bilinear_kernel<KX, KY, PACKED>``) its registers, stack frame, spills
+   and shared memory per block.
 3. Kernels against their plain versions, on the card for a batch of 2: the
    box kernel on each plan of ``CHECK_PLANS`` (plain version
    ``ops.box.box_scale_ref``), the general kernel on each plan of
    ``BILINEAR_CHECK_PLANS`` and each row range of ``BILINEAR_CHECK_ROWS``
-   (``ops.bilinear.bilinear_scale_ref``; boxes past 64:1 among them), the
+   (``ops.bilinear.bilinear_scale_ref``; boxes past 64:1 and the staged
+   X axes' tile edges among them) and each plan of ``BILINEAR_UNALIGNED``
+   at byte offsets 1, 2 and 3, whole and by rows, the
    deep box kernel on each plan
    of ``DEEP_CHECK_PLANS`` (one of them also on a constant-255 batch) and
    each row range of ``DEEP_CHECK_ROWS`` (``ops.deep.deep_scale_ref``), the
@@ -87,6 +91,7 @@ Nothing here imports JAX.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -171,6 +176,22 @@ BILINEAR_CHECK_PLANS = [
     (6500, 60, 100, 30, 8, 4),     # RGB24 -> unassociated RGBA
     (6500, 100, 100, 50, 4, 0),    # unassociated in
     (6500, 100, 100, 50, 0, 4),    # unassociated out
+    # STAGED of tests/test_torch_bilinear.py: the staged box X axes' column
+    # tiles (256 / lanes columns) on their edges at 1, 8 and 16 lanes, five
+    # tiles, both sides of the staging threshold and of two lanes
+    (4080, 64, 255, 16, 0, 0),     # 16:1 box x 1h ladder, one lane, T - 1
+    (4096, 64, 256, 16, 0, 0),     # T
+    (4112, 64, 257, 16, 0, 0),     # T + 1
+    (4112, 64, 257, 16, 8, 8),     # same, RGB24
+    (200, 50, 1, 7, 0, 1),         # 200:1 box, 16 lanes, one column
+    (3968, 20, 31, 10, 0, 0),      # 128:1 box x 0h, 8 lanes, T - 1
+    (4096, 20, 32, 10, 2, 3),      # T, reorder
+    (4224, 20, 33, 10, 4, 1),      # T + 1, unassociated in
+    (4335, 10, 17, 5, 0, 4),       # 255:1 box, 16 lanes, T + 1, unassociated out
+    (16400, 8, 1025, 4, 0, 0),     # 16:1 box, five tiles
+    (2800, 10, 200, 5, 0, 0),      # 14:1 box: direct loads
+    (3000, 10, 200, 5, 0, 0),      # 15:1 box: staged, one lane
+    (3600, 10, 200, 5, 9, 8),      # 18:1 box: two lanes, BGR24 -> RGB24
 ]
 # (plan, first output row, rows) through the row form
 BILINEAR_CHECK_ROWS = [
@@ -183,7 +204,18 @@ BILINEAR_CHECK_ROWS = [
     ((4096, 512, 4096, 4, 0, 0), 1, 2),        # COPY x 128:1 integer box by rows
     ((6500, 100, 100, 50, 0, 0), 10, 20),
     ((1, 9000, 3, 40, 0, 0), 39, 1),
+    # STAGED_ROWS of tests/test_torch_bilinear.py
+    ((4112, 64, 257, 16, 0, 0), 5, 7),
+    ((4112, 64, 257, 16, 8, 8), 9, 6),
+    ((4224, 20, 33, 10, 4, 1), 3, 4),
+    ((16400, 8, 1025, 4, 0, 0), 1, 2),
 ]
+# the general kernel on inputs at byte offsets 1-3: a 2h ladder with tails
+# (direct byte loads), and staged boxes (ragged stretch ends staged byte by
+# byte, pixels read across shared words): 128:1 at 8 lanes, 16:1 RGB24, and
+# 255:1 with unassociated out
+BILINEAR_UNALIGNED = [(700, 500, 123, 77, 2, 3), (4224, 20, 33, 10, 4, 1),
+                      (4112, 64, 257, 16, 8, 8), (4335, 10, 17, 5, 0, 4)]
 
 # the three plan lists of tests/test_pallas_deep.py (:21-36, :50-71, :86-98),
 # two plans whose sums pass 16 and 32 bits and four with spans shorter than
@@ -463,6 +495,34 @@ def bound_ms(in_bytes: int, out_bytes: int) -> float:
     return (in_bytes + out_bytes) / (HBM_PEAK_GBS * 1e9) * 1e3
 
 
+_KERNEL_NAMES = ("box_kernel", "bilinear_kernel", "deep_kernel", "bilinear128_kernel",
+                 "pyramid_kernel")
+
+
+def ptxas_instances(build_log: str) -> list:
+    """Each kernel instance in ptxas's -v report: its kernel, template
+    arguments (the general kernel's KX, KY, PACKED), registers, stack frame,
+    spill stores and loads, and static shared memory, in bytes."""
+    out, cur = [], None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = next((k for k in _KERNEL_NAMES if f"{len(k)}{k}" in line), None)
+            m = re.search(r"bilinear_kernelILi(\d+)ELi(\d+)ELb([01])E", line)
+            cur = None if name is None else {
+                "kernel": name, "args": ", ".join(m.groups()) if m else "",
+                "stack": 0, "spill_stores": 0, "spill_loads": 0, "smem": 0}
+        elif cur is not None and "stack frame" in line:
+            nums = [int(v) for v in re.findall(r"(\d+) bytes", line)]
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = nums[:3]
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(line.split("Used")[1].split()[0])
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
+            out.append(cur)
+            cur = None
+    return out
+
+
 def make_fleet():
     """The row 5b fleet (suite.py:157-176): images and pixel types."""
     rng = np.random.default_rng(0)
@@ -521,21 +581,23 @@ def main() -> int:
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             log(f"[build] {line.strip()}")
-    # each kernel's template instances and their registers, from ptxas's
-    # report (an instance's "Used N registers" follows its entry line)
-    regs: dict = {}
-    kernel = None
-    for line in build_log.splitlines():
-        if "Compiling entry function" in line:
-            kernel = next((k for k in ("box_kernel", "bilinear_kernel", "deep_kernel",
-                                       "bilinear128_kernel", "pyramid_kernel")
-                           if f"{len(k)}{k}" in line), None)
-        elif kernel is not None and "Used" in line and "registers" in line:
-            regs.setdefault(kernel, []).append(int(line.split("Used")[1].split()[0]))
-            kernel = None
-    for name, used in regs.items():
-        log(f"[build] {name}: {len(used)} template instances, {min(used)}-{max(used)} "
-            f"registers")
+    # each kernel's template instances and their registers, and for each
+    # instance of the general kernel its stack frame, spills and shared
+    # memory, from ptxas's report (an entry line, then its "stack frame"
+    # line, then its "Used N registers, ... M bytes smem" line)
+    instances = ptxas_instances(build_log)
+    for name in _KERNEL_NAMES:
+        mine = [r for r in instances if r["kernel"] == name]
+        if mine:
+            used = [r["registers"] for r in mine]
+            log(f"[build] {name}: {len(used)} template instances, {min(used)}-{max(used)} "
+                f"registers, stack frames up to {max(r['stack'] for r in mine)} bytes, "
+                f"{sum(r['stack'] > 0 for r in mine)} instances with one")
+    for r in instances:
+        if r["kernel"] == "bilinear_kernel":
+            log(f"[build] bilinear_kernel<{r['args']}>: {r['registers']} registers, "
+                f"{r['stack']} bytes stack frame, {r['spill_stores']} + {r['spill_loads']} bytes "
+                f"spill stores + loads, {r['smem']} bytes shared memory per block")
 
     # 3. kernels against their plain versions
     err = {"box": 0, "bilinear": 0, "deep": 0, "bilinear128": 0, "pyramid": 0}
@@ -638,6 +700,20 @@ def main() -> int:
         shifted = flat[1:].view(imgs.shape)
         shifted.copy_(imgs)
         check(kind, f"{key} unaligned", mod.scale_fn(plan, shifted), plain(plan, imgs))
+    for key in BILINEAR_UNALIGNED:
+        plan = plan_of(key)
+        imgs = random_images(key, 9)
+        want = bilinear.bilinear_scale_ref(plan, imgs)
+        for offset in (1, 2, 3):
+            flat = torch.empty(imgs.numel() + offset, dtype=torch.uint8, device=dev)
+            shifted = flat[offset:].view(imgs.shape)
+            shifted.copy_(imgs)
+            check("bilinear", f"{key} at byte offset {offset}", bilinear.scale_fn(plan, shifted),
+                  want)
+            h = plan.height_out
+            check("bilinear", f"{key} at byte offset {offset} rows [{h // 3}, {h - 1})",
+                  bilinear.scale_rows_fn(plan, shifted, h // 3, h - 1 - h // 3),
+                  want[:, h // 3 : h - 1])
 
     def pyramid_plans(case):
         w, h, outs, ti, to = case

@@ -1,6 +1,7 @@
-"""The general 64bpp PREMUL8 pipeline: per axis a bilinear 0h-6h halving
-ladder, a box with fractional edge weights, COPY or ONE, as a CUDA kernel
-(``csrc/bilinear.cu``) and its plain PyTorch version.
+"""The general 64bpp PREMUL8 pipeline: per axis a bilinear halving ladder
+(the planner makes 0h-2h; a box past 8:1), a box with fractional edge
+weights, COPY or ONE, as a CUDA kernel (``csrc/bilinear.cu``) and its plain
+PyTorch version.
 
 Counterpart of ``smolscale_tpu.ops.pallas_bilinear`` (``scale_fn``, the row
 form ``scale_rows_fn`` and the 24bpp ``scale_fn_planes``).  The class: S64
@@ -13,6 +14,11 @@ pixel sums their spans faster than this kernel's serial span loop.  The
 TPU kernel's geometry and VMEM limits play no part.  The numbers are those
 of ``backends/numpy_ref`` for the class (see the note at the top of
 ``csrc/bilinear.cu``).
+
+The kernel loads pixels directly, one thread per output, but for a box X
+axis of about 15:1 and past, whose input it stages in shared memory tile by
+tile of output columns: :func:`stage_table` gives each tile's stretch of an
+input row and the threads per output column.
 
 ``scale_fn`` and ``scale_rows_fn`` take ``(B, H, W, nb_in)`` or
 ``(H, W, nb_in)`` uint8 tensors.  A tensor on the CPU goes to
@@ -167,6 +173,65 @@ def _tables(plan: ScalePlan, device: torch.device) -> tuple[torch.Tensor, torch.
     )
 
 
+# the kernel's staging of a BOX X axis (csrc/bilinear.cu): 256 threads per
+# block, ``lanes`` of them per output column, at most STAGE_BYTES of an
+# input row in shared memory at once (kThreads and kStageBytes there); a box
+# whose columns read fewer than STAGE_MIN_READS pixels, and every other
+# kind, loads directly
+THREADS = 256
+STAGE_BYTES = 24576
+STAGE_MIN_READS = 16
+# pixels between a column's edges per lane, below which it keeps one lane
+LANE_READS = 16
+
+
+def box_reads(ax: AxisPlan) -> tuple[np.ndarray, np.ndarray]:
+    """For each output column of a BOX axis, the input columns [lo, hi)
+    that its H filter reads: both edges and the pixels between them."""
+    t = box_h_arrays(ax)
+    has_mid = t["mid_len"] > 0
+    mid_lo = np.where(has_mid, t["mid_start"], t["left_idx"])
+    mid_hi = np.where(has_mid, t["mid_start"] + t["mid_len"], t["left_idx"] + 1)
+    lo = np.minimum(np.minimum(t["left_idx"], t["right_idx"]), mid_lo)
+    hi = np.maximum(np.maximum(t["left_idx"], t["right_idx"]) + 1, mid_hi)
+    return lo, hi
+
+
+def stage_table(ax: AxisPlan, nb: int) -> tuple[int, np.ndarray]:
+    """The kernel's staging of an X axis of ``nb``-byte pixels: lanes per
+    output column and, for each tile of ``THREADS // lanes`` output
+    columns, the input columns [lo, hi) that its spans read, as int32 (2,
+    tiles): lo row, then hi row.  A BOX axis whose columns read
+    STAGE_MIN_READS pixels or more is staged: lanes (a power of two up to
+    32) start where the pixels between a column's edges split into at most
+    LANE_READS per lane, and double until every tile's stretch fits
+    STAGE_BYTES.  Any other axis loads directly: (0, empty)."""
+    direct = 0, np.zeros((2, 0), dtype=np.int32)
+    if axis_kind(ax) != BOX:
+        return direct
+    lo, hi = box_reads(ax)
+    if int((hi - lo).max()) < STAGE_MIN_READS:
+        return direct
+    lanes = 1
+    while lanes < 32 and int(ax.strides.max()) > LANE_READS * lanes:
+        lanes *= 2
+    while True:
+        starts = np.arange(0, ax.dim_out, THREADS // lanes)
+        t_lo, t_hi = np.minimum.reduceat(lo, starts), np.maximum.reduceat(hi, starts)
+        if int((t_hi - t_lo).max()) * nb <= STAGE_BYTES:
+            return lanes, np.stack([t_lo, t_hi]).astype(np.int32)
+        if lanes == 32:
+            raise ValueError(f"axis {ax.dim_in} -> {ax.dim_out}: a tile of 8 columns "
+                             f"reads more than {STAGE_BYTES} bytes of a row")
+        lanes *= 2
+
+
+@functools.cache
+def _stage_tables(plan: ScalePlan, device: torch.device) -> tuple[int, torch.Tensor]:
+    lanes, table = stage_table(plan.x, plan.meta_in.n_bytes)
+    return lanes, torch.as_tensor(table.reshape(-1), device=device)
+
+
 # ----------------------------------------------------------------------------
 # Plain PyTorch version
 # ----------------------------------------------------------------------------
@@ -258,7 +323,7 @@ class _BilinearParams(ctypes.Structure):
         for name in (
             "batch", "h_in", "w_in", "h_out", "w_out", "row0", "n_rows",
             "kind_x", "kind_y", "halvings_x", "halvings_y", "len_x", "len_y",
-            "span_mul_x", "span_mul_y",
+            "span_mul_x", "span_mul_y", "lanes_x",
             "nb_in", "nb_out", "alpha_ch", "unassoc_in", "unassoc_out",
         )
     ] + [("src", ctypes.c_int64 * 4)]
@@ -269,7 +334,7 @@ def table_len(ax: AxisPlan) -> int:
     return ax.dim_bilin if kind == BILINEAR else ax.dim_out if kind == BOX else 0
 
 
-def _params(plan: ScalePlan, batch: int, first: int, n: int) -> _BilinearParams:
+def _params(plan: ScalePlan, batch: int, first: int, n: int, lanes: int) -> _BilinearParams:
     f = pixels.kernel_fields(plan)
     f["src"] = (ctypes.c_int64 * 4)(*f["src"])
     return _BilinearParams(
@@ -278,7 +343,7 @@ def _params(plan: ScalePlan, batch: int, first: int, n: int) -> _BilinearParams:
         kind_x=axis_kind(plan.x), kind_y=axis_kind(plan.y),
         halvings_x=plan.x.halvings, halvings_y=plan.y.halvings,
         len_x=table_len(plan.x), len_y=table_len(plan.y),
-        span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul), **f,
+        span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul), lanes_x=lanes, **f,
     )
 
 
@@ -287,7 +352,7 @@ def _entry():
     from ._build import library
 
     fn = library().smolscale_bilinear_scale
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.POINTER(_BilinearParams), ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.POINTER(_BilinearParams), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -304,10 +369,11 @@ def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> torch.Te
     with torch.cuda.device(imgs.device):
         inv_div = pixels.inv_div_table(imgs.device)
         tx, ty = _tables(plan, imgs.device)
-        params = _params(plan, batch.shape[0], first, n)
+        lanes, stages = _stage_tables(plan, imgs.device)
+        params = _params(plan, batch.shape[0], first, n, lanes)
         err = _entry()(
             batch.data_ptr(), out.data_ptr(), inv_div.data_ptr(),
-            tx.data_ptr(), ty.data_ptr(),
+            tx.data_ptr(), ty.data_ptr(), stages.data_ptr(),
             ctypes.byref(params), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

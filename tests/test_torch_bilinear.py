@@ -105,6 +105,32 @@ PAST_64_ROWS = [
     ((6500, 100, 100, 50, 0, 0), 10, 20),
     ((1, 9000, 3, 40, 0, 0), 39, 1),
 ]
+# the kernel's staged box X axes (16 pixels or more per column) at the edges
+# of its column tiles (256 / lanes columns): w_out of 1, T - 1, T and T + 1
+# at one lane (T = 256), at 8 lanes (a 128:1 box, T = 32) and at 16 (255:1,
+# T = 16), five tiles, either side of the staging threshold (14:1 reads 15
+# pixels, 15:1 16) and of two lanes (18:1), 3-byte pixels, unassociated alpha
+STAGED = [
+    (4080, 64, 255, 16, 0, 0),     # 16:1 box x 1h ladder, one lane, T - 1
+    (4096, 64, 256, 16, 0, 0),     # T
+    (4112, 64, 257, 16, 0, 0),     # T + 1
+    (4112, 64, 257, 16, 8, 8),     # same, RGB24
+    (200, 50, 1, 7, 0, 1),         # 200:1 box, 16 lanes, one column
+    (3968, 20, 31, 10, 0, 0),      # 128:1 box x 0h, 8 lanes, T - 1
+    (4096, 20, 32, 10, 2, 3),      # T, reorder
+    (4224, 20, 33, 10, 4, 1),      # T + 1, unassociated in
+    (4335, 10, 17, 5, 0, 4),       # 255:1 box, 16 lanes, T + 1, unassociated out
+    (16400, 8, 1025, 4, 0, 0),     # 16:1 box, five tiles
+    (2800, 10, 200, 5, 0, 0),      # 14:1 box: direct loads
+    (3000, 10, 200, 5, 0, 0),      # 15:1 box: staged, one lane
+    (3600, 10, 200, 5, 9, 8),      # 18:1 box: two lanes, BGR24 -> RGB24
+]
+STAGED_ROWS = [
+    ((4112, 64, 257, 16, 0, 0), 5, 7),
+    ((4112, 64, 257, 16, 8, 8), 9, 6),
+    ((4224, 20, 33, 10, 4, 1), 3, 4),
+    ((16400, 8, 1025, 4, 0, 0), 1, 2),
+]
 # (key, first, n) of test_pallas_rows_exact
 ROWS = [
     ((1024, 512, 128, 64, 0, 0), 16, 8),
@@ -236,6 +262,29 @@ def test_past_64_rows_match_jax(key, first, n):
     assert all(np.array_equal(a.numpy(), np.asarray(b)) for (_, a), (_, b) in zip(ours, theirs))
 
 
+@pytest.mark.parametrize("key", STAGED, ids=_id)
+def test_staged_tile_edges_match_jax_and_spec(key):
+    """The plans that put the kernel's column tiles on their edges: the
+    plain version against numpy_ref and the JAX package's public API, and
+    the tile width they give."""
+    plan = ScalePlan(*key)
+    assert bilinear.applicable(plan)
+    lanes, stages = bilinear.stage_table(plan.x, plan.meta_in.n_bytes)
+    assert stages.shape[1] == -(-plan.width_out * lanes // bilinear.THREADS)
+    imgs = _images(key, sum(key))
+    got = _port(key, imgs)
+    assert np.array_equal(got, _spec(key, imgs))
+    assert np.array_equal(got, smolscale_tpu.scale(smolscale_tpu.ScalePlan(*key), imgs,
+                                                   backend="jax"))
+
+
+@pytest.mark.parametrize("key,first,n", STAGED_ROWS,
+                         ids=lambda v: _id(v) if isinstance(v, tuple) else str(v))
+def test_staged_rows_match_spec(key, first, n):
+    imgs = _images(key, sum(key) + first)
+    assert np.array_equal(_port(key, imgs, first, n), _spec(key, imgs)[:, first : first + n])
+
+
 @pytest.mark.parametrize(
     "key",
     [
@@ -315,6 +364,69 @@ def test_box_tables_match_xla(dims):
             assert np.array_equal(mine[name], theirs[name]), name
 
 
+def _stage_axes():
+    """(id, axis, nb): boxes from 2:1 (the early-break tables) to 255:1 at
+    widths that put the tiles on their edges, with 3- and 4-byte pixels."""
+    out = []
+    for ratio in (2, 3, 7.5, 14, 15, 16, 17, 18, 33, 64.5, 128, 200, 255):
+        for dim_out in (1, 7, 15, 16, 17, 31, 32, 33, 255, 256, 257):
+            dim_in = int(ratio * dim_out)
+            if not dim_out < dim_in <= port_plan.MAX_DIM:
+                continue
+            ax = _axis_pair(dim_in, dim_out)[1]
+            out += [(f"box-{dim_in}-{dim_out}-{nb}", ax, nb) for nb in (3, 4)]
+    return out
+
+
+@pytest.mark.parametrize("name,ax,nb", _stage_axes(), ids=lambda v: v if isinstance(v, str) else "")
+def test_stage_table_covers_every_read(name, ax, nb):
+    """A box axis whose columns read 16 pixels or more is staged: each
+    tile's stretch [lo, hi) holds every input column that the kernel reads
+    from the axis table for the tile's outputs, lies in the row, and fits
+    the shared-memory budget; lanes are a power of two up to 32.  Shorter
+    boxes load directly."""
+    lanes, stages = bilinear.stage_table(ax, nb)
+    tab = bilinear.axis_table(ax, vertical=False).reshape(6, -1)
+    reads = [np.concatenate([[left, right], np.arange(mid, mid + n_mid)])
+             for left, _, mid, n_mid, right, _ in tab.T]
+    if max(r.max() - r.min() + 1 for r in reads) < bilinear.STAGE_MIN_READS:
+        assert lanes == 0 and stages.shape == (2, 0)
+        return
+    assert lanes in (1, 2, 4, 8, 16, 32)
+    per = bilinear.THREADS // lanes
+    assert stages.dtype == np.int32 and stages.shape == (2, -(-ax.dim_out // per))
+    lo, hi = stages
+    assert (0 <= lo).all() and (lo < hi).all() and (hi <= ax.dim_in).all()
+    assert ((hi - lo) * nb <= bilinear.STAGE_BYTES).all()
+    for j, r in enumerate(reads):
+        assert lo[j // per] <= r.min() and r.max() < hi[j // per], j
+    # lanes split the pixels between a column's edges into at most
+    # LANE_READS each, or fewer where the tile would not fit
+    assert lanes == 32 or int(ax.strides.max()) <= bilinear.LANE_READS * lanes
+
+
+@pytest.mark.parametrize(
+    "key",
+    [(2048, 2048, 256, 256, 0, 0), (4096, 4096, 1371, 1371, 8, 8), (512, 512, 1024, 1024, 5, 0),
+     (4096, 4096, 300, 300, 0, 0), (4096, 4096, 4096, 32, 0, 0), (1, 700, 9, 123, 4, 0)],
+    ids=_id,
+)
+def test_other_axes_load_directly(key):
+    """Ladders, upscales, boxes under 16 pixels per column (row 3d's
+    13.65:1), COPY and ONE X axes take the direct path: no lanes, no
+    stretches."""
+    plan = ScalePlan(*key)
+    lanes, stages = bilinear.stage_table(plan.x, plan.meta_in.n_bytes)
+    assert lanes == 0 and stages.shape == (2, 0)
+
+
+def test_stage_constants_match_kernel():
+    """The staging constants of ops/bilinear.py are the kernel's."""
+    src = (Path(bilinear.__file__).resolve().parent.parent / "csrc" / "bilinear.cu").read_text()
+    assert f"constexpr int kThreads = {bilinear.THREADS};" in src
+    assert f"constexpr int kStageBytes = {bilinear.STAGE_BYTES};" in src
+
+
 def test_axis_tables_layout():
     plan = ScalePlan(2048, 1100, 256, 80, 0, 0)      # 2h ladder x 13.75:1 box
     tx = bilinear.axis_table(plan.x, vertical=False)
@@ -328,16 +440,28 @@ def test_axis_tables_layout():
 
 
 def test_kernel_params_follow_plan():
-    p = bilinear._params(ScalePlan(2048, 2048, 256, 256, 0, 0), 32, 0, 256)
+    plan = ScalePlan(2048, 2048, 256, 256, 0, 0)
+    lanes, stages = bilinear._stage_tables(plan, torch.device("cpu"))
+    assert lanes == 0 and stages.numel() == 0            # a ladder loads directly
+    p = bilinear._params(plan, 32, 0, 256, lanes)
     assert (p.batch, p.row0, p.n_rows, p.kind_x, p.kind_y) == (32, 0, 256, bilinear.BILINEAR,
                                                                bilinear.BILINEAR)
-    assert (p.halvings_x, p.halvings_y, p.len_x, p.len_y) == (2, 2, 1024, 1024)
-    q = bilinear._params(ScalePlan(4096, 1, 300, 7, 9, 5), 2, 3, 4)  # box x ONE
+    assert (p.halvings_x, p.halvings_y, p.len_x, p.len_y, p.lanes_x) == (2, 2, 1024, 1024, 0)
+    q = bilinear._params(ScalePlan(4096, 1, 300, 7, 9, 5), 2, 3, 4, 0)  # box x ONE
     assert (q.kind_x, q.kind_y, q.len_x, q.len_y, q.row0, q.n_rows) == (
         bilinear.BOX, bilinear.ONE, 300, 0, 3, 4)
     assert q.span_mul_x == ScalePlan(4096, 1, 300, 7, 9, 5).x.span_mul
     assert (q.nb_in, q.nb_out, q.alpha_ch, q.unassoc_in, q.unassoc_out) == (3, 4, 3, 0, 1)
     assert list(q.src) == [0, 1, 2, 3]
+    # a 128:1 box: 8 lanes per column, tiles of 32 columns
+    strip = ScalePlan(16384, 2048, 128, 1024, 0, 0)
+    lanes, stages = bilinear._stage_tables(strip, torch.device("cpu"))
+    assert lanes == 8 and bilinear._params(strip, 2, 0, 1024, lanes).lanes_x == 8
+    assert stages.view(2, -1)[0].tolist() == [0, 4096, 8192, 12288]
+    # a 16:1 box: one lane, one tile of 256 columns
+    lanes, stages = bilinear._stage_tables(ScalePlan(4096, 4096, 256, 256, 0, 0),
+                                           torch.device("cpu"))
+    assert lanes == 1 and stages.tolist() == [0, 4096]
 
 
 @pytest.mark.parametrize(
@@ -411,6 +535,8 @@ def test_chip_smoke_plans_are_held_here():
     every plan it checks is held against numpy_ref and the Pallas kernel
     by a test of this file."""
     plans, rows = _smoke_check_plans()
-    assert set(plans) <= set(EXACT + UNASSOC_OUT + GENERAL_BOX + BOX_X_BOX + RGB24 + PAST_64)
-    assert set(rows) <= set(ROWS + PAST_64_ROWS)
+    assert set(plans) <= set(EXACT + UNASSOC_OUT + GENERAL_BOX + BOX_X_BOX + RGB24 + PAST_64
+                             + STAGED)
+    assert set(rows) <= set(ROWS + PAST_64_ROWS + STAGED_ROWS)
+    assert set(STAGED) <= set(plans) and set(STAGED_ROWS) <= set(rows)
     assert all(bilinear.applicable(ScalePlan(*k)) for k in plans)

@@ -71,6 +71,12 @@ def _smoke():
     return mod
 
 
+# chip_smoke.py's other general-kernel plans: the staged X axes' tile edges
+# (1, 8 and 16 lanes), boxes past 64:1, the ladders and boxes of the TPU
+# kernel's tests; its row ranges and unaligned inputs
+BILINEAR_PLANS += [k for k in _smoke().BILINEAR_CHECK_PLANS if k not in BILINEAR_PLANS]
+BILINEAR_ROWS = _smoke().BILINEAR_CHECK_ROWS
+BILINEAR_UNALIGNED = _smoke().BILINEAR_UNALIGNED
 DEEP_PLANS = _smoke().DEEP_CHECK_PLANS
 WIDE_PLANS = _smoke().WIDE_CHECK_PLANS
 PYRAMID_SETS = _smoke().PYRAMID_CHECK_SETS
@@ -142,6 +148,36 @@ def test_bilinear_kernel_matches_plain(cuda_device, key):
     for first, n in ((h // 3, max(1, h // 2)), (h - 1, 1)):
         rows = bilinear.scale_rows_fn(plan, x, first, n)
         assert torch.equal(rows, plain[:, first : first + n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key,first,n", BILINEAR_ROWS,
+                         ids=lambda v: _id(v) if isinstance(v, tuple) else str(v))
+def test_bilinear_rows_match_plain(cuda_device, key, first, n):
+    plan = stt.ScalePlan(*key)
+    x = torch.randint(0, 256, (2, key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8,
+                      device=cuda_device)
+    assert torch.equal(bilinear.scale_rows_fn(plan, x, first, n),
+                       bilinear.bilinear_scale_ref(plan, x, first, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", BILINEAR_UNALIGNED, ids=_id)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_bilinear_unaligned_input(cuda_device, key, offset):
+    """Inputs at byte offsets 1-3: stretches with ragged ends, pixels read
+    across shared words; whole and by rows."""
+    plan = stt.ScalePlan(*key)
+    x = torch.randint(0, 256, (2, key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8,
+                      device=cuda_device)
+    want = bilinear.bilinear_scale_ref(plan, x)
+    flat = torch.empty(x.numel() + offset, dtype=torch.uint8, device=cuda_device)
+    shifted = flat[offset:].view(x.shape)
+    shifted.copy_(x)
+    assert torch.equal(bilinear.scale_fn(plan, shifted), want)
+    h = plan.height_out
+    assert torch.equal(bilinear.scale_rows_fn(plan, shifted, h // 2, h - h // 2),
+                       want[:, h // 2 :])
 
 
 @pytest.mark.cuda
