@@ -11,8 +11,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``build/kernels/`` (one nvcc per source, all at once) and prints the
    build time, ptxas's report and each kernel's count of template
    instances, and for each instance of the general kernel
-   (``bilinear_kernel<KX, KY, PACKED>``) its registers, stack frame, spills
-   and shared memory per block.
+   (``bilinear_kernel<KX, KY, PACKED>``), the 128bpp kernel
+   (``bilinear128_kernel<KX, KY, MODE, PACKED>``) and the deep box kernel
+   (``deep_kernel<MODE, PACKED>``) its registers, stack frame, spills and
+   shared memory per block.
 3. Kernels against their plain versions, on the card for a batch of 2: the
    box kernel on each plan of ``CHECK_PLANS`` (plain version
    ``ops.box.box_scale_ref``), the general kernel on each plan of
@@ -26,7 +28,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    128bpp kernel on each plan of ``WIDE_CHECK_PLANS`` (COPY and ONE axes
    among them; two of them, box beside bilinear and box beside COPY, also
    on a constant-255 batch) and each row range of ``WIDE_CHECK_ROWS``
-   (``ops.bilinear128.bilinear128_scale_ref``), all four on an input that
+   (``ops.bilinear128.bilinear128_scale_ref``; its tile edges among them),
+   each plan of ``WIDE_UNALIGNED`` at byte offsets 1, 2 and 3, whole and by
+   rows, and ``WIDE_TALL`` (more than 65535 output rows in the batch), all
+   four on an input that
    is not 4-byte aligned (and the widened classes: a box past 64:1, COPY,
    ONE), the pyramid kernel on each set of ``PYRAMID_CHECK_SETS`` and the
    unaligned inputs of ``PYRAMID_UNALIGNED`` (``ops.pyramid.pyramid_scale_ref``,
@@ -60,7 +65,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    one level-kernel launch per level of the other two).  Every image's
    bytes must equal the plain version (row 5b: one probe image per group).
 5. Times: kernel and plain version by CUDA events, in turns plain, kernel,
-   kernel, plain; Mpix/s and GB/s of input (and of output) with the share
+   kernel, plain (the 128bpp and deep box rows: plain, five kernel turns,
+   plain, with their median and min-max); Mpix/s and GB/s of input (and of output) with the share
    of HBM peak, and each row's bound (its input and output bytes at the
    HBM peak) with the kernel's share of it.  Also the rows of
    ``A1_ROWS`` and of ``EXTRA_ROWS``, on no suite row and checked against
@@ -92,6 +98,7 @@ from __future__ import annotations
 
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -333,6 +340,19 @@ WIDE_CHECK_PLANS = [
     (1, 300, 5, 20, 9, 9, True),        # BGR24: ONE x box
     (1920, 1080, 1920, 1080, 0, 0, True),  # 1:1 in linear light
     (256, 1100, 256, 80, 4, 4, True),   # COPY x box, PREMUL16-linear
+    # the kernel's tiles (32 columns by 8 rows, narrower outputs 1-16
+    # columns by 256-16 rows) on their edges: w_out 1, 7, 64, 255, 256, 257
+    (64, 100, 1, 90, 4, 4, False),      # one column: box x 0h
+    (512, 300, 7, 290, 4, 4, True),     # 7 columns, 32 rows per tile
+    (512, 512, 64, 64, 4, 4, False),    # 5b's PREMUL16 64 level: 2h x 2h
+    (1020, 200, 255, 50, 4, 4, True),
+    (1024, 200, 256, 50, 0, 0, True),
+    (1028, 200, 257, 50, 4, 4, False),
+    # 3-byte output at PREMUL8 compressed (S128 past 255:1); PREMUL8-linear
+    # has its own above, and PREMUL16 is planned only for unassociated
+    # 4-byte pixels in and out
+    (520, 300, 2, 40, 8, 9, False),
+    (520, 300, 2, 40, 0, 8, False),
 ]
 # checked on a constant-255 batch too: numpy_ref gives (97, 97, 97, 255),
 # on a box axis beside a bilinear one and beside a COPY one
@@ -349,7 +369,16 @@ WIDE_CHECK_ROWS = [
     ((256, 256, 256, 16, 0, 0, True), 3, 5),     # COPY x box
     ((96, 54, 96, 27, 4, 4, False), 10, 7),      # COPY x bilinear
     ((1, 300, 5, 20, 4, 4, True), 19, 1),        # ONE x box, the last row
+    ((512, 300, 7, 290, 4, 4, True), 45, 200),   # starts inside a 32-row tile
+    ((1028, 200, 257, 50, 4, 4, False), 3, 13),
 ]
+# the 128bpp kernel on inputs at byte offsets 1-3, whole and by rows: a 2h
+# ladder in PREMUL16-linear, COPY x COPY at PREMUL16, a 260:1 box at
+# PREMUL8, COPY x bilinear in PREMUL8-linear
+WIDE_UNALIGNED = [(512, 256, 96, 56, 4, 4, True), (96, 54, 96, 54, 4, 4, False),
+                  (520, 300, 2, 40, 0, 0, False), (96, 54, 96, 27, 0, 0, True)]
+# more than 65535 output rows in the batch: (plan, batch)
+WIDE_TALL = ((8, 30000, 8, 30000, 4, 4, False), 3)
 
 # suite rows (benchmarks/suite.py:277-346) at their published sizes:
 # (name, plan key, batch); box kernel
@@ -501,15 +530,17 @@ _KERNEL_NAMES = ("box_kernel", "bilinear_kernel", "deep_kernel", "bilinear128_ke
 
 def ptxas_instances(build_log: str) -> list:
     """Each kernel instance in ptxas's -v report: its kernel, template
-    arguments (the general kernel's KX, KY, PACKED), registers, stack frame,
-    spill stores and loads, and static shared memory, in bytes."""
+    arguments (the general kernel's KX, KY, PACKED; the 128bpp kernel's KX,
+    KY, MODE, PACKED; the deep box kernel's MODE, PACKED), registers, stack
+    frame, spill stores and loads, and static shared memory, in bytes."""
     out, cur = [], None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             name = next((k for k in _KERNEL_NAMES if f"{len(k)}{k}" in line), None)
-            m = re.search(r"bilinear_kernelILi(\d+)ELi(\d+)ELb([01])E", line)
+            m = name and re.search(rf"{len(name)}{name}I((?:L[a-z]\d+E)+)E", line)
             cur = None if name is None else {
-                "kernel": name, "args": ", ".join(m.groups()) if m else "",
+                "kernel": name,
+                "args": ", ".join(re.findall(r"L[a-z](\d+)E", m.group(1))) if m else "",
                 "stack": 0, "spill_stores": 0, "spill_loads": 0, "smem": 0}
         elif cur is not None and "stack frame" in line:
             nums = [int(v) for v in re.findall(r"(\d+) bytes", line)]
@@ -594,8 +625,8 @@ def main() -> int:
                 f"registers, stack frames up to {max(r['stack'] for r in mine)} bytes, "
                 f"{sum(r['stack'] > 0 for r in mine)} instances with one")
     for r in instances:
-        if r["kernel"] == "bilinear_kernel":
-            log(f"[build] bilinear_kernel<{r['args']}>: {r['registers']} registers, "
+        if r["kernel"] in ("bilinear_kernel", "bilinear128_kernel", "deep_kernel"):
+            log(f"[build] {r['kernel']}<{r['args']}>: {r['registers']} registers, "
                 f"{r['stack']} bytes stack frame, {r['spill_stores']} + {r['spill_loads']} bytes "
                 f"spill stores + loads, {r['smem']} bytes shared memory per block")
 
@@ -700,20 +731,29 @@ def main() -> int:
         shifted = flat[1:].view(imgs.shape)
         shifted.copy_(imgs)
         check(kind, f"{key} unaligned", mod.scale_fn(plan, shifted), plain(plan, imgs))
-    for key in BILINEAR_UNALIGNED:
-        plan = plan_of(key)
-        imgs = random_images(key, 9)
-        want = bilinear.bilinear_scale_ref(plan, imgs)
-        for offset in (1, 2, 3):
-            flat = torch.empty(imgs.numel() + offset, dtype=torch.uint8, device=dev)
-            shifted = flat[offset:].view(imgs.shape)
-            shifted.copy_(imgs)
-            check("bilinear", f"{key} at byte offset {offset}", bilinear.scale_fn(plan, shifted),
-                  want)
-            h = plan.height_out
-            check("bilinear", f"{key} at byte offset {offset} rows [{h // 3}, {h - 1})",
-                  bilinear.scale_rows_fn(plan, shifted, h // 3, h - 1 - h // 3),
-                  want[:, h // 3 : h - 1])
+    for kind, mod, plain, keys in (
+        ("bilinear", bilinear, bilinear.bilinear_scale_ref, BILINEAR_UNALIGNED),
+        ("bilinear128", bilinear128, bilinear128.bilinear128_scale_ref, WIDE_UNALIGNED),
+    ):
+        for key in keys:
+            plan = plan_of(key)
+            imgs = random_images(key, 9)
+            want = plain(plan, imgs)
+            for offset in (1, 2, 3):
+                flat = torch.empty(imgs.numel() + offset, dtype=torch.uint8, device=dev)
+                shifted = flat[offset:].view(imgs.shape)
+                shifted.copy_(imgs)
+                check(kind, f"{key} at byte offset {offset}", mod.scale_fn(plan, shifted), want)
+                h = plan.height_out
+                check(kind, f"{key} at byte offset {offset} rows [{h // 3}, {h - 1})",
+                      mod.scale_rows_fn(plan, shifted, h // 3, h - 1 - h // 3),
+                      want[:, h // 3 : h - 1])
+    key, batch = WIDE_TALL
+    plan = plan_of(key)
+    imgs = torch.from_numpy(np.random.default_rng(10).integers(
+        0, 256, (batch, key[1], key[0], 4), dtype=np.uint8)).to(dev)
+    check("bilinear128", f"{key} batch {batch} ({batch * plan.height_out} output rows)",
+          bilinear128.scale_fn(plan, imgs), bilinear128.bilinear128_scale_ref(plan, imgs))
 
     def pyramid_plans(case):
         w, h, outs, ti, to = case
@@ -980,14 +1020,17 @@ def main() -> int:
     timed += [(row[:3], streamed(row[4]) if row[4] else kernels[row[3]][0], kernels[row[3]][1])
               for row in A1_ROWS]
     timed += [(row[:3], *kernels[row[3]]) for row in EXTRA_ROWS]
+    # the 128bpp and deep box rows take five kernel turns (their times moved
+    # between calls); the kernel's time is the median of its turns
+    five = {r[0] for r in WIDE_ROWS + DEEP_ROWS} | {r[0] for r in A1_ROWS
+                                                   if r[3] in ("bilinear128", "deep")}
     times, bounds = {}, {}
     for (name, _, batch), kernel_fn, plain_fn in timed:
         plan, xin = plans[name], inputs[name]
         p1 = cuda_time_ms(lambda: plain_fn(plan, xin), warmup=1, iters=5)
-        k1 = cuda_time_ms(lambda: kernel_fn(plan, xin))
-        k2 = cuda_time_ms(lambda: kernel_fn(plan, xin))
+        ks = [cuda_time_ms(lambda: kernel_fn(plan, xin)) for _ in range(5 if name in five else 2)]
         p2 = cuda_time_ms(lambda: plain_fn(plan, xin), warmup=1, iters=5)
-        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        k_ms, p_ms = statistics.median(ks), (p1 + p2) / 2
         times[name] = (k_ms, p_ms)
         pix = batch * plan.height_in * plan.width_in
         in_bytes = pix * plan.meta_in.n_bytes
@@ -996,11 +1039,13 @@ def main() -> int:
         log(f"[bound] {name}: {bounds[name]:.4f} ms ({in_bytes} + {out_bytes} bytes at "
             f"{HBM_PEAK_GBS:.0f} GB/s); kernel at {100 * bounds[name] / k_ms:.1f}% of it, "
             f"on {card}")
-        for label, ms, turns in (("kernel", k_ms, (k1, k2)), ("plain", p_ms, (p1, p2))):
+        for label, ms, turns in (("kernel", k_ms, ks), ("plain", p_ms, (p1, p2))):
             sec = ms / 1e3
             in_gbs, out_gbs = in_bytes / 1e9 / sec, out_bytes / 1e9 / sec
-            log(f"[time] {name} {label}: {ms:.4f} ms (turns {turns[0]:.4f}, "
-                f"{turns[1]:.4f}), {pix / 1e6 / sec:.1f} Mpix/s, {in_gbs:.1f} GB/s of "
+            spread = f", min-max {min(turns):.4f}-{max(turns):.4f}" if len(turns) > 2 else ""
+            log(f"[time] {name} {label}: {ms:.4f} ms (turns "
+                f"{', '.join(f'{t:.4f}' for t in turns)}{spread}), {pix / 1e6 / sec:.1f} Mpix/s, "
+                f"{in_gbs:.1f} GB/s of "
                 f"input ({100 * in_gbs / HBM_PEAK_GBS:.1f}% of {HBM_PEAK_GBS:.0f} GB/s), "
                 f"{out_gbs:.1f} GB/s of output (in + out "
                 f"{100 * (in_gbs + out_gbs) / HBM_PEAK_GBS:.1f}%), on {card}")

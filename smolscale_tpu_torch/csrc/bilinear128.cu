@@ -45,16 +45,37 @@
 // from a per-block shared-memory copy.  `row0` is the first output row
 // computed (the row API).
 //
-// What bounds it: loads and per-pixel work.  Each thread loads and unpacks
-// every input pixel its output depends on, so pixels shared by neighbouring
-// outputs (overlapping bilinear pairs, box edges) are loaded and unpacked a
-// few times, and a box axis of several thousand to one beside a bilinear
-// axis serialises its span in one thread.  Neighbouring threads take
-// neighbouring output columns, so a warp's loads of one tap row fall into
-// one contiguous stretch that L1 serves.  Linear light adds three
-// shared-memory gathers per loaded pixel, PREMUL16 three multiplies.  A
-// later version could stage a block's h rows in shared memory and keep more
-// loads in flight.
+// What bounds it: device memory on compressed gamma, and about as much the
+// integer work of the unpack, the lerps and the pack in linear light (row 6
+// of the suite does ~30 instructions per input pixel).  So the design
+// spends no instruction per output pixel that the arithmetic does not need:
+//   - no division: a block of 256 threads covers a tile of 32 output
+//     columns by 8 rows (tile_w = 1-16 columns by 256-16 rows where w_out is
+//     narrower, so no thread idles on a 1-7 or 64 pixel wide output); block
+//     (x, y, z) takes column tile x, row groups y, y + grid_y, ... of images
+//     z, z + grid_z, ....  The host (ops/bilinear128.launch_shape) cuts
+//     grid_y to about 16 blocks per SM, so each block copies the LUTs once
+//     for several row groups, and keeps grid_y and grid_z below 2^16;
+//   - 32-bit indices: columns, rows, table entries and offsets within a row;
+//     only an image's and a row's base offset are 64-bit;
+//   - no register array indexed at run time (nvcc would put it in local
+//     memory): pixels.cuh's pack picks alpha with a select and swizzles the
+//     output bytes with one __byte_perm; a 4-byte pixel is one word store;
+//   - each X table word is loaded once per output pixel: a box column's six
+//     words once per thread, and a V sample's two rows (r, r + 1) -- a V
+//     box's edge rows, and its mid rows two by two -- go through one pass
+//     of the H samples, which also keeps two rows' loads in flight;
+//   - COPY x COPY, which has one load per output, takes two row groups per
+//     turn with both loads first.
+// Neighbouring threads take neighbouring output columns, so a warp's loads
+// of one tap row fall into one contiguous stretch that L1 serves, and its
+// stores into one 128-byte line.
+// Left out: staging a block's input rows in shared memory with 16-byte
+// loads, unpacked once (3-byte pixels load as three bytes and overlapping
+// bilinear pairs load and unpack a pixel about 2.8 times, row 6b); and a
+// split of one box span over several threads (a box axis of thousands to
+// one beside a bilinear axis walks its span in one thread).  PR 9 found
+// staging one stretch per block slower than direct loads on ladders.
 //
 // Arithmetic and its bounds:
 //   unpacked values are at most 2047*255 = 521985 (PREMUL16 linear), so
@@ -66,8 +87,9 @@
 //   only up to 8191:1 (smolscale.c:760-770; 8193 * 521985 < 2^32) -- the
 //   bounds deep.cu proves;
 //   the normalising multiply is 64-bit;
-//   byte offsets are 64-bit (8 x 2048^2 x 4 bytes is 128 MiB, larger inputs
-//   pass 2^31).
+//   an image's and a row's base offsets are 64-bit (8 x 2048^2 x 4 bytes is
+//   128 MiB, larger inputs pass 2^31); a table index is below 65535 * 2^6 <
+//   2^22 and an offset within a row below 65535 * 4 < 2^18.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,6 +106,8 @@ struct Bilinear128Params {
   int64_t len_x, len_y;            // table row length: dim_bilin or dim_out
   int64_t span_mul_x, span_mul_y;  // BOX normalisation
   int64_t mode;                    // Mode
+  int64_t tile_w;                  // output columns per block: a power of two <= kThreads
+  int64_t grid_y, grid_z;          // blocks over a column tile's row groups, over the batch
   int64_t nb_in, nb_out;
   int64_t alpha_ch;                // work channel holding alpha: 0 or 3
   int64_t unassoc_in, unassoc_out;
@@ -99,123 +123,212 @@ constexpr int kCopy = 0, kOne = 1, kBilinear = 2, kBox = 3;
 constexpr uint32_t kWorkMask = 0xffffff, kNormMask = 0xffff;
 constexpr int kThreads = 256;
 
-// One axis's filter: its table (ops/bilinear.axis_table) and constants.
-struct Axis {
-  const int32_t* tab;
-  int64_t len;
-  int halvings;
-  int64_t span_mul;
-  int64_t stride;  // kCopy: 1 for COPY, 0 for ONE
-};
-
 __device__ __forceinline__ uint32_t lerp(uint32_t p, uint32_t q, int32_t f) {
   // numpy_ref._lerp: (p - q)*f is negative when p < q; >> floors it
   const int32_t d = static_cast<int32_t>(p) - static_cast<int32_t>(q);
   return static_cast<uint32_t>(((d * f) >> 8) + static_cast<int32_t>(q)) & kWorkMask;
 }
 
-// Output `j` of an axis of kind KIND over the values fetch(index, v).
-template <int KIND, class Fetch>
-__device__ __forceinline__ void filter(const Fetch& fetch, const Axis& ax,
-                                       int64_t j, uint32_t out[4]) {
-  if (KIND == kCopy) {
-    fetch(j * ax.stride, out);
-  } else if (KIND == kBilinear) {
-    const int n = ax.halvings;
+// The H filter of one output column j, with its X table words loaded once:
+// the H-filtered values of N input rows (1 or 2) in one pass, so that the
+// rows share those loads and their pixel loads are in flight together.
+template <int KX, int MODE, bool PACKED>
+struct Columns {
+  Fmt f;
+  const int32_t* lut;
+  const int32_t* tab;  // kBilinear: column j's first table entry, j << n
+  int len, n;          // kBilinear: table row length, halvings
+  int x;               // kCopy: column j * stride (1 for COPY, 0 for ONE)
+  int first, w_first, mid, n_mid, last, w_last;  // kBox: column j's table entries
+  int64_t span_mul;
+
+  __device__ __forceinline__ Columns(const Fmt& fmt, const int32_t* s_lut,
+                                     const int32_t* __restrict__ tab_x,
+                                     const Bilinear128Params& p, int j)
+      : f(fmt), lut(s_lut), tab(tab_x), len(static_cast<int>(p.len_x)),
+        n(static_cast<int>(p.halvings_x)), x(p.kind_x == kCopy ? j : 0), first(0),
+        w_first(0), mid(0), n_mid(0), last(0), w_last(0), span_mul(p.span_mul_x) {
+    if (KX == kBilinear) tab = tab_x + (j << n);
+    if (KX == kBox) {
+      const int32_t* t = tab_x + j;
+      first = __ldg(t);
+      w_first = __ldg(t + len);
+      mid = __ldg(t + 2 * len);
+      n_mid = __ldg(t + 3 * len);
+      last = __ldg(t + 4 * len);
+      w_last = __ldg(t + 5 * len);
+    }
+  }
+
+  __device__ __forceinline__ void pixel(const uint8_t* row, int i, uint32_t v[4]) const {
+    unpack<MODE>(load_pixel<PACKED>(row, i, f), f, lut, v);
+  }
+
+  template <int N>
+  __device__ __forceinline__ void operator()(const uint8_t* const (&rows)[N],
+                                             uint32_t (&v)[N][4]) const {
+    if constexpr (KX == kCopy) {
+#pragma unroll
+      for (int m = 0; m < N; ++m) pixel(rows[m], x, v[m]);
+    } else if constexpr (KX == kBilinear) {
+      // sample k of output j: lerp(px[ofs], px[ofs + 1], F), then the
+      // halving sum
+      uint32_t sum[N][4] = {};
+      for (int k = 0; k < (1 << n); ++k) {
+        const int o = __ldg(tab + k);
+        const int32_t fx = __ldg(tab + len + k);
+#pragma unroll
+        for (int m = 0; m < N; ++m) {
+          uint32_t a[4], b[4];
+          pixel(rows[m], o, a);
+          pixel(rows[m], o + 1, b);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sum[m][c] += lerp(a[c], b[c], fx);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < N; ++m)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[m][c] = (sum[m][c] >> n) & kWorkMask;
+    } else {  // kBox
+      uint32_t acc[N][4], t[4];
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        pixel(rows[m], first, t);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[m][c] = weigh(t[c], w_first, kWorkMask);
+        pixel(rows[m], last, t);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[m][c] += weigh(t[c], w_last, kWorkMask);
+      }
+#pragma unroll 4
+      for (int i = mid; i < mid + n_mid; ++i) {
+#pragma unroll
+        for (int m = 0; m < N; ++m) {
+          pixel(rows[m], i, t);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[m][c] += t[c];
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < N; ++m)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[m][c] = normalise(acc[m][c], span_mul, kNormMask);
+    }
+  }
+};
+
+// Output row i of a V axis of kind KY over the H values of `h` on the rows
+// of `img`: each V sample's pair of rows (r, r + 1) and a box's edge rows
+// and mid rows two by two go through one pass of h.
+template <int KY, class H>
+__device__ __forceinline__ void vfilter(const H& h, const uint8_t* img, int row_bytes,
+                                        const int32_t* __restrict__ tab,
+                                        const Bilinear128Params& p, int i, uint32_t o[4]) {
+  const auto row = [&](int r) { return img + static_cast<int64_t>(r) * row_bytes; };
+  if constexpr (KY == kCopy) {
+    const uint8_t* rows[1] = {row(p.kind_y == kCopy ? i : 0)};
+    uint32_t v[1][4];
+    h(rows, v);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[c] = v[0][c];
+  } else if constexpr (KY == kBilinear) {
+    const int n = static_cast<int>(p.halvings_y), len = static_cast<int>(p.len_y);
+    const int32_t* t = tab + (i << n);
     uint32_t sum[4] = {0, 0, 0, 0};
     for (int k = 0; k < (1 << n); ++k) {
-      const int64_t s = (j << n) + k;
-      const int64_t o = __ldg(ax.tab + s);
-      const int32_t f = __ldg(ax.tab + ax.len + s);
-      uint32_t p[4], q[4];
-      fetch(o, p);
-      fetch(o + 1, q);
+      const int r = __ldg(t + k);
+      const int32_t fy = __ldg(t + len + k);
+      const uint8_t* rows[2] = {row(r), row(r + 1)};
+      uint32_t v[2][4];
+      h(rows, v);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) sum[c] += lerp(p[c], q[c], f);
+      for (int c = 0; c < 4; ++c) sum[c] += lerp(v[0][c], v[1][c], fy);
     }
 #pragma unroll
-    for (int c = 0; c < 4; ++c) out[c] = (sum[c] >> n) & kWorkMask;
+    for (int c = 0; c < 4; ++c) o[c] = (sum[c] >> n) & kWorkMask;
   } else {  // kBox
-    const int32_t* t = ax.tab + j;
-    const int64_t len = ax.len;
+    const int len = static_cast<int>(p.len_y);
+    const int32_t* t = tab + i;
     const uint32_t w_first = __ldg(t + len), w_last = __ldg(t + 5 * len);
-    const int64_t mid = __ldg(t + 2 * len), mid_end = mid + __ldg(t + 3 * len);
-    uint32_t v[4], acc[4];
-    fetch(__ldg(t), v);
+    const int mid = __ldg(t + 2 * len), mid_end = mid + __ldg(t + 3 * len);
+    uint32_t acc[4], v[2][4];
+    {
+      const uint8_t* rows[2] = {row(__ldg(t)), row(__ldg(t + 4 * len))};
+      h(rows, v);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[c] = weigh(v[c], w_first, kWorkMask);
-    for (int64_t x = mid; x < mid_end; ++x) {
-      fetch(x, v);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[c] += v[c];
+      for (int c = 0; c < 4; ++c)
+        acc[c] = weigh(v[0][c], w_first, kWorkMask) + weigh(v[1][c], w_last, kWorkMask);
     }
-    fetch(__ldg(t + 4 * len), v);
+    int r = mid;
+    for (; r + 1 < mid_end; r += 2) {
+      const uint8_t* rows[2] = {row(r), row(r + 1)};
+      h(rows, v);
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      out[c] = normalise(acc[c] + weigh(v[c], w_last, kWorkMask), ax.span_mul, kNormMask);
+      for (int c = 0; c < 4; ++c) acc[c] += v[0][c] + v[1][c];
+    }
+    if (r < mid_end) {
+      const uint8_t* rows[1] = {row(r)};
+      uint32_t v1[1][4];
+      h(rows, v1);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[c] += v1[0][c];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[c] = normalise(acc[c], p.span_mul_y, kNormMask);
   }
 }
 
-// The unpacked pixels of one input row, by column.
-template <int MODE, bool PACKED>
-struct RowPixels {
-  const uint8_t* row;
-  Fmt f;
-  const int32_t* lut;
-  __device__ __forceinline__ void operator()(int64_t x, uint32_t v[4]) const {
-    unpack<MODE>(load_pixel<PACKED>(row, x, f), f, lut, v);
-  }
-};
-
-// The H-filtered values of output column j, by input row.
-template <int KX, int MODE, bool PACKED>
-struct HValues {
-  const uint8_t* img;
-  int64_t row_bytes;
-  Fmt f;
-  const int32_t* lut;
-  Axis ax;
-  int64_t j;
-  __device__ __forceinline__ void operator()(int64_t r, uint32_t v[4]) const {
-    filter<KX>(RowPixels<MODE, PACKED>{img + r * row_bytes, f, lut}, ax, j, v);
-  }
-};
-
+// A block of kThreads threads covers a tile of tile_w consecutive output
+// columns (thread t: column t % tile_w) by kThreads / tile_w consecutive
+// output rows (row t / tile_w); block (x, y, z) takes column tile x, row
+// groups y, y + grid_y, ... of images z, z + grid_z, ....  No division.
+// COPY x COPY takes two row groups per turn, both loads first.
 template <int KX, int KY, int MODE, bool PACKED>
 __global__ void __launch_bounds__(kThreads)
 bilinear128_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
                    const int32_t* __restrict__ luts, const int32_t* __restrict__ tab_x,
                    const int32_t* __restrict__ tab_y, const Bilinear128Params p) {
   constexpr bool kLinear = MODE == kP8Linear || MODE == kP16Linear;
+  constexpr int kTurn = KX == kCopy && KY == kCopy ? 2 : 1;
   __shared__ int32_t s_lut[kLinear ? 512 : 1];
   if (kLinear) load_unpack_luts(luts, s_lut);
+  const int tile_w = static_cast<int>(p.tile_w), shift = __ffs(tile_w) - 1;
+  const int j = static_cast<int>(blockIdx.x) * tile_w + (threadIdx.x & (tile_w - 1));
+  const int w_out = static_cast<int>(p.w_out), n_rows = static_cast<int>(p.n_rows);
+  if (j >= w_out) return;
   const Fmt f{static_cast<int>(p.nb_in), p.alpha_ch == 0, p.unassoc_in != 0};
-  const Axis ax{tab_x, p.len_x, static_cast<int>(p.halvings_x), p.span_mul_x,
-                p.kind_x == kCopy};
-  const Axis ay{tab_y, p.len_y, static_cast<int>(p.halvings_y), p.span_mul_y,
-                p.kind_y == kCopy};
-  const int64_t row_bytes = p.w_in * p.nb_in;
-  const int64_t n_total = p.batch * p.n_rows * p.w_out;
-  for (int64_t n = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       n < n_total; n += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t j = n % p.w_out;
-    const int64_t i = p.row0 + (n / p.w_out) % p.n_rows;
-    const int64_t b = n / (p.w_out * p.n_rows);
-    const HValues<KX, MODE, PACKED> h{in + b * p.h_in * row_bytes, row_bytes, f, s_lut, ax, j};
-    uint32_t o[4];
-    filter<KY>(h, ay, i, o);
-    pack_store<MODE>(o, p, luts, out + n * p.nb_out);
+  const Columns<KX, MODE, PACKED> h(f, s_lut, tab_x, p, j);
+  const unsigned perm = out_perm(p);
+  const int nb_out = static_cast<int>(p.nb_out);
+  const int row_bytes = static_cast<int>(p.w_in * p.nb_in), out_row = w_out * nb_out;
+  const int tile_h = kThreads >> shift, step = static_cast<int>(gridDim.y) * tile_h;
+  for (int64_t b = blockIdx.z; b < p.batch; b += gridDim.z) {
+    const uint8_t* img = in + b * p.h_in * row_bytes;
+    uint8_t* dst = out + b * n_rows * out_row + j * nb_out;
+    for (int ir = static_cast<int>(blockIdx.y) * tile_h + (threadIdx.x >> shift);
+         ir < n_rows; ir += kTurn * step) {
+      uint32_t o[kTurn][4];
+#pragma unroll
+      for (int u = 0; u < kTurn; ++u)
+        vfilter<KY>(h, img, row_bytes, tab_y, p, static_cast<int>(p.row0) +
+                    min(ir + u * step, n_rows - 1), o[u]);
+#pragma unroll
+      for (int u = 0; u < kTurn; ++u)
+        if (ir + u * step < n_rows)
+          store_pixel(pack_word<MODE>(o[u], p, luts, perm), nb_out,
+                      dst + static_cast<int64_t>(ir + u * step) * out_row);
+    }
   }
 }
 
 typedef void (*Launcher)(const uint8_t*, uint8_t*, const int32_t*, const int32_t*,
-                         const int32_t*, const Bilinear128Params&, unsigned, cudaStream_t);
+                         const int32_t*, const Bilinear128Params&, dim3, cudaStream_t);
 
 template <int KX, int KY, int MODE, bool PACKED>
 void launch(const uint8_t* in, uint8_t* out, const int32_t* luts, const int32_t* tab_x,
-            const int32_t* tab_y, const Bilinear128Params& p, unsigned blocks,
-            cudaStream_t s) {
-  bilinear128_kernel<KX, KY, MODE, PACKED><<<blocks, kThreads, 0, s>>>(
+            const int32_t* tab_y, const Bilinear128Params& p, dim3 grid, cudaStream_t s) {
+  bilinear128_kernel<KX, KY, MODE, PACKED><<<grid, kThreads, 0, s>>>(
       in, out, luts, tab_x, tab_y, p);
 }
 
@@ -260,24 +373,27 @@ Launcher pick(int64_t kx, int64_t ky, int64_t mode, bool packed) {
 }  // namespace
 
 // C entry point for ctypes.  `in` is (batch, h_in, w_in, nb_in) uint8, `out`
-// is (batch, n_rows, w_out, nb_out) uint8, `luts` the int32 tables of
-// ops/pixels.lut_table, `tab_x` and `tab_y` the axes' tables.  The kernel
-// runs on `stream` and is not waited for.  Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for an axis kind or mode outside the
-// class.
+// is (batch, n_rows, w_out, nb_out) uint8 and 4-byte aligned, `luts` the
+// int32 tables of ops/pixels.lut_table, `tab_x` and `tab_y` the axes'
+// tables; the grid is (ceil(w_out / tile_w), grid_y, grid_z)
+// (ops/bilinear128.launch_shape).  The kernel runs on `stream` and is not
+// waited for.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for an axis kind or mode outside the class, or a
+// tile width or grid outside the limits.
 extern "C" int smolscale_bilinear128_scale(const uint8_t* in, uint8_t* out,
                                            const int32_t* luts, const int32_t* tab_x,
                                            const int32_t* tab_y,
                                            const Bilinear128Params* params, void* stream) {
   const Bilinear128Params p = *params;
-  const int64_t n_total = p.batch * p.n_rows * p.w_out;
-  if (n_total <= 0) return static_cast<int>(cudaSuccess);
+  if (p.batch * p.n_rows * p.w_out <= 0) return static_cast<int>(cudaSuccess);
+  if (p.tile_w < 1 || p.tile_w > kThreads || (p.tile_w & (p.tile_w - 1)) != 0 ||
+      p.grid_y < 1 || p.grid_y > 65535 || p.grid_z < 1 || p.grid_z > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool packed = p.nb_in == 4 && (reinterpret_cast<uintptr_t>(in) & 3) == 0;
   const Launcher fn = pick(p.kind_x, p.kind_y, p.mode, packed);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  int64_t blocks = (n_total + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffff) blocks = 0x7fffffff;
-  fn(in, out, luts, tab_x, tab_y, p, static_cast<unsigned>(blocks),
-     static_cast<cudaStream_t>(stream));
+  const dim3 grid(static_cast<unsigned>((p.w_out + p.tile_w - 1) / p.tile_w),
+                  static_cast<unsigned>(p.grid_y), static_cast<unsigned>(p.grid_z));
+  fn(in, out, luts, tab_x, tab_y, p, grid, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,9 +40,10 @@ struct Fmt {
 };
 
 // Pixel x of a row as four bytes, byte k in bits 8k; 24bpp gets alpha 255.
+// `x` and the in-row offset x * nb are 32-bit: a row is at most 65535 pixels.
 template <bool PACKED>
 __device__ __forceinline__ uint32_t load_pixel(const uint8_t* __restrict__ row,
-                                               int64_t x, const Fmt& f) {
+                                               int x, const Fmt& f) {
   if (PACKED) return __ldg(reinterpret_cast<const uint32_t*>(row) + x);
   const uint8_t* p = row + x * f.nb;
   return static_cast<uint32_t>(__ldg(p)) | (static_cast<uint32_t>(__ldg(p + 1)) << 8) |
@@ -97,48 +98,88 @@ __device__ __forceinline__ uint32_t lut_at(const int32_t* __restrict__ luts, int
   return static_cast<uint32_t>(__ldg(luts + off + idx));
 }
 
-// numpy_ref.pack for one output pixel of normalised work channels `o`.
-// `Params` has the pixel-format fields of ops/pixels.kernel_fields and
-// `pack24_direct`.
+// Channel c of four is alpha: a select, so that no register array is
+// indexed at run time (nvcc puts such arrays in local memory).
+__device__ __forceinline__ bool is_alpha(int c, bool alpha_first) {
+  return alpha_first ? c == 0 : c == 3;
+}
+
+// The __byte_perm selector that puts work channel src[k] into output byte k.
+template <class Params>
+__device__ __forceinline__ unsigned out_perm(const Params& p) {
+  return static_cast<unsigned>(p.src[0] | (p.src[1] << 4) | (p.src[2] << 8) |
+                               (p.src[3] << 12));
+}
+
+// numpy_ref.pack for one output pixel of normalised work channels `o`: the
+// output bytes in one word, byte k in bits 8k (byte 3 unused for 3-byte
+// pixels), swizzled by `perm` (out_perm).  `Params` has the pixel-format
+// fields of ops/pixels.kernel_fields and `pack24_direct`.  The
+// unpremultiply's inv_div entry is read once per pixel.
 template <int MODE, class Params>
-__device__ __forceinline__ void pack_store(uint32_t o[4], const Params& p,
-                                           const int32_t* __restrict__ luts,
-                                           uint8_t* dst) {
-  const int a_ch = p.alpha_ch == 0 ? 0 : 3;
-  const uint32_t a = (MODE == kP16Compressed || MODE == kP16Linear)
-                         ? (o[a_ch] >> 8) & 0xff
-                         : o[a_ch] & 0xff;
+__device__ __forceinline__ uint32_t pack_word(const uint32_t o[4], const Params& p,
+                                              const int32_t* __restrict__ luts,
+                                              unsigned perm) {
+  constexpr bool k16 = MODE == kP16Compressed || MODE == kP16Linear;
+  const bool alpha_first = p.alpha_ch == 0;
+  const uint32_t a = ((alpha_first ? o[0] : o[3]) >> (k16 ? 8 : 0)) & 0xff;
   const bool out_premul = !p.unassoc_out;
+  const bool direct = MODE == kP8Linear && out_premul && p.pack24_direct;
+  uint64_t inv = 0;
+  if (MODE == kP8Compressed && !out_premul) inv = lut_at(luts, kInvDivP8, a);
+  if (MODE == kP8Linear && !direct) inv = lut_at(luts, kInvDivP8L, a);
+  if (MODE == kP16Compressed) inv = lut_at(luts, kInvDivP16, a);
+  if (MODE == kP16Linear) inv = lut_at(luts, kInvDivP16L, a);
+  uint32_t w = 0;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    if (c == a_ch) continue;
-    const uint64_t v = o[c];
-    uint32_t r;
-    if (MODE == kP8Compressed) {
-      // unpremul_p8 (generic.c:227-236)
-      r = out_premul ? o[c] : static_cast<uint32_t>((v * lut_at(luts, kInvDivP8, a)) >> 13);
-    } else if (MODE == kP8Linear) {
-      if (out_premul && p.pack24_direct) {
-        // to_srgb of the premultiplied linear value (generic.c:922-935)
-        r = lut_at(luts, kToSrgb, o[c] & 0x7ff);
+    uint32_t r = a;
+    if (!is_alpha(c, alpha_first)) {
+      const uint64_t v = o[c];
+      if (MODE == kP8Compressed) {
+        // unpremul_p8 (generic.c:227-236)
+        r = out_premul ? o[c] : static_cast<uint32_t>((v * inv) >> 13);
+      } else if (MODE == kP8Linear) {
+        if (direct) {
+          // to_srgb of the premultiplied linear value (generic.c:922-935)
+          r = lut_at(luts, kToSrgb, o[c] & 0x7ff);
+        } else {
+          // unpremul_p8l (generic.c:271-280), to_srgb
+          r = lut_at(luts, kToSrgb, static_cast<uint32_t>((v * inv) >> 10) & 0x7ff);
+          if (out_premul && p.nb_out == 4) r = (((r + 1) * (a + 1) - 1) >> 8) & 0xff;
+        }
+      } else if (MODE == kP16Compressed) {
+        // unpremul_p16 (generic.c:290-299)
+        r = static_cast<uint32_t>((v * inv) >> 16);
       } else {
-        // unpremul_p8l (generic.c:271-280), to_srgb
-        const uint32_t u = static_cast<uint32_t>((v * lut_at(luts, kInvDivP8L, a)) >> 10) & 0x7ff;
-        r = lut_at(luts, kToSrgb, u);
-        if (out_premul && p.nb_out == 4) r = (((r + 1) * (a + 1) - 1) >> 8) & 0xff;
+        // unpremul_p16l (generic.c:309-318), to_srgb
+        r = lut_at(luts, kToSrgb, static_cast<uint32_t>((v * inv) >> 19) & 0x7ff);
       }
-    } else if (MODE == kP16Compressed) {
-      // unpremul_p16 (generic.c:290-299)
-      r = static_cast<uint32_t>((v * lut_at(luts, kInvDivP16, a)) >> 16);
-    } else {
-      // unpremul_p16l (generic.c:309-318), to_srgb
-      const uint32_t u = static_cast<uint32_t>((v * lut_at(luts, kInvDivP16L, a)) >> 19) & 0x7ff;
-      r = lut_at(luts, kToSrgb, u);
     }
-    o[c] = r & 0xff;
+    w |= (r & 0xff) << (8 * c);
   }
-  o[a_ch] = a;
-  for (int k = 0; k < p.nb_out; ++k) dst[k] = static_cast<uint8_t>(o[p.src[k]]);
+  return __byte_perm(w, 0, perm);
+}
+
+// Stores an output pixel packed by pack_word: one 32-bit store for 4-byte
+// pixels (pixel n of an output from torch.empty lies at byte 4n, aligned),
+// three byte stores for 3-byte pixels.
+__device__ __forceinline__ void store_pixel(uint32_t w, int nb_out, uint8_t* dst) {
+  if (nb_out == 4) {
+    *reinterpret_cast<uint32_t*>(dst) = w;
+  } else {
+    dst[0] = static_cast<uint8_t>(w);
+    dst[1] = static_cast<uint8_t>(w >> 8);
+    dst[2] = static_cast<uint8_t>(w >> 16);
+  }
+}
+
+// numpy_ref.pack for one output pixel, stored at `dst`.
+template <int MODE, class Params>
+__device__ __forceinline__ void pack_store(const uint32_t o[4], const Params& p,
+                                           const int32_t* __restrict__ luts,
+                                           uint8_t* dst) {
+  store_pixel(pack_word<MODE>(o, p, luts, out_perm(p)), static_cast<int>(p.nb_out), dst);
 }
 
 }  // namespace

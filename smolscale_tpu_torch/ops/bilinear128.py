@@ -91,16 +91,43 @@ class _Bilinear128Params(ctypes.Structure):
         for name in (
             "batch", "h_in", "w_in", "h_out", "w_out", "row0", "n_rows",
             "kind_x", "kind_y", "halvings_x", "halvings_y", "len_x", "len_y",
-            "span_mul_x", "span_mul_y", "mode",
+            "span_mul_x", "span_mul_y", "mode", "tile_w", "grid_y", "grid_z",
             "nb_in", "nb_out", "alpha_ch", "unassoc_in", "unassoc_out",
             "pack24_direct",
         )
     ] + [("src", ctypes.c_int64 * 4)]
 
 
-def _params(plan: ScalePlan, batch: int, first: int, n: int) -> _Bilinear128Params:
+# the kernel's blocks (kThreads in csrc/bilinear128.cu), the blocks per SM
+# the grid aims at, and the SMs of an H100 SXM (the wrapper reads the card's)
+THREADS = 256
+BLOCKS_PER_SM = 16
+H100_SMS = 132
+
+
+def launch_shape(w_out: int, n_rows: int, batch: int,
+                 sms: int = H100_SMS) -> tuple[int, int, int, int]:
+    """The kernel's grid for ``n_rows`` output rows of ``batch`` images:
+    ``(tile_w, col_tiles, grid_y, grid_z)``.  A block of THREADS threads
+    covers ``tile_w`` consecutive output columns (a power of two up to 32)
+    of ``THREADS // tile_w`` consecutive rows; block (x, y, z) takes column
+    tile x, row groups y, y + grid_y, ... of images z, z + grid_z, ....
+    ``grid_y`` is cut so that the grid holds about BLOCKS_PER_SM blocks per
+    SM, each then covering several row groups with one copy of the LUTs;
+    ``grid_y`` and ``grid_z`` stay below 2^16."""
+    tile_w = min(32, 1 << (w_out - 1).bit_length())
+    col_tiles = -(-w_out // tile_w)
+    row_groups = -(-n_rows // (THREADS // tile_w))
+    grid_z = min(batch, 65535)
+    grid_y = max(1, min(row_groups, BLOCKS_PER_SM * sms // (col_tiles * grid_z)))
+    return tile_w, col_tiles, grid_y, grid_z
+
+
+def _params(plan: ScalePlan, batch: int, first: int, n: int,
+            sms: int = H100_SMS) -> _Bilinear128Params:
     f = pixels.kernel_fields(plan)
     f["src"] = (ctypes.c_int64 * 4)(*f["src"])
+    tile_w, _, grid_y, grid_z = launch_shape(plan.width_out, n, batch, sms)
     return _Bilinear128Params(
         batch=batch, h_in=plan.height_in, w_in=plan.width_in,
         h_out=plan.height_out, w_out=plan.width_out, row0=first, n_rows=n,
@@ -108,8 +135,14 @@ def _params(plan: ScalePlan, batch: int, first: int, n: int) -> _Bilinear128Para
         halvings_x=plan.x.halvings, halvings_y=plan.y.halvings,
         len_x=table_len(plan.x), len_y=table_len(plan.y),
         span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul),
-        mode=mode(plan), pack24_direct=int(plan.pack24_linear_direct), **f,
+        mode=mode(plan), tile_w=tile_w, grid_y=grid_y, grid_z=grid_z,
+        pack24_direct=int(plan.pack24_linear_direct), **f,
     )
+
+
+@functools.cache
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.cache
@@ -134,7 +167,7 @@ def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> torch.Te
     with torch.cuda.device(imgs.device):
         lut = pixels.lut_table(imgs.device)
         tx, ty = _tables(plan, imgs.device)
-        params = _params(plan, batch.shape[0], first, n)
+        params = _params(plan, batch.shape[0], first, n, _sms(imgs.device))
         err = _entry()(
             batch.data_ptr(), out.data_ptr(), lut.data_ptr(), tx.data_ptr(), ty.data_ptr(),
             ctypes.byref(params), torch.cuda.current_stream().cuda_stream,

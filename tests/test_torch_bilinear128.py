@@ -109,8 +109,22 @@ COPY_ONE = [
 # a constant-255 image through COPY x box at PREMUL16-linear: the box's
 # 16-bit mask gives (97, 97, 97, 255) beside the COPY axis too
 CONST_COPY = (256, 1100, 256, 80, 4, 4, True)
+# the CUDA kernel's tiles on their edges (w_out 1, 7, 64, 255, 256, 257) and
+# 3-byte output at PREMUL8 compressed (S128 past 255:1)
+EDGES = [
+    (64, 100, 1, 90, 4, 4, False),
+    (512, 300, 7, 290, 4, 4, True),
+    (512, 512, 64, 64, 4, 4, False),
+    (1020, 200, 255, 50, 4, 4, True),
+    (1024, 200, 256, 50, 0, 0, True),
+    (1028, 200, 257, 50, 4, 4, False),
+    (520, 300, 2, 40, 8, 9, False),
+    (520, 300, 2, 40, 0, 8, False),
+]
 ALL = list(dict.fromkeys(COMPRESSED + LINEAR + RGB24 + PLANES + [LOW_ALPHA] + ONE_OUTPUT
-                         + COPY_ONE + [CONST_COPY]))
+                         + COPY_ONE + [CONST_COPY] + EDGES))
+# more than 65535 output rows in a batch of 3: chip_smoke.py's WIDE_TALL
+TALL = ((8, 30000, 8, 30000, 4, 4, False), 3)
 # (key, first, n): chip_smoke.py's WIDE_CHECK_ROWS
 ROWS = [
     ((512, 256, 96, 56, 4, 4, True), 10, 20),
@@ -122,6 +136,8 @@ ROWS = [
     ((256, 256, 256, 16, 0, 0, True), 3, 5),     # COPY x box
     ((96, 54, 96, 27, 4, 4, False), 10, 7),      # COPY x bilinear
     ((1, 300, 5, 20, 4, 4, True), 19, 1),        # ONE x box, the last row
+    ((512, 300, 7, 290, 4, 4, True), 45, 200),   # starts inside a 32-row tile
+    ((1028, 200, 257, 50, 4, 4, False), 3, 13),
 ]
 # suite rows 6, 6b and 7 (benchmarks/suite.py:314-324) cut to a small size
 SUITE = [
@@ -428,12 +444,81 @@ def test_kernel_params_follow_plan():
     assert (c.kind_x, c.kind_y, c.len_x, c.len_y) == (bilinear.ONE, bilinear.BOX, 0, 20)
     c = bilinear128._params(ScalePlan(300, 600, 1, 600, 4, 4), 1, 0, 600)    # box x COPY
     assert (c.kind_x, c.kind_y, c.len_x, c.len_y) == (bilinear.BOX, bilinear.COPY, 1, 0)
+    # the grid: one column of 256 rows per block, cut to 16 blocks per SM
+    assert (c.tile_w, c.grid_y, c.grid_z) == (1, 3, 1)
+    # row 6: 32 x 8 tiles, 8 column tiles x 32 row groups x 8 images (2,048
+    # blocks, under 16 per SM on 132); a1-p16-copy: 60 x 135 row groups x 8
+    # images cut to 4 row-group blocks, each taking 34 row groups
+    q = bilinear128._params(ScalePlan(2048, 2048, 256, 256, 4, 4, True), 8, 0, 256)
+    assert (q.tile_w, q.grid_y, q.grid_z) == (32, 32, 8)
+    q = bilinear128._params(ScalePlan(1920, 1080, 1920, 1080, 4, 4), 8, 0, 1080, 132)
+    assert (q.tile_w, q.grid_y, q.grid_z) == (32, 4, 8)
+    q = bilinear128._params(ScalePlan(8, 30000, 7, 30000, 4, 4), 70000, 0, 30000)
+    assert (q.tile_w, q.grid_y, q.grid_z) == (8, 1, 65535)
     # the V box's last row at 128bpp: max(frac - 1, 0), as pallas_128's w2p
     plan = ScalePlan(300, 1100, 100, 80, 4, 4)
     assert plan.y.filter == stt.FilterType.BOX
     ty = bilinear128.tables(plan)[1].reshape(6, -1)
     assert np.array_equal(ty[5], np.maximum(plan.y.factors - 1, 0))
     assert (ty[5] < plan.y.factors).any()
+
+
+def _visits(w_out, n_rows, batch, sms, turn):
+    """How often the kernel's loops (csrc/bilinear128.cu
+    ``bilinear128_kernel``) visit each output pixel (image, row, column)
+    for the grid ``launch_shape`` gives, with ``turn`` row groups per turn
+    (2 for COPY x COPY)."""
+    tile_w, col_tiles, grid_y, grid_z = bilinear128.launch_shape(w_out, n_rows, batch, sms)
+    tile_h = bilinear128.THREADS // tile_w
+    step = grid_y * tile_h
+    seen = np.zeros((batch, n_rows, w_out), dtype=np.int64)
+    for z in range(grid_z):
+        images = np.arange(z, batch, grid_z)
+        for x in range(col_tiles):
+            for t in range(bilinear128.THREADS):
+                j = x * tile_w + t % tile_w
+                if j >= w_out:
+                    continue
+                for y in range(grid_y):
+                    for ir in range(y * tile_h + t // tile_w, n_rows, turn * step):
+                        rows = [ir + u * step for u in range(turn) if ir + u * step < n_rows]
+                        np.add.at(seen, (images[:, None], np.array(rows)[None, :], j), 1)
+    return seen, (tile_w, col_tiles, grid_y, grid_z)
+
+
+@pytest.mark.parametrize("w_out,n_rows,batch,sms", [
+    (1, 300, 2, 1), (7, 290, 3, 132), (64, 64, 5, 2), (255, 50, 2, 1), (256, 50, 1, 132),
+    (257, 13, 2, 1), (8, 1000, 3, 1), (33, 9, 4, 132), (1920, 40, 2, 1),
+])
+@pytest.mark.parametrize("turn", [1, 2])
+def test_launch_shape_covers_every_pixel_once(w_out, n_rows, batch, sms, turn):
+    """The tiles' edges hold: every output pixel of every image is visited
+    exactly once, whether w_out is below, at or past a tile's width, rows
+    end inside a tile, or a block takes several row groups."""
+    seen, (tile_w, col_tiles, grid_y, grid_z) = _visits(w_out, n_rows, batch, sms, turn)
+    assert (seen == 1).all()
+    assert tile_w & (tile_w - 1) == 0 and tile_w <= 32 and (tile_w >= w_out or tile_w == 32)
+    assert 1 <= grid_y <= 65535 and 1 <= grid_z <= 65535
+    assert col_tiles * grid_y * grid_z <= max(bilinear128.BLOCKS_PER_SM * sms,
+                                              col_tiles * grid_z)
+
+
+def test_launch_shape_limits():
+    """gridDim.y and gridDim.z stop at 65535: a batch past it loops over
+    images, and any row count (at most 65535) fits; the tall batch of the
+    card's checks (3 x 30,000 rows) plans like any other."""
+    for w_out, n_rows, batch in [(1, 65535, 1), (8, 30000, 3), (65535, 65535, 1),
+                                 (1, 1, 200_000), (7, 1, 70_000)]:
+        tile_w, col_tiles, grid_y, grid_z = bilinear128.launch_shape(w_out, n_rows, batch)
+        assert grid_y <= 65535 and grid_z == min(batch, 65535)
+        assert col_tiles * tile_w >= w_out and col_tiles < 2**31
+
+
+def test_tall_batch_matches_numpy_ref():
+    key, batch = TALL
+    imgs = _images(key, 11, batch=batch)
+    assert batch * key[3] > 65535
+    assert np.array_equal(_port(key, imgs), _spec(key, imgs))
 
 
 def _smoke():
@@ -451,6 +536,7 @@ def test_chip_smoke_plans_are_held_here():
     mod = _smoke()
     assert set(mod.WIDE_CHECK_PLANS) == set(ALL)
     assert set(mod.WIDE_CHECK_ROWS) == set(ROWS)
+    assert set(mod.WIDE_UNALIGNED) <= set(ALL) and mod.WIDE_TALL == TALL
     assert mod.WIDE_CONST_PLAN in ALL and mod.WIDE_CONST_COPY_PLAN == CONST_COPY
     for _, key, _ in mod.WIDE_ROWS:
         plan = stt.ScalePlan(*key)

@@ -79,6 +79,9 @@ BILINEAR_ROWS = _smoke().BILINEAR_CHECK_ROWS
 BILINEAR_UNALIGNED = _smoke().BILINEAR_UNALIGNED
 DEEP_PLANS = _smoke().DEEP_CHECK_PLANS
 WIDE_PLANS = _smoke().WIDE_CHECK_PLANS
+WIDE_ROWS = _smoke().WIDE_CHECK_ROWS
+WIDE_UNALIGNED = _smoke().WIDE_UNALIGNED
+WIDE_TALL = _smoke().WIDE_TALL
 PYRAMID_SETS = _smoke().PYRAMID_CHECK_SETS
 
 
@@ -278,6 +281,46 @@ def test_bilinear128_kernel_matches_plain(cuda_device, key):
     for first, n in ((h // 3, max(1, h // 2)), (h - 1, 1)):
         assert torch.equal(bilinear128.scale_rows_fn(plan, x, first, n),
                            plain[:, first : first + n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key,first,n", WIDE_ROWS,
+                         ids=lambda v: _id(v) if isinstance(v, tuple) else str(v))
+def test_bilinear128_rows_match_plain(cuda_device, key, first, n):
+    plan = stt.ScalePlan(*key)
+    x = torch.randint(0, 256, (2, key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8,
+                      device=cuda_device)
+    assert torch.equal(bilinear128.scale_rows_fn(plan, x, first, n),
+                       bilinear128.bilinear128_scale_ref(plan, x, first, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", WIDE_UNALIGNED, ids=_id)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_bilinear128_unaligned_input(cuda_device, key, offset):
+    """Inputs at byte offsets 1-3 take the byte-load path; whole and by
+    rows."""
+    plan = stt.ScalePlan(*key)
+    x = torch.randint(0, 256, (2, key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8,
+                      device=cuda_device)
+    want = bilinear128.bilinear128_scale_ref(plan, x)
+    flat = torch.empty(x.numel() + offset, dtype=torch.uint8, device=cuda_device)
+    shifted = flat[offset:].view(x.shape)
+    shifted.copy_(x)
+    assert torch.equal(bilinear128.scale_fn(plan, shifted), want)
+    h = plan.height_out
+    assert torch.equal(bilinear128.scale_rows_fn(plan, shifted, h // 2, h - h // 2),
+                       want[:, h // 2 :])
+
+
+@pytest.mark.cuda
+def test_bilinear128_tall_batch(cuda_device):
+    """More than 65535 output rows in the batch (gridDim.y and gridDim.z
+    stop there)."""
+    key, batch = WIDE_TALL
+    plan = stt.ScalePlan(*key)
+    x = torch.randint(0, 256, (batch, key[1], key[0], 4), dtype=torch.uint8, device=cuda_device)
+    assert torch.equal(bilinear128.scale_fn(plan, x), bilinear128.bilinear128_scale_ref(plan, x))
 
 
 @pytest.mark.cuda
