@@ -31,9 +31,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (``ops.bilinear128.bilinear128_scale_ref``; its tile edges among them),
    each plan of ``WIDE_UNALIGNED`` at byte offsets 1, 2 and 3, whole and by
    rows, and ``WIDE_TALL`` (more than 65535 output rows in the batch), all
-   four on an input that
-   is not 4-byte aligned (and the widened classes: a box past 64:1, COPY,
-   ONE), the pyramid kernel on each set of ``PYRAMID_CHECK_SETS`` and the
+   four on an input that is not 4-byte aligned (and the widened classes: a
+   box past 64:1, COPY, ONE), the pyramid kernel on each set of ``PYRAMID_CHECK_SETS`` and the
    unaligned inputs of ``PYRAMID_UNALIGNED`` (``ops.pyramid.pyramid_scale_ref``,
    every level), and row 5's set on a transposed (not contiguous) batch
    through ``make_pyramid_fn``, against the contiguous batch.  Bytes must
@@ -66,10 +65,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bytes must equal the plain version (row 5b: one probe image per group).
 5. Times: kernel and plain version by CUDA events, in turns plain, kernel,
    kernel, plain (the 128bpp and deep box rows: plain, five kernel turns,
-   plain, with their median and min-max); Mpix/s and GB/s of input (and of output) with the share
-   of HBM peak, and each row's bound (its input and output bytes at the
-   HBM peak) with the kernel's share of it.  Also the rows of
-   ``A1_ROWS`` and of ``EXTRA_ROWS``, on no suite row and checked against
+   plain, with their median and min-max); Mpix/s and GB/s of input (and of
+   output) with the share of HBM peak, and each row's bound (its input and
+   output bytes at the HBM peak) with the kernel's share of it.  Also the
+   rows of ``A1_ROWS`` and of ``EXTRA_ROWS``, on no suite row and checked against
    the plain version first: RGB24 4096^2 -> 256^2 (the box kernel's 24bpp
    form), COPY x COPY 1024^2 (the general kernel's cost per output pixel
    without filtering, beside row 2) and row 0 on the general kernel
@@ -1150,7 +1149,12 @@ def main() -> int:
              for name in BUSY_ROWS if name in plans}
     calls[name5] = lambda: pyr_fn(x5)
     for name in BUSY_ROWS:
-        busy = device_busy(calls[name], str(trace_dir / f"{name.replace(' ', '_')}.json"))
+        trace = str(trace_dir / f"{name.replace(' ', '_')}.json")
+        try:
+            busy = device_busy(calls[name], trace)
+        except RuntimeError as e:  # a trace now and then comes back without device events
+            log(f"[busy] {name}: {e}; tracing the calls again")
+            busy = device_busy(calls[name], trace)
         kernels = "; ".join(f"{k} x{c} mean {ms:.4f} ms"
                             for k, (c, ms) in busy["kernels"].items())
         log(f"[busy] {name}: device busy {100 * busy['busy_share']:.1f}% of a "

@@ -45,10 +45,8 @@
 // from a per-block shared-memory copy.  `row0` is the first output row
 // computed (the row API).
 //
-// What bounds it: device memory on compressed gamma, and about as much the
-// integer work of the unpack, the lerps and the pack in linear light (row 6
-// of the suite does ~30 instructions per input pixel).  So the design
-// spends no instruction per output pixel that the arithmetic does not need:
+// What bounds it.  Not arithmetic per output pixel any more: the design
+// spends none that the filter does not need --
 //   - no division: a block of 256 threads covers a tile of 32 output
 //     columns by 8 rows (tile_w = 1-16 columns by 256-16 rows where w_out is
 //     narrower, so no thread idles on a 1-7 or 64 pixel wide output); block
@@ -69,13 +67,20 @@
 //     turn with both loads first.
 // Neighbouring threads take neighbouring output columns, so a warp's loads
 // of one tap row fall into one contiguous stretch that L1 serves, and its
-// stores into one 128-byte line.
-// Left out: staging a block's input rows in shared memory with 16-byte
-// loads, unpacked once (3-byte pixels load as three bytes and overlapping
-// bilinear pairs load and unpack a pixel about 2.8 times, row 6b); and a
-// split of one box span over several threads (a box axis of thousands to
-// one beside a bilinear axis walks its span in one thread).  PR 9 found
-// staging one stretch per block slower than direct loads on ladders.
+// stores into one 128-byte line.  What is left (PERF.md §6): the latency
+// of each bilinear sample's table load before its pixel loads (rows 6, 7);
+// linear light's table lookups, TO_SRGB gathered from global memory in the
+// pack and FROM_SRGB from bank-conflicted shared memory in the unpack
+// (a1-srgb-field); and on 3-byte pixels three byte loads and about 2.8
+// unpacks per input pixel where bilinear pairs overlap (row 6b).
+// Left out, measured: tiles up to 256 columns wide, a bilinear axis's
+// samples held in registers with all loads of a sample pair issued first,
+// and the pack's tables in shared memory made rows 6 and 7 faster but the
+// COPY rows and row 6b slower.  Not built: staging a block's input rows in
+// shared memory with 16-byte loads, unpacked once (PR 9 found one staged
+// stretch per block slower than direct loads on ladders), and a split of
+// one box span over several threads (a box axis of thousands to one beside
+// a bilinear axis walks its span in one thread).
 //
 // Arithmetic and its bounds:
 //   unpacked values are at most 2047*255 = 521985 (PREMUL16 linear), so
@@ -122,9 +127,6 @@ namespace {
 constexpr int kCopy = 0, kOne = 1, kBilinear = 2, kBox = 3;
 constexpr uint32_t kWorkMask = 0xffffff, kNormMask = 0xffff;
 constexpr int kThreads = 256;
-// samples per output of a BILINEAR axis: the planner makes at most 2
-// halvings (a box past 8:1, plan.pick_filter_params)
-constexpr int kMaxHalvings = 2, kMaxSamples = 1 << kMaxHalvings;
 
 __device__ __forceinline__ uint32_t lerp(uint32_t p, uint32_t q, int32_t f) {
   // numpy_ref._lerp: (p - q)*f is negative when p < q; >> floors it
@@ -132,59 +134,26 @@ __device__ __forceinline__ uint32_t lerp(uint32_t p, uint32_t q, int32_t f) {
   return static_cast<uint32_t>(((d * f) >> 8) + static_cast<int32_t>(q)) & kWorkMask;
 }
 
-// The block's shared copies of the tables: the unpack's FROM_SRGB and
-// INV_DIV_P8 (linear light), the pack's inv_div of MODE and TO_SRGB as
-// bytes (linear light), so that no lookup is a global gather.
-template <int MODE>
-struct Luts {
-  static constexpr bool kLinear = MODE == kP8Linear || MODE == kP16Linear;
-  int32_t unpack_lut[kLinear ? 512 : 1];
-  int32_t inv_div[256];
-  uint8_t to_srgb[kLinear ? 2048 : 1];
-
-  __device__ __forceinline__ void load(const int32_t* __restrict__ luts) {
-    if (kLinear)
-      for (int k = threadIdx.x; k < 512; k += kThreads)
-        unpack_lut[k] = __ldg(luts + (k < 256 ? kFromSrgb + k : kInvDivP8 + k - 256));
-    for (int k = threadIdx.x; k < 256; k += kThreads)
-      inv_div[k] = __ldg(luts + inv_div_offset(MODE) + k);
-    if (kLinear)
-      for (int k = threadIdx.x; k < 2048; k += kThreads)
-        to_srgb[k] = static_cast<uint8_t>(__ldg(luts + kToSrgb + k));
-    __syncthreads();
-  }
-};
-
-// The H filter of one output column j, with its X table words loaded once
-// per thread: the H-filtered values of N input rows (1 or 2) in one pass,
-// every pixel load of the pass issued before the arithmetic.
+// The H filter of one output column j, with its X table words loaded once:
+// the H-filtered values of N input rows (1 or 2) in one pass, so that the
+// rows share those loads and their pixel loads are in flight together.
 template <int KX, int MODE, bool PACKED>
 struct Columns {
   Fmt f;
   const int32_t* lut;
-  int n;                     // kBilinear: halvings
-  int ofs[kMaxSamples];      // kBilinear: sample k's first pixel
-  int32_t fac[kMaxSamples];  //   and its factor (k < 2^n)
-  int x;                     // kCopy: column j * stride (1 for COPY, 0 for ONE)
+  const int32_t* tab;  // kBilinear: column j's first table entry, j << n
+  int len, n;          // kBilinear: table row length, halvings
+  int x;               // kCopy: column j * stride (1 for COPY, 0 for ONE)
   int first, w_first, mid, n_mid, last, w_last;  // kBox: column j's table entries
   int64_t span_mul;
 
   __device__ __forceinline__ Columns(const Fmt& fmt, const int32_t* s_lut,
                                      const int32_t* __restrict__ tab_x,
                                      const Bilinear128Params& p, int j)
-      : f(fmt), lut(s_lut), n(static_cast<int>(p.halvings_x)), ofs(), fac(),
-        x(p.kind_x == kCopy ? j : 0), first(0), w_first(0), mid(0), n_mid(0), last(0),
-        w_last(0), span_mul(p.span_mul_x) {
-    const int len = static_cast<int>(p.len_x);
-    if (KX == kBilinear) {
-#pragma unroll
-      for (int k = 0; k < kMaxSamples; ++k) {
-        if (k < (1 << n)) {
-          ofs[k] = __ldg(tab_x + (j << n) + k);
-          fac[k] = __ldg(tab_x + len + (j << n) + k);
-        }
-      }
-    }
+      : f(fmt), lut(s_lut), tab(tab_x), len(static_cast<int>(p.len_x)),
+        n(static_cast<int>(p.halvings_x)), x(p.kind_x == kCopy ? j : 0), first(0),
+        w_first(0), mid(0), n_mid(0), last(0), w_last(0), span_mul(p.span_mul_x) {
+    if (KX == kBilinear) tab = tab_x + (j << n);
     if (KX == kBox) {
       const int32_t* t = tab_x + j;
       first = __ldg(t);
@@ -196,49 +165,30 @@ struct Columns {
     }
   }
 
-  __device__ __forceinline__ void unpacked(uint32_t px, uint32_t v[4]) const {
-    unpack<MODE>(px, f, lut, v);
-  }
-
-  __device__ __forceinline__ uint32_t load(const uint8_t* row, int i) const {
-    return load_pixel<PACKED>(row, i, f);
+  __device__ __forceinline__ void pixel(const uint8_t* row, int i, uint32_t v[4]) const {
+    unpack<MODE>(load_pixel<PACKED>(row, i, f), f, lut, v);
   }
 
   template <int N>
   __device__ __forceinline__ void operator()(const uint8_t* const (&rows)[N],
                                              uint32_t (&v)[N][4]) const {
     if constexpr (KX == kCopy) {
-      uint32_t px[N];
 #pragma unroll
-      for (int m = 0; m < N; ++m) px[m] = load(rows[m], x);
-#pragma unroll
-      for (int m = 0; m < N; ++m) unpacked(px[m], v[m]);
+      for (int m = 0; m < N; ++m) pixel(rows[m], x, v[m]);
     } else if constexpr (KX == kBilinear) {
       // sample k of output j: lerp(px[ofs], px[ofs + 1], F), then the
       // halving sum
-      uint32_t px[N][kMaxSamples][2];
-#pragma unroll
-      for (int k = 0; k < kMaxSamples; ++k) {
-        if (k < (1 << n)) {
-#pragma unroll
-          for (int m = 0; m < N; ++m) {
-            px[m][k][0] = load(rows[m], ofs[k]);
-            px[m][k][1] = load(rows[m], ofs[k] + 1);
-          }
-        }
-      }
       uint32_t sum[N][4] = {};
+      for (int k = 0; k < (1 << n); ++k) {
+        const int o = __ldg(tab + k);
+        const int32_t fx = __ldg(tab + len + k);
 #pragma unroll
-      for (int k = 0; k < kMaxSamples; ++k) {
-        if (k < (1 << n)) {
+        for (int m = 0; m < N; ++m) {
+          uint32_t a[4], b[4];
+          pixel(rows[m], o, a);
+          pixel(rows[m], o + 1, b);
 #pragma unroll
-          for (int m = 0; m < N; ++m) {
-            uint32_t a[4], b[4];
-            unpacked(px[m][k][0], a);
-            unpacked(px[m][k][1], b);
-#pragma unroll
-            for (int c = 0; c < 4; ++c) sum[m][c] += lerp(a[c], b[c], fac[k]);
-          }
+          for (int c = 0; c < 4; ++c) sum[m][c] += lerp(a[c], b[c], fx);
         }
       }
 #pragma unroll
@@ -249,10 +199,10 @@ struct Columns {
       uint32_t acc[N][4], t[4];
 #pragma unroll
       for (int m = 0; m < N; ++m) {
-        unpacked(load(rows[m], first), t);
+        pixel(rows[m], first, t);
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[m][c] = weigh(t[c], w_first, kWorkMask);
-        unpacked(load(rows[m], last), t);
+        pixel(rows[m], last, t);
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[m][c] += weigh(t[c], w_last, kWorkMask);
       }
@@ -260,7 +210,7 @@ struct Columns {
       for (int i = mid; i < mid + n_mid; ++i) {
 #pragma unroll
         for (int m = 0; m < N; ++m) {
-          unpacked(load(rows[m], i), t);
+          pixel(rows[m], i, t);
 #pragma unroll
           for (int c = 0; c < 4; ++c) acc[m][c] += t[c];
         }
@@ -275,8 +225,7 @@ struct Columns {
 
 // Output row i of a V axis of kind KY over the H values of `h` on the rows
 // of `img`: each V sample's pair of rows (r, r + 1) and a box's edge rows
-// and mid rows two by two go through one pass of h; a BILINEAR axis's
-// samples are loaded from its table first.
+// and mid rows two by two go through one pass of h.
 template <int KY, class H>
 __device__ __forceinline__ void vfilter(const H& h, const uint8_t* img, int row_bytes,
                                         const int32_t* __restrict__ tab,
@@ -291,25 +240,15 @@ __device__ __forceinline__ void vfilter(const H& h, const uint8_t* img, int row_
   } else if constexpr (KY == kBilinear) {
     const int n = static_cast<int>(p.halvings_y), len = static_cast<int>(p.len_y);
     const int32_t* t = tab + (i << n);
-    int r[kMaxSamples] = {};
-    int32_t fy[kMaxSamples] = {};
-#pragma unroll
-    for (int k = 0; k < kMaxSamples; ++k) {
-      if (k < (1 << n)) {
-        r[k] = __ldg(t + k);
-        fy[k] = __ldg(t + len + k);
-      }
-    }
     uint32_t sum[4] = {0, 0, 0, 0};
+    for (int k = 0; k < (1 << n); ++k) {
+      const int r = __ldg(t + k);
+      const int32_t fy = __ldg(t + len + k);
+      const uint8_t* rows[2] = {row(r), row(r + 1)};
+      uint32_t v[2][4];
+      h(rows, v);
 #pragma unroll
-    for (int k = 0; k < kMaxSamples; ++k) {
-      if (k < (1 << n)) {
-        const uint8_t* rows[2] = {row(r[k]), row(r[k] + 1)};
-        uint32_t v[2][4];
-        h(rows, v);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) sum[c] += lerp(v[0][c], v[1][c], fy[k]);
-      }
+      for (int c = 0; c < 4; ++c) sum[c] += lerp(v[0][c], v[1][c], fy);
     }
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[c] = (sum[c] >> n) & kWorkMask;
@@ -355,15 +294,16 @@ __global__ void __launch_bounds__(kThreads)
 bilinear128_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
                    const int32_t* __restrict__ luts, const int32_t* __restrict__ tab_x,
                    const int32_t* __restrict__ tab_y, const Bilinear128Params p) {
+  constexpr bool kLinear = MODE == kP8Linear || MODE == kP16Linear;
   constexpr int kTurn = KX == kCopy && KY == kCopy ? 2 : 1;
-  __shared__ Luts<MODE> s;
-  s.load(luts);
+  __shared__ int32_t s_lut[kLinear ? 512 : 1];
+  if (kLinear) load_unpack_luts(luts, s_lut);
   const int tile_w = static_cast<int>(p.tile_w), shift = __ffs(tile_w) - 1;
   const int j = static_cast<int>(blockIdx.x) * tile_w + (threadIdx.x & (tile_w - 1));
   const int w_out = static_cast<int>(p.w_out), n_rows = static_cast<int>(p.n_rows);
   if (j >= w_out) return;
   const Fmt f{static_cast<int>(p.nb_in), p.alpha_ch == 0, p.unassoc_in != 0};
-  const Columns<KX, MODE, PACKED> h(f, s.unpack_lut, tab_x, p, j);
+  const Columns<KX, MODE, PACKED> h(f, s_lut, tab_x, p, j);
   const unsigned perm = out_perm(p);
   const int nb_out = static_cast<int>(p.nb_out);
   const int row_bytes = static_cast<int>(p.w_in * p.nb_in), out_row = w_out * nb_out;
@@ -381,7 +321,7 @@ bilinear128_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
 #pragma unroll
       for (int u = 0; u < kTurn; ++u)
         if (ir + u * step < n_rows)
-          store_pixel(pack_word<MODE>(o[u], p, s.inv_div, s.to_srgb, perm), nb_out,
+          store_pixel(pack_word<MODE>(o[u], p, luts, perm), nb_out,
                       dst + static_cast<int64_t>(ir + u * step) * out_row);
     }
   }
@@ -443,8 +383,8 @@ Launcher pick(int64_t kx, int64_t ky, int64_t mode, bool packed) {
 // tables; the grid is (ceil(w_out / tile_w), grid_y, grid_z)
 // (ops/bilinear128.launch_shape).  The kernel runs on `stream` and is not
 // waited for.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for an axis kind or mode outside the class, more
-// than kMaxHalvings halvings, or a tile width or grid outside the limits.
+// cudaErrorInvalidValue for an axis kind or mode outside the class, or a
+// tile width or grid outside the limits.
 extern "C" int smolscale_bilinear128_scale(const uint8_t* in, uint8_t* out,
                                            const int32_t* luts, const int32_t* tab_x,
                                            const int32_t* tab_y,
@@ -452,9 +392,7 @@ extern "C" int smolscale_bilinear128_scale(const uint8_t* in, uint8_t* out,
   const Bilinear128Params p = *params;
   if (p.batch * p.n_rows * p.w_out <= 0) return static_cast<int>(cudaSuccess);
   if (p.tile_w < 1 || p.tile_w > kThreads || (p.tile_w & (p.tile_w - 1)) != 0 ||
-      p.grid_y < 1 || p.grid_y > 65535 || p.grid_z < 1 || p.grid_z > 65535 ||
-      (p.kind_x == kBilinear && (p.halvings_x < 0 || p.halvings_x > kMaxHalvings)) ||
-      (p.kind_y == kBilinear && (p.halvings_y < 0 || p.halvings_y > kMaxHalvings)))
+      p.grid_y < 1 || p.grid_y > 65535 || p.grid_z < 1 || p.grid_z > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool packed = p.nb_in == 4 && (reinterpret_cast<uintptr_t>(in) & 3) == 0;
   const Launcher fn = pick(p.kind_x, p.kind_y, p.mode, packed);

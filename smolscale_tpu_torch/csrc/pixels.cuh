@@ -40,8 +40,9 @@ struct Fmt {
 };
 
 // Pixel x of a row as four bytes, byte k in bits 8k; 24bpp gets alpha 255.
-// The offset x * nb is computed in the caller's index type (a row is at most
-// 65535 pixels, so 32 bits hold it).
+// The offset x * nb is computed in the caller's index type: 32 bits hold it
+// (a row is at most 65535 pixels), but deep.cu's unrolled span loop keeps
+// 64-bit indices, whose addresses the compiler steps without a conversion.
 template <bool PACKED, class Index>
 __device__ __forceinline__ uint32_t load_pixel(const uint8_t* __restrict__ row,
                                                Index x, const Fmt& f) {
@@ -94,12 +95,9 @@ __device__ __forceinline__ void load_unpack_luts(const int32_t* __restrict__ lut
   __syncthreads();
 }
 
-// Offset of the pack's inv_div table for MODE in the LUT block.
-__host__ __device__ constexpr int inv_div_offset(int mode) {
-  return mode == kP8Compressed ? kInvDivP8
-         : mode == kP8Linear   ? kInvDivP8L
-         : mode == kP16Compressed ? kInvDivP16
-                                  : kInvDivP16L;
+__device__ __forceinline__ uint32_t lut_at(const int32_t* __restrict__ luts, int off,
+                                           uint32_t idx) {
+  return static_cast<uint32_t>(__ldg(luts + off + idx));
 }
 
 // Channel c of four is alpha: a select, so that no register array is
@@ -118,22 +116,22 @@ __device__ __forceinline__ unsigned out_perm(const Params& p) {
 // numpy_ref.pack for one output pixel of normalised work channels `o`: the
 // output bytes in one word, byte k in bits 8k (byte 3 unused for 3-byte
 // pixels), swizzled by `perm` (out_perm).  `Params` has the pixel-format
-// fields of ops/pixels.kernel_fields and `pack24_direct`; `inv_div` is
-// MODE's unpremultiply table (256 entries, inv_div_offset) and `to_srgb`
-// TO_SRGB (2048 entries), in global or shared memory.  The inv_div entry is
-// read once per pixel.
-template <int MODE, class Params, class ToSrgb>
+// fields of ops/pixels.kernel_fields and `pack24_direct`.  The
+// unpremultiply's inv_div entry is read once per pixel.
+template <int MODE, class Params>
 __device__ __forceinline__ uint32_t pack_word(const uint32_t o[4], const Params& p,
-                                              const int32_t* __restrict__ inv_div,
-                                              const ToSrgb* __restrict__ to_srgb,
+                                              const int32_t* __restrict__ luts,
                                               unsigned perm) {
   constexpr bool k16 = MODE == kP16Compressed || MODE == kP16Linear;
   const bool alpha_first = p.alpha_ch == 0;
   const uint32_t a = ((alpha_first ? o[0] : o[3]) >> (k16 ? 8 : 0)) & 0xff;
   const bool out_premul = !p.unassoc_out;
   const bool direct = MODE == kP8Linear && out_premul && p.pack24_direct;
-  const uint64_t inv = (MODE == kP8Compressed && out_premul) || direct
-                           ? 0 : static_cast<uint32_t>(inv_div[a]);
+  uint64_t inv = 0;
+  if (MODE == kP8Compressed && !out_premul) inv = lut_at(luts, kInvDivP8, a);
+  if (MODE == kP8Linear && !direct) inv = lut_at(luts, kInvDivP8L, a);
+  if (MODE == kP16Compressed) inv = lut_at(luts, kInvDivP16, a);
+  if (MODE == kP16Linear) inv = lut_at(luts, kInvDivP16L, a);
   uint32_t w = 0;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
@@ -146,10 +144,10 @@ __device__ __forceinline__ uint32_t pack_word(const uint32_t o[4], const Params&
       } else if (MODE == kP8Linear) {
         if (direct) {
           // to_srgb of the premultiplied linear value (generic.c:922-935)
-          r = to_srgb[o[c] & 0x7ff];
+          r = lut_at(luts, kToSrgb, o[c] & 0x7ff);
         } else {
           // unpremul_p8l (generic.c:271-280), to_srgb
-          r = to_srgb[static_cast<uint32_t>((v * inv) >> 10) & 0x7ff];
+          r = lut_at(luts, kToSrgb, static_cast<uint32_t>((v * inv) >> 10) & 0x7ff);
           if (out_premul && p.nb_out == 4) r = (((r + 1) * (a + 1) - 1) >> 8) & 0xff;
         }
       } else if (MODE == kP16Compressed) {
@@ -157,7 +155,7 @@ __device__ __forceinline__ uint32_t pack_word(const uint32_t o[4], const Params&
         r = static_cast<uint32_t>((v * inv) >> 16);
       } else {
         // unpremul_p16l (generic.c:309-318), to_srgb
-        r = to_srgb[static_cast<uint32_t>((v * inv) >> 19) & 0x7ff];
+        r = lut_at(luts, kToSrgb, static_cast<uint32_t>((v * inv) >> 19) & 0x7ff);
       }
     }
     w |= (r & 0xff) << (8 * c);
@@ -178,14 +176,12 @@ __device__ __forceinline__ void store_pixel(uint32_t w, int nb_out, uint8_t* dst
   }
 }
 
-// numpy_ref.pack for one output pixel, stored at `dst`; its tables read
-// from the LUT block `luts` in global memory.
+// numpy_ref.pack for one output pixel, stored at `dst`.
 template <int MODE, class Params>
 __device__ __forceinline__ void pack_store(const uint32_t o[4], const Params& p,
                                            const int32_t* __restrict__ luts,
                                            uint8_t* dst) {
-  store_pixel(pack_word<MODE>(o, p, luts + inv_div_offset(MODE), luts + kToSrgb, out_perm(p)),
-              static_cast<int>(p.nb_out), dst);
+  store_pixel(pack_word<MODE>(o, p, luts, out_perm(p)), static_cast<int>(p.nb_out), dst);
 }
 
 }  // namespace

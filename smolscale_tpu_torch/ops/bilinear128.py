@@ -105,32 +105,17 @@ BLOCKS_PER_SM = 16
 H100_SMS = 132
 
 
-def tile_width(w_out: int) -> int:
-    """Output columns per block tile: for outputs under 32 columns the power
-    of two that holds them; else the widest of 256, 128, 64 and 32 whose
-    tiles leave at most an eighth of their threads past ``w_out`` (a block
-    then reads long stretches of each input row), or 32, which leaves the
-    fewest."""
-    if w_out < 32:
-        return 1 << (w_out - 1).bit_length()
-    for t in (256, 128, 64):
-        span = -(-w_out // t) * t
-        if 8 * (span - w_out) <= span:
-            return t
-    return 32
-
-
 def launch_shape(w_out: int, n_rows: int, batch: int,
                  sms: int = H100_SMS) -> tuple[int, int, int, int]:
     """The kernel's grid for ``n_rows`` output rows of ``batch`` images:
     ``(tile_w, col_tiles, grid_y, grid_z)``.  A block of THREADS threads
-    covers ``tile_w`` consecutive output columns (:func:`tile_width`) of
-    ``THREADS // tile_w`` consecutive rows; block (x, y, z) takes column
+    covers ``tile_w`` consecutive output columns (a power of two up to 32)
+    of ``THREADS // tile_w`` consecutive rows; block (x, y, z) takes column
     tile x, row groups y, y + grid_y, ... of images z, z + grid_z, ....
     ``grid_y`` is cut so that the grid holds about BLOCKS_PER_SM blocks per
     SM, each then covering several row groups with one copy of the LUTs;
     ``grid_y`` and ``grid_z`` stay below 2^16."""
-    tile_w = tile_width(w_out)
+    tile_w = min(32, 1 << (w_out - 1).bit_length())
     col_tiles = -(-w_out // tile_w)
     row_groups = -(-n_rows // (THREADS // tile_w))
     grid_z = min(batch, 65535)

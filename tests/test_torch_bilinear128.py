@@ -446,14 +446,13 @@ def test_kernel_params_follow_plan():
     assert (c.kind_x, c.kind_y, c.len_x, c.len_y) == (bilinear.BOX, bilinear.COPY, 1, 0)
     # the grid: one column of 256 rows per block, cut to 16 blocks per SM
     assert (c.tile_w, c.grid_y, c.grid_z) == (1, 3, 1)
-    # row 6: tiles of one 256-pixel row, 256 rows x 8 images (2,048 blocks,
-    # under 16 per SM on 132); a1-p16-copy: 8 tiles of 256 columns (the last
-    # half full) x 1,080 rows x 8 images cut to 33 row blocks per column
-    # tile and image, each taking 32-33 rows
+    # row 6: 32 x 8 tiles, 8 column tiles x 32 row groups x 8 images (2,048
+    # blocks, under 16 per SM on 132); a1-p16-copy: 60 x 135 row groups x 8
+    # images cut to 4 row-group blocks, each taking 34 row groups
     q = bilinear128._params(ScalePlan(2048, 2048, 256, 256, 4, 4, True), 8, 0, 256)
-    assert (q.tile_w, q.grid_y, q.grid_z) == (256, 256, 8)
+    assert (q.tile_w, q.grid_y, q.grid_z) == (32, 32, 8)
     q = bilinear128._params(ScalePlan(1920, 1080, 1920, 1080, 4, 4), 8, 0, 1080, 132)
-    assert (q.tile_w, q.grid_y, q.grid_z) == (256, 33, 8)
+    assert (q.tile_w, q.grid_y, q.grid_z) == (32, 4, 8)
     q = bilinear128._params(ScalePlan(8, 30000, 7, 30000, 4, 4), 70000, 0, 30000)
     assert (q.tile_w, q.grid_y, q.grid_z) == (8, 1, 65535)
     # the V box's last row at 128bpp: max(frac - 1, 0), as pallas_128's w2p
@@ -498,34 +497,10 @@ def test_launch_shape_covers_every_pixel_once(w_out, n_rows, batch, sms, turn):
     end inside a tile, or a block takes several row groups."""
     seen, (tile_w, col_tiles, grid_y, grid_z) = _visits(w_out, n_rows, batch, sms, turn)
     assert (seen == 1).all()
-    span = col_tiles * tile_w
-    assert tile_w & (tile_w - 1) == 0 and tile_w <= bilinear128.THREADS
-    assert tile_w >= w_out or tile_w == 32 or 8 * (span - w_out) <= span
+    assert tile_w & (tile_w - 1) == 0 and tile_w <= 32 and (tile_w >= w_out or tile_w == 32)
     assert 1 <= grid_y <= 65535 and 1 <= grid_z <= 65535
     assert col_tiles * grid_y * grid_z <= max(bilinear128.BLOCKS_PER_SM * sms,
                                               col_tiles * grid_z)
-
-
-@pytest.mark.parametrize("w_out,tile_w", [
-    (1, 1), (7, 8), (17, 32), (31, 32), (64, 64), (255, 256), (256, 256), (257, 32),
-    (400, 64), (1920, 256), (3840, 256), (100, 32), (225, 256),
-])
-def test_tile_width(w_out, tile_w):
-    """Tiles as wide as an eighth of idle threads allows: rows 6 and 7 (256)
-    and the COPY rows (1920, 3840) stream whole stretches of input rows,
-    row 6b (400) and 257 columns take narrower tiles."""
-    assert bilinear128.tile_width(w_out) == tile_w
-
-
-def test_planner_makes_at_most_two_halvings():
-    """csrc/bilinear128.cu keeps a BILINEAR axis's samples (at most 2^2) in
-    registers and refuses more halvings: the planner takes a box past 8:1."""
-    seen = set()
-    for d_in in list(range(1, 600)) + [1000, 4096, 65535]:
-        for d_out in range(1, 2 * d_in + 2, max(1, d_in // 50)):
-            filt, _, halvings, _ = stt.plan.pick_filter_params(d_in, d_out, False)
-            seen.add(halvings)
-    assert seen == {0, 1, 2}
 
 
 def test_launch_shape_limits():
