@@ -127,7 +127,54 @@ CHECK_PLANS = [
     (256, 60, 256, 6, 1, 0),       # COPY x box 10:1
     (100, 90, 10, 9, 0, 0),        # width not a multiple of 128
     (99, 200, 9, 20, 5, 3),        # odd sizes, unassociated in
+    # the kernel's tiles (ops/box.launch_shape at batch 2) on their edges:
+    # direct 16:1, warps of 8 columns (w_out 7, 8, 9) and blocks of 16
+    (112, 64, 7, 4, 0, 0),
+    (128, 64, 8, 4, 0, 0),
+    (144, 64, 9, 4, 0, 0),
+    (240, 32, 15, 2, 0, 0),
+    (256, 32, 16, 2, 0, 0),
+    (272, 32, 17, 2, 0, 0),
+    # COPY x box: warps of 128 columns (w_out 127 and 129 are staged),
+    # blocks of 256
+    (124, 64, 124, 4, 0, 0),
+    (127, 64, 127, 4, 0, 0),
+    (128, 64, 128, 4, 0, 0),
+    (129, 64, 129, 4, 0, 0),
+    (132, 64, 132, 4, 0, 0),
+    (252, 64, 252, 4, 0, 0),
+    (256, 64, 256, 4, 0, 0),
+    (260, 64, 260, 4, 0, 0),
+    # staged 10:1 (40-byte spans): warps of 16 columns, blocks of 32
+    (150, 40, 15, 4, 0, 0),
+    (160, 40, 16, 4, 0, 0),
+    (170, 40, 17, 4, 0, 0),
+    (310, 40, 31, 4, 1, 0),
+    (320, 40, 32, 4, 0, 0),
+    (330, 40, 33, 4, 2, 3),
+    # 255:1 on each axis and on both (sums of 65,025 in a 16-bit half)
+    (765, 20, 3, 20, 0, 0),
+    (20, 765, 20, 3, 0, 0),
+    (510, 510, 2, 2, 0, 4),
+    # span bytes not a multiple of 16: 3-byte 9:1 and 11:1, 4-byte 63:1
+    (81, 27, 9, 3, 8, 8),
+    (121, 44, 11, 4, 9, 0),
+    (252, 20, 4, 2, 0, 0),
+    # deep ratios: split warps share each output's rows (direct, staged)
+    (4096, 4096, 32, 32, 0, 0),
+    (4080, 4080, 16, 16, 0, 0),
 ]
+# the box kernel on inputs at byte offsets 1-4 and 8 (16-byte loads then
+# need the staged form): direct 16:1, RGB24, COPY x box, 255:1 with
+# unassociated out, 10:1 with a reorder
+BOX_UNALIGNED = [(256, 128, 16, 8, 0, 0), (256, 128, 16, 8, 8, 8), (256, 64, 256, 4, 0, 0),
+                 (510, 510, 2, 2, 0, 4), (3840, 120, 384, 12, 2, 3)]
+BOX_OFFSETS = (1, 2, 3, 4, 8)
+# more than 65535 output rows in the batch: (plan, batch), COPY and direct
+BOX_TALL = [((16, 65529, 16, 7281, 0, 0), 10), ((48, 65532, 4, 5461, 0, 0), 13)]
+# checked on a constant-255 batch too: the largest sums of each form
+BOX_CONST_PLANS = [(510, 510, 2, 2, 0, 4), (4096, 128, 256, 8, 0, 0), (765, 20, 3, 20, 8, 8),
+                   (20, 765, 20, 3, 0, 0)]
 
 # the plan lists of tests/test_pallas_bilinear.py (:21-44, :65-71, :85-91,
 # :189-196) and its 24bpp plans (:104-111, :138-148) that are not integer
@@ -443,6 +490,13 @@ EXTRA_ROWS = [
     ("copy", (1024, 1024, 1024, 1024, 0, 0), 8, "bilinear"),
     # the headline on the general kernel, beside the box kernel's row 0
     ("row 0 on bilinear", (4096, 4096, 256, 256, 0, 0), 8, "bilinear"),
+    # a 10:1 box whose 40-byte spans take the box kernel's staged form:
+    # video-preview grids of 4K frames
+    ("box-10", (3840, 2160, 384, 216, 0, 0), 8, "box"),
+    # 128:1 x 128:1, icon-size thumbnails of camera images: split warps on
+    # the box kernel, and the same plan on the deep box kernel beside it
+    ("box-deep", (4096, 4096, 32, 32, 0, 0), 8, "box"),
+    ("box-deep on deep", (4096, 4096, 32, 32, 0, 0), 8, "deep"),
 ]
 # the pyramid kernel's sets: (w_in, h_in, ((w_out, h_out), ...), type_in,
 # type_out), with_srgb False.  Those of tests/test_torch_pyramid.py (the
@@ -582,12 +636,35 @@ def fleet_batches(images, types):
     return out
 
 
-def main() -> int:
+def load_parent(root: str):
+    """The ``smolscale_tpu_torch`` package of another checkout at ``root``
+    (for example the parent commit, unpacked with ``git archive``), loaded
+    under another name, and its ``ops.box`` module.  Its kernels build into
+    ``root/build/kernels``."""
+    import importlib
+    import importlib.util
+
+    pkg = Path(root).resolve() / "smolscale_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "parent_smolscale_tpu_torch", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod, importlib.import_module(spec.name + ".ops.box")
+
+
+def main(argv: list) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    parent = parent_box = None
+    if argv[:1] == ["--parent"] and len(argv) == 2:
+        parent, parent_box = load_parent(argv[1])
+    elif argv:
+        print("usage: chip_smoke.py [--parent CHECKOUT]", file=sys.stderr)
+        return 2
 
     import smolscale_tpu_torch as stt
     from smolscale_tpu_torch.backends import torch_ops
@@ -604,9 +681,19 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     log(card)
 
-    # 2. build
+    # 2. build (with --parent, the other checkout's kernels at the same time)
+    parent_build = None
+    if parent is not None:
+        import importlib
+        import threading
+
+        parent_build = threading.Thread(
+            target=importlib.import_module(parent.__name__ + ".ops._build").library)
+        parent_build.start()
     lib_path, build_log, secs = _build.build()
     _build.library()
+    if parent_build is not None:
+        parent_build.join()
     log(f"[build] {lib_path} in {secs:.1f} s")
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
@@ -624,7 +711,7 @@ def main() -> int:
                 f"registers, stack frames up to {max(r['stack'] for r in mine)} bytes, "
                 f"{sum(r['stack'] > 0 for r in mine)} instances with one")
     for r in instances:
-        if r["kernel"] in ("bilinear_kernel", "bilinear128_kernel", "deep_kernel"):
+        if r["kernel"] in ("box_kernel", "bilinear_kernel", "bilinear128_kernel", "deep_kernel"):
             log(f"[build] {r['kernel']}<{r['args']}>: {r['registers']} registers, "
                 f"{r['stack']} bytes stack frame, {r['spill_stores']} + {r['spill_loads']} bytes "
                 f"spill stores + loads, {r['smem']} bytes shared memory per block")
@@ -650,12 +737,41 @@ def main() -> int:
     def plan_of(key):
         return stt.ScalePlan(*key) if len(key) == 7 else stt.ScalePlan(*key, False)
 
+    def box_label(key, plan, x):
+        shape = box.launch_shape(plan, x.shape[0], box.form(plan, x.data_ptr()))
+        return (f"{key} ({box.FORMS[shape['form']]}, {shape['cw']} columns per warp, "
+                f"{shape['wc']} x {shape['splits']} warps)")
+
     for i, key in enumerate(CHECK_PLANS):
         plan = stt.ScalePlan(*key, False)
         if not box.applicable(plan):
             raise AssertionError(f"{key}: outside the box class")
         x = random_images(key, 1000 + i)
-        check("box", key, box.scale_fn(plan, x), box.box_scale_ref(plan, x))
+        check("box", box_label(key, plan, x), box.scale_fn(plan, x), box.box_scale_ref(plan, x))
+    for key in BOX_UNALIGNED:
+        plan = stt.ScalePlan(*key, False)
+        imgs = random_images(key, 1500)
+        want = box.box_scale_ref(plan, imgs)
+        for offset in BOX_OFFSETS:
+            flat = torch.empty(imgs.numel() + offset, dtype=torch.uint8, device=dev)
+            shifted = flat[offset:].view(imgs.shape)
+            shifted.copy_(imgs)
+            check("box", f"{box_label(key, plan, shifted)} at byte offset {offset}",
+                  box.scale_fn(plan, shifted), want)
+    for key, batch in BOX_TALL:
+        plan = stt.ScalePlan(*key, False)
+        imgs = torch.from_numpy(np.random.default_rng(1600).integers(
+            0, 256, (batch, key[1], key[0], 4), dtype=np.uint8)).to(dev)
+        check("box", f"{box_label(key, plan, imgs)} batch {batch} "
+              f"({batch * plan.height_out} output rows)",
+              box.scale_fn(plan, imgs), box.box_scale_ref(plan, imgs))
+    for key in BOX_CONST_PLANS:
+        plan = stt.ScalePlan(*key, False)
+        x = torch.full((2, plan.height_in, plan.width_in, plan.meta_in.n_bytes), 255,
+                       dtype=torch.uint8, device=dev)
+        got = box.scale_fn(plan, x)
+        check("box", f"{box_label(key, plan, x)} constant 255", got, box.box_scale_ref(plan, x))
+        log(f"[check] box {key} constant 255: pixel (0, 0) {got[0, 0, 0].tolist()}")
     for i, key in enumerate(BILINEAR_CHECK_PLANS):
         plan = stt.ScalePlan(*key, False)
         if not bilinear.applicable(plan):
@@ -1019,15 +1135,29 @@ def main() -> int:
     timed += [(row[:3], streamed(row[4]) if row[4] else kernels[row[3]][0], kernels[row[3]][1])
               for row in A1_ROWS]
     timed += [(row[:3], *kernels[row[3]]) for row in EXTRA_ROWS]
-    # the 128bpp and deep box rows take five kernel turns (their times moved
-    # between calls); the kernel's time is the median of its turns
-    five = {r[0] for r in WIDE_ROWS + DEEP_ROWS} | {r[0] for r in A1_ROWS
-                                                   if r[3] in ("bilinear128", "deep")}
+    # the box, 128bpp and deep box rows take five kernel turns (their times
+    # moved between calls); the kernel's time is the median of its turns
+    box_rows = {r[0] for r in MAIN_ROWS} | {r[0] for r in EXTRA_ROWS if r[3] == "box"}
+    five = ({r[0] for r in WIDE_ROWS + DEEP_ROWS} | box_rows | {"box-deep on deep"}
+            | {r[0] for r in A1_ROWS if r[3] in ("bilinear128", "deep")})
+    # with --parent, another checkout's box kernel in turns with this one's
+    parent_fns = {}
+    if parent is not None:
+        for (name, key, batch) in MAIN_ROWS + [r[:3] for r in EXTRA_ROWS]:
+            if name in box_rows:
+                pplan = parent.ScalePlan(*key, False)
+                parent_fns[name] = lambda xin, pplan=pplan: parent_box.scale_fn(pplan, xin)
+                check("box", f"{name} on the parent's box kernel", parent_fns[name](inputs[name]),
+                      box.box_scale_ref(plans[name], inputs[name]))
     times, bounds = {}, {}
     for (name, _, batch), kernel_fn, plain_fn in timed:
         plan, xin = plans[name], inputs[name]
         p1 = cuda_time_ms(lambda: plain_fn(plan, xin), warmup=1, iters=5)
-        ks = [cuda_time_ms(lambda: kernel_fn(plan, xin)) for _ in range(5 if name in five else 2)]
+        ks, ps = [], []
+        for _ in range(5 if name in five else 2):
+            ks.append(cuda_time_ms(lambda: kernel_fn(plan, xin)))
+            if name in parent_fns:
+                ps.append(cuda_time_ms(lambda: parent_fns[name](xin)))
         p2 = cuda_time_ms(lambda: plain_fn(plan, xin), warmup=1, iters=5)
         k_ms, p_ms = statistics.median(ks), (p1 + p2) / 2
         times[name] = (k_ms, p_ms)
@@ -1048,6 +1178,12 @@ def main() -> int:
                 f"input ({100 * in_gbs / HBM_PEAK_GBS:.1f}% of {HBM_PEAK_GBS:.0f} GB/s), "
                 f"{out_gbs:.1f} GB/s of output (in + out "
                 f"{100 * (in_gbs + out_gbs) / HBM_PEAK_GBS:.1f}%), on {card}")
+        if ps:
+            pm = statistics.median(ps)
+            log(f"[compare] {name}: parent box kernel {pm:.4f} ms (turns "
+                f"{', '.join(f'{t:.4f}' for t in ps)}, min-max {min(ps):.4f}-{max(ps):.4f}; "
+                f"{100 * bounds[name] / pm:.1f}% of the bound), this tree {k_ms:.4f} ms, "
+                f"in turns; {pm / k_ms:.2f}x, on {card}")
 
     # row 5: the pyramid kernel, its plain version, and the same levels level
     # by level on the general kernel (three launches, each reading the batch)
@@ -1258,4 +1394,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -133,10 +133,88 @@ class _BoxParams(ctypes.Structure):
             "box_x", "box_y", "drop_x", "drop_y", "span_mul_x", "span_mul_y",
             "nb_in", "nb_out", "alpha_ch", "unassoc_in", "unassoc_out",
         )
-    ] + [("src", ctypes.c_int64 * 4)]
+    ] + [("src", ctypes.c_int64 * 4)] + [
+        (name, ctypes.c_int64)
+        for name in ("form", "cw", "wc", "splits", "rows_per_split",
+                     "grid_x", "grid_y", "grid_z")
+    ]
 
 
-def _params(plan: ScalePlan, batch: int) -> _BoxParams:
+# the kernel's forms (enum Form in csrc/box.cu)
+DIRECT, COPY, STAGED = 0, 1, 2
+FORMS = {DIRECT: "direct", COPY: "copy", STAGED: "staged"}
+# a warp's input stretch per row in the staged form, at most (kSlotBytes in
+# csrc/box.cu holds it with its skew)
+STAGE_BYTES = 1024
+MAX_WARPS = 8          # warps per block (kMaxWarps)
+GRID_LIMIT = 65535     # grid y and z
+WAVE_WARPS = 128       # warps per SM the grid aims at: two waves of 64
+H100_SMS = 132
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (n.bit_length() - 1)
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def form(plan: ScalePlan, address: int = 0) -> int:
+    """Which form of the kernel takes ``plan`` for an input at byte
+    ``address``: COPY (a COPY X axis) and DIRECT (a span of 4-byte pixels
+    whose bytes are a multiple of 16) load 16-byte words straight into
+    registers, so they need 4-byte pixels, rows of a multiple of 16 bytes and
+    a 16-byte aligned input; everything else is STAGED through shared
+    memory."""
+    nb = plan.meta_in.n_bytes
+    rx, _ = _span(plan.x)
+    aligned = nb == 4 and address % 16 == 0 and plan.width_in * nb % 16 == 0
+    if aligned and plan.x.filter == FilterType.COPY:
+        return COPY
+    if aligned and rx * nb % 16 == 0:
+        return DIRECT
+    return STAGED
+
+
+def launch_shape(plan: ScalePlan, batch: int, kind: int,
+                 sms: int = H100_SMS) -> dict:
+    """The kernel's work mapping for ``batch`` images in form ``kind``.
+
+    A warp covers ``cw`` consecutive output columns of one output row,
+    ``32 // cw`` lanes per column (COPY: ``cw`` = 128, four columns per
+    lane), and the input rows [s * rows_per_split, (s + 1) * rows_per_split)
+    of their spans, s < ``splits``.  A block holds ``wc * splits`` warps:
+    warp w covers column group w % wc and split w // wc.  Block (x, y, z)
+    takes column tile x (``wc * cw`` columns), output rows y, y + grid_y, ...
+    of images z, z + grid_z, ....  ``splits`` doubles (to 8, keeping at
+    least 4 rows per split) until the grid holds WAVE_WARPS warps per SM:
+    deep ratios with few output pixels then still fill the card."""
+    rx, _ = _span(plan.x)
+    ry, _ = _span(plan.y)
+    nb = plan.meta_in.n_bytes
+    w_out, h_out = plan.width_out, plan.height_out
+    if kind == COPY:
+        cw = 128
+    elif kind == DIRECT:
+        cw = 32 // min(32, _pow2_floor(rx * nb // 16))
+    else:
+        cw = min(32, _pow2_floor(max(1, STAGE_BYTES // (rx * nb))), _pow2_ceil(w_out))
+    col_warps = -(-w_out // cw)
+    splits = 1
+    while (splits < MAX_WARPS and ry >= 8 * splits
+           and col_warps * h_out * batch * splits < WAVE_WARPS * sms):
+        splits *= 2
+    wc = min(MAX_WARPS // splits, _pow2_ceil(col_warps))
+    return dict(
+        form=kind, cw=cw, wc=wc, splits=splits, rows_per_split=-(-ry // splits),
+        grid_x=-(-w_out // (wc * cw)), grid_y=min(h_out, GRID_LIMIT),
+        grid_z=min(batch, GRID_LIMIT),
+    )
+
+
+def _params(plan: ScalePlan, batch: int, address: int = 0,
+            sms: int = H100_SMS) -> _BoxParams:
     rx, drop_x = _span(plan.x)
     ry, drop_y = _span(plan.y)
     f = pixels.kernel_fields(plan)
@@ -148,7 +226,13 @@ def _params(plan: ScalePlan, batch: int) -> _BoxParams:
         box_y=int(plan.y.filter == FilterType.BOX),
         drop_x=int(drop_x), drop_y=int(drop_y),
         span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul), **f,
+        **launch_shape(plan, batch, form(plan, address), sms),
     )
+
+
+@functools.cache
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.cache
@@ -172,7 +256,7 @@ def _launch(plan: ScalePlan, imgs: torch.Tensor) -> torch.Tensor:
     )
     with torch.cuda.device(imgs.device):
         inv_div = pixels.inv_div_table(imgs.device)
-        params = _params(plan, batch.shape[0])
+        params = _params(plan, batch.shape[0], batch.data_ptr(), _sms(imgs.device))
         err = _entry()(
             batch.data_ptr(), out.data_ptr(), inv_div.data_ptr(),
             ctypes.byref(params), torch.cuda.current_stream().cuda_stream,

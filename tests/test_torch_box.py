@@ -157,12 +157,16 @@ def test_box_port_only_plans(key):
     assert np.array_equal(_port(key, imgs), _spec(key, imgs))
 
 
-def _smoke_check_plans():
+def _smoke():
     path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.CHECK_PLANS
+    return mod
+
+
+def _smoke_check_plans():
+    return _smoke().CHECK_PLANS
 
 
 @pytest.mark.parametrize(
@@ -175,6 +179,141 @@ def test_chip_smoke_plans_match_spec(key):
     assert box.applicable(ScalePlan(*key))
     imgs = _images(key, sum(key))
     assert np.array_equal(_port(key, imgs), _spec(key, imgs))
+
+
+@pytest.mark.parametrize(
+    "key",
+    [k for k in _smoke_check_plans() if k[0] * k[1] <= 1 << 20
+     and pallas_box.applicable(RefPlan(*k)) and k not in EXACT + COPY_AXES],
+    ids=_id,
+)
+def test_chip_smoke_plans_match_pallas(key):
+    """chip_smoke.py's box plans that the Pallas box kernel also takes: the
+    plain version against it in interpret mode."""
+    imgs = _images(key, sum(key))
+    pallas_box._built.cache_clear()
+    try:
+        with mock.patch.object(pl, "pallas_call", _interp_call):
+            tpu = np.asarray(pallas_box.scale_fn(RefPlan(*key), imgs))
+    finally:
+        pallas_box._built.cache_clear()
+    assert np.array_equal(_port(key, imgs), tpu)
+
+
+def _launch_cases():
+    """(plan key, batch, input byte address): chip_smoke.py's box check plans
+    at its batch of 2, its unaligned inputs at each offset, its tall batches,
+    and the suite's box rows and the two extra box rows at batch 8."""
+    smoke = _smoke()
+    cases = [(k, 2, 0) for k in smoke.CHECK_PLANS]
+    cases += [(k, 2, off) for k in smoke.BOX_UNALIGNED for off in smoke.BOX_OFFSETS]
+    cases += [(k, batch, 0) for k, batch in smoke.BOX_TALL]
+    rows = smoke.MAIN_ROWS + [r[:3] for r in smoke.EXTRA_ROWS if r[3] == "box"]
+    cases += [(key, batch, 0) for _, key, batch in rows]
+    return cases
+
+
+def _case_id(case):
+    key, batch, address = case
+    return f"{_id(key)}-b{batch}-at{address}"
+
+
+@pytest.mark.parametrize("case", _launch_cases(), ids=_case_id)
+def test_launch_shape_covers_every_pixel_once(case):
+    """Walks csrc/box.cu's loops as ops/box.launch_shape lays them out, in
+    plain Python: every output pixel is stored once (columns by block x,
+    column warp and lane; rows and images by the grid-stride loops on y and
+    z), the split warps' row ranges tile each span's rows once, the lanes
+    of a span cover its words (direct) or pixels (staged) once, a staged
+    stretch fits its slot, and the form follows the alignment rules."""
+    key, batch, address = case
+    plan = ScalePlan(*key)
+    assert box.applicable(plan)
+    nb = plan.meta_in.n_bytes
+    rx, drop_x = box._span(plan.x)
+    ry, drop_y = box._span(plan.y)
+    kind = box.form(plan, address)
+    sh = box.launch_shape(plan, batch, kind)
+    w_out, h_out = plan.width_out, plan.height_out
+    cw, wc, splits, rps = sh["cw"], sh["wc"], sh["splits"], sh["rows_per_split"]
+    # grid and block limits
+    assert sh["grid_y"] < 2**16 and sh["grid_z"] < 2**16 and sh["grid_x"] < 2**31
+    assert wc * splits <= box.MAX_WARPS and splits <= ry
+    # the forms: 16-byte words straight from device memory only where a
+    # lane's words hold whole spans (direct) or four whole columns (COPY) of
+    # 16-byte aligned rows
+    aligned = address % 16 == 0 and plan.width_in * nb % 16 == 0
+    if kind == box.DIRECT:
+        assert nb == 4 and aligned and rx * nb % 16 == 0
+    elif kind == box.COPY:
+        assert nb == 4 and aligned and plan.x.filter.name == "COPY" and w_out % 4 == 0
+    else:
+        assert kind == box.STAGED and (not aligned or nb == 3 or rx * nb % 16 != 0)
+        assert cw * rx * nb <= box.STAGE_BYTES
+    # columns: block x, column warp, lane group
+    cols = np.zeros(w_out, int)
+    for bx in range(sh["grid_x"]):
+        for wcol in range(wc):
+            j0 = (bx * wc + wcol) * cw
+            if kind == box.COPY:
+                for lane in range(32):
+                    j = j0 + 4 * lane
+                    if j < w_out:
+                        cols[j : j + 4] += 1
+            else:
+                for grp in range(cw):
+                    if j0 + grp < w_out:
+                        cols[j0 + grp] += 1
+    assert (cols == 1).all()
+    # output rows and images: grid-stride loops on y and z
+    for n, grid in ((h_out, sh["grid_y"]), (batch, sh["grid_z"])):
+        seen = np.zeros(n, int)
+        for start in range(grid):
+            seen[start::grid] += 1
+        assert (seen == 1).all()
+    # the split warps' input rows, on a full span and on the last (dropped) one
+    for rows in {ry, ry - int(drop_y)}:
+        seen = np.zeros(rows, int)
+        for split in range(splits):
+            seen[split * rps : min(split * rps + rps, rows)] += 1
+        assert (seen == 1).all()
+    # a span's lanes: direct, one or two 16-byte words each; staged, pixels
+    if kind != box.COPY:
+        lanes = 32 // cw
+        if kind == box.DIRECT:
+            q = rx * nb // 16
+            words = 2 if q > lanes else 1
+            assert words == (2 if rx // 4 > 32 // cw else 1) and q <= 2 * lanes
+            got = sorted(g + lanes * m for g in range(lanes) for m in range(words)
+                         if g + lanes * m < q)
+            assert got == list(range(q))
+        else:
+            got = sorted(k for g in range(lanes) for k in range(g, rx, lanes))
+            assert got == list(range(rx))
+
+
+@pytest.mark.parametrize(
+    "key,batch,want",
+    [
+        ((4096, 4096, 256, 256, 0, 0), 8, (box.DIRECT, 8, 8, 1)),      # row 0
+        ((4096, 4096, 4096, 256, 0, 0), 8, (box.COPY, 128, 8, 1)),     # row 8
+        ((4096, 4096, 256, 256, 8, 8), 8, (box.STAGED, 16, 8, 1)),     # rgb24
+        ((3840, 2160, 384, 216, 0, 0), 8, (box.STAGED, 16, 8, 1)),     # box-10
+        ((4096, 4096, 32, 32, 0, 0), 8, (box.DIRECT, 1, 2, 4)),        # box-deep
+        ((4080, 4080, 16, 16, 0, 0), 8, (box.STAGED, 1, 1, 8)),        # 255:1
+    ],
+    ids=["row0", "row8", "rgb24", "box-10", "box-deep", "255-1"],
+)
+def test_launch_shape_of_the_rows(key, batch, want):
+    """The form and warp layout each timed row takes: (form, columns per
+    warp, column warps, split warps); the deep ratios fill the card with
+    split warps, at least WAVE_WARPS warps per SM."""
+    plan = ScalePlan(*key)
+    sh = box.launch_shape(plan, batch, box.form(plan))
+    assert (sh["form"], sh["cw"], sh["wc"], sh["splits"]) == want
+    warps = sh["grid_x"] * sh["wc"] * sh["splits"] * plan.height_out * batch
+    assert warps >= min(box.WAVE_WARPS * box.H100_SMS,
+                        -(-plan.width_out // sh["cw"]) * plan.height_out * batch * 8)
 
 
 def test_single_image_shape():
@@ -237,8 +376,12 @@ def test_kernel_params_follow_plan():
     assert p.span_mul_x == p.span_mul_y == 2**24 // 16
     assert (p.nb_in, p.nb_out, p.alpha_ch, p.unassoc_in, p.unassoc_out) == (4, 4, 3, 0, 0)
     assert list(p.src) == [0, 1, 2, 3]
+    assert (p.form, p.cw, p.wc, p.splits, p.rows_per_split) == (box.DIRECT, 8, 8, 1, 16)
+    assert (p.grid_x, p.grid_y, p.grid_z) == (4, 256, 8)
+    assert box._params(ScalePlan(4096, 4096, 256, 256, 0, 0), 8, address=4).form == box.STAGED
     q = box._params(ScalePlan(256, 128, 256, 8, 9, 5), 1)
     assert (q.rx, q.box_x, q.drop_x, q.ry, q.box_y) == (1, 0, 0, 16, 1)
+    assert q.form == box.STAGED
     assert (q.nb_in, q.nb_out, q.alpha_ch, q.unassoc_out) == (3, 4, 3, 1)
     # BGR8 bytes (2,1,0) -> BGRA8 bytes (2,1,0,3): same byte order, alpha appended
     assert list(q.src) == [0, 1, 2, 3]

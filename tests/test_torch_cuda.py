@@ -83,6 +83,14 @@ WIDE_ROWS = _smoke().WIDE_CHECK_ROWS
 WIDE_UNALIGNED = _smoke().WIDE_UNALIGNED
 WIDE_TALL = _smoke().WIDE_TALL
 PYRAMID_SETS = _smoke().PYRAMID_CHECK_SETS
+# chip_smoke.py's box-kernel plans: the tile edges of ops/box.launch_shape,
+# 255:1 axes, spans that are not a multiple of 16 bytes, deep ratios on split
+# warps; unaligned inputs, batches past 65535 output rows, constant 255
+BOX_PLANS = [k for k in _smoke().CHECK_PLANS if k not in PLANS]
+BOX_UNALIGNED = _smoke().BOX_UNALIGNED
+BOX_OFFSETS = _smoke().BOX_OFFSETS
+BOX_TALL = _smoke().BOX_TALL
+BOX_CONST_PLANS = _smoke().BOX_CONST_PLANS
 
 
 @pytest.fixture
@@ -117,7 +125,7 @@ def test_kernel_input_layouts(cuda_device):
     plan = stt.ScalePlan(256, 128, 16, 8, 0, 0)
     x = torch.randint(0, 256, (2, 128, 256, 4), dtype=torch.uint8, device=cuda_device)
     want = box.box_scale_ref(plan, x)
-    # unaligned 4-byte pixels take the kernel's byte-load path
+    # unaligned 4-byte pixels take the kernel's staged form
     flat = torch.empty(x.numel() + 1, dtype=torch.uint8, device=cuda_device)
     shifted = flat[1:].view(x.shape)
     shifted.copy_(x)
@@ -130,6 +138,53 @@ def test_kernel_input_layouts(cuda_device):
     assert torch.equal(stt.scale(plan, strided), want)
     # a single image keeps its shape
     assert torch.equal(stt.scale(plan, x[1]), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", BOX_PLANS, ids=_id)
+def test_box_kernel_edges(cuda_device, key):
+    plan = stt.ScalePlan(*key)
+    rng = np.random.default_rng(sum(key))
+    x = torch.from_numpy(rng.integers(0, 256, (2, key[1], key[0], plan.meta_in.n_bytes),
+                                      dtype=np.uint8)).to(cuda_device)
+    got = box.scale_fn(plan, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, box.box_scale_ref(plan, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", BOX_UNALIGNED, ids=_id)
+@pytest.mark.parametrize("offset", BOX_OFFSETS)
+def test_box_unaligned_input(cuda_device, key, offset):
+    plan = stt.ScalePlan(*key)
+    rng = np.random.default_rng(offset)
+    x = torch.from_numpy(rng.integers(0, 256, (2, key[1], key[0], plan.meta_in.n_bytes),
+                                      dtype=np.uint8)).to(cuda_device)
+    flat = torch.empty(x.numel() + offset, dtype=torch.uint8, device=cuda_device)
+    shifted = flat[offset:].view(x.shape)
+    shifted.copy_(x)
+    assert box.form(plan, shifted.data_ptr()) == box.STAGED
+    assert torch.equal(box.scale_fn(plan, shifted), box.box_scale_ref(plan, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key,batch", BOX_TALL, ids=lambda v: _id(v) if isinstance(v, tuple) else str(v))
+def test_box_tall_batch(cuda_device, key, batch):
+    plan = stt.ScalePlan(*key)
+    assert batch * plan.height_out > 65535
+    x = torch.randint(0, 256, (batch, key[1], key[0], 4), dtype=torch.uint8, device=cuda_device)
+    assert torch.equal(box.scale_fn(plan, x), box.box_scale_ref(plan, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", BOX_CONST_PLANS, ids=_id)
+def test_box_constant_255(cuda_device, key):
+    plan = stt.ScalePlan(*key)
+    x = torch.full((2, key[1], key[0], plan.meta_in.n_bytes), 255, dtype=torch.uint8,
+                   device=cuda_device)
+    got = box.scale_fn(plan, x)
+    assert torch.equal(got, box.box_scale_ref(plan, x))
+    assert np.array_equal(got[0].cpu().numpy(), numpy_ref.scale(RefPlan(*key), x[0].cpu().numpy()))
 
 
 @pytest.mark.cuda
