@@ -224,13 +224,79 @@ __device__ __forceinline__ void stage_row(uint8_t* slot, const uint8_t* src, int
   for (int k = lane; k < chunks; k += 32) cp_async16(slot + 16 * k, a0 + 16 * k);
 }
 
-// The pixel at slot byte o (24bpp: alpha 255).  PACKED: 4-byte pixels on
-// word boundaries; else two words and a funnel shift.
-template <bool PACKED>
-__device__ __forceinline__ uint32_t slot_pixel(const uint32_t* slot, int o, bool rgb) {
-  if (PACKED) return slot[o >> 2];
-  const uint32_t v = __funnelshift_r(slot[o >> 2], slot[(o >> 2) + 1], 8 * (o & 3));
-  return rgb ? v | 0xff000000u : v;
+// How the staged form reads a span's pixels from its slot.
+enum Pixels {
+  kPacked = 0,   // 4-byte pixels on word boundaries: one word each
+  kShifted = 1,  // 4-byte pixels off word boundaries: two words, a funnel shift
+  kRgb = 2,      // 3-byte pixels: 12-byte groups of 4 pixels as 3 words
+};
+
+// The 4 bytes at slot byte o.
+template <int PX>
+__device__ __forceinline__ uint32_t slot_word(const uint32_t* slot, int o) {
+  if (PX == kPacked) return slot[o >> 2];
+  return __funnelshift_r(slot[o >> 2], slot[(o >> 2) + 1], 8 * (o & 3));
+}
+
+// The low `r` bytes of a word kept (r clamped to 0-4).
+__device__ __forceinline__ uint32_t low_bytes(int r) {
+  return __funnelshift_rc(0xffffffffu, 0u, 8 * (4 - min(max(r, 0), 4)));
+}
+
+// One lane's share of a span row of `cols` pixels at slot byte `off`: the
+// pixels k = g, g + lanes, ... (4-byte pixels), or the 12-byte groups
+// t = g, g + lanes, ... of four 3-byte pixels, summed into (e, o) halves
+// with the span's first pixel weighted 255/256 (`h_edge`).  A group's three
+// words a, b, c hold the channels (0 1 2 0), (1 2 0 1), (2 0 1 2) in bytes
+// 0-3; their halves are summed apart and sorted into channels once per row,
+// and 24bpp alpha (255 per pixel) is added by lane 0.
+template <int PX>
+__device__ __forceinline__ void span_row(const uint32_t* slot, int off, int cols, int g,
+                                         int lanes, bool h_edge, bool unassoc_in,
+                                         bool alpha_first, uint32_t& e, uint32_t& o) {
+  if (PX == kRgb) {
+    const int bytes = 3 * cols;
+    uint32_t ae = 0, ao = 0, be = 0, bo = 0, ce = 0, co = 0, first = 0;
+#pragma unroll 2
+    for (int t = g; 12 * t < bytes; t += lanes) {
+      const int base = off + 12 * t, rem = bytes - 12 * t;
+      const uint32_t a = slot_word<kShifted>(slot, base) & low_bytes(rem);
+      const uint32_t b = slot_word<kShifted>(slot, base + 4) & low_bytes(rem - 4);
+      const uint32_t c = slot_word<kShifted>(slot, base + 8) & low_bytes(rem - 8);
+      if (t == 0) first = a;
+      ae += a & kHalves;
+      ao += (a >> 8) & kHalves;
+      be += b & kHalves;
+      bo += (b >> 8) & kHalves;
+      ce += c & kHalves;
+      co += (c >> 8) & kHalves;
+    }
+    const uint32_t c0 = (ae & 0xffffu) + (ao >> 16) + (co & 0xffffu) + (be >> 16);
+    const uint32_t c1 = (ao & 0xffffu) + (be & 0xffffu) + (bo >> 16) + (ce >> 16);
+    const uint32_t c2 = (ae >> 16) + (bo & 0xffffu) + (ce & 0xffffu) + (co >> 16);
+    e = c0 | (c2 << 16);
+    o = c1;
+    if (g == 0) {
+      o += static_cast<uint32_t>(255 * cols - (h_edge ? 1 : 0)) << 16;
+      if (h_edge) {
+        e -= nonzero(first & kHalves);
+        o -= nonzero((first >> 8) & 0xffu);
+      }
+    }
+    return;
+  }
+  uint32_t first = 0;
+#pragma unroll 4
+  for (int k = g; k < cols; k += lanes) {
+    uint32_t px = slot_word<PX>(slot, off + 4 * k);
+    if (unassoc_in) px = premultiply(px, alpha_first);
+    if (k == 0) first = px;
+    add_pixel(px, false, e, o);
+  }
+  if (g == 0 && h_edge) {
+    e -= nonzero(first & kHalves);
+    o -= nonzero((first >> 8) & kHalves);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -238,8 +304,8 @@ __device__ __forceinline__ uint32_t slot_pixel(const uint32_t* slot, int o, bool
 // ---------------------------------------------------------------------------
 
 // FORM kDirect with W (1 or 2) words per lane per row, kCopy, or kStaged
-// with PACKED (4-byte pixels on word boundaries).
-template <int FORM, int W, bool PACKED>
+// reading pixels as PX says.
+template <int FORM, int W, int PX>
 __global__ void __launch_bounds__(256) box_kernel(const uint8_t* __restrict__ in,
                                                   uint8_t* __restrict__ out,
                                                   const int32_t* __restrict__ inv_div_p8,
@@ -352,7 +418,6 @@ __global__ void __launch_bounds__(256) box_kernel(const uint8_t* __restrict__ in
         const int n = max(0, min(cw, w_out - j0)) * span_bytes;
         const uint8_t* src0 = rows0 + j0 * span_bytes;
         const int cols = rx - (drop_here ? 1 : 0);
-        const bool rgb = nb == 3;
         const int nrows = max(0, t1 - t0);
 #pragma unroll
         for (int s = 0; s < kStages - 1; ++s) {
@@ -379,14 +444,8 @@ __global__ void __launch_bounds__(256) box_kernel(const uint8_t* __restrict__ in
                                 static_cast<uintptr_t>(t0 + r) * row_bytes) & 15) +
                            grp * span_bytes;
           uint32_t e = 0, o = 0;
-          if (active) {
-#pragma unroll 4
-            for (int k = g; k < cols; k += lanes) {
-              uint32_t px = slot_pixel<PACKED>(slot, off0 + k * nb, rgb);
-              if (unassoc_in) px = premultiply(px, alpha_first);
-              add_pixel(px, k == 0 && h_edge, e, o);
-            }
-          }
+          if (active)
+            span_row<PX>(slot, off0, cols, g, lanes, h_edge, unassoc_in, alpha_first, e, o);
           end_row(e, o, lanes, box_x, mul_x, v_edge && t0 + r == 0, ve[0], vo[0]);
           __syncwarp();
           if (++cur == kStages) cur = 0;
@@ -449,18 +508,20 @@ extern "C" int smolscale_box_scale(const uint8_t* in, uint8_t* out,
                   static_cast<unsigned>(p.grid_z));
   const unsigned threads = static_cast<unsigned>(32 * p.wc * p.splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool packed = p.nb_in == 4 && (reinterpret_cast<uintptr_t>(in) & 3) == 0;
+  const bool word_aligned = (reinterpret_cast<uintptr_t>(in) & 3) == 0;
   const bool two_words = p.form == kDirect && ((p.rx / 4) > (32 / p.cw));
   if (p.form == kDirect && two_words) {
-    box_kernel<kDirect, 2, true><<<grid, threads, 0, s>>>(in, out, inv_div_p8, p);
+    box_kernel<kDirect, 2, kPacked><<<grid, threads, 0, s>>>(in, out, inv_div_p8, p);
   } else if (p.form == kDirect) {
-    box_kernel<kDirect, 1, true><<<grid, threads, 0, s>>>(in, out, inv_div_p8, p);
+    box_kernel<kDirect, 1, kPacked><<<grid, threads, 0, s>>>(in, out, inv_div_p8, p);
   } else if (p.form == kCopy) {
-    box_kernel<kCopy, 1, true><<<grid, threads, 0, s>>>(in, out, inv_div_p8, p);
-  } else if (packed) {
-    box_kernel<kStaged, 1, true><<<grid, threads, 0, s>>>(in, out, inv_div_p8, p);
+    box_kernel<kCopy, 1, kPacked><<<grid, threads, 0, s>>>(in, out, inv_div_p8, p);
+  } else if (p.nb_in == 3) {
+    box_kernel<kStaged, 1, kRgb><<<grid, threads, 0, s>>>(in, out, inv_div_p8, p);
+  } else if (word_aligned) {
+    box_kernel<kStaged, 1, kPacked><<<grid, threads, 0, s>>>(in, out, inv_div_p8, p);
   } else {
-    box_kernel<kStaged, 1, false><<<grid, threads, 0, s>>>(in, out, inv_div_p8, p);
+    box_kernel<kStaged, 1, kShifted><<<grid, threads, 0, s>>>(in, out, inv_div_p8, p);
   }
   return static_cast<int>(cudaGetLastError());
 }
