@@ -145,13 +145,17 @@ CHECK_PLANS = [
     (252, 64, 252, 4, 0, 0),
     (256, 64, 256, 4, 0, 0),
     (260, 64, 260, 4, 0, 0),
-    # staged 10:1 (40-byte spans): warps of 16 columns, blocks of 32
+    # staged 10:1 (40-byte spans): warps of 32 columns (16 for outputs of
+    # 16 columns or fewer), blocks of 64
     (150, 40, 15, 4, 0, 0),
     (160, 40, 16, 4, 0, 0),
     (170, 40, 17, 4, 0, 0),
     (310, 40, 31, 4, 1, 0),
     (320, 40, 32, 4, 0, 0),
     (330, 40, 33, 4, 2, 3),
+    (630, 40, 63, 4, 0, 0),
+    (640, 40, 64, 4, 0, 0),
+    (650, 40, 65, 4, 0, 0),
     # 255:1 on each axis and on both (sums of 65,025 in a 16-bit half)
     (765, 20, 3, 20, 0, 0),
     (20, 765, 20, 3, 0, 0),

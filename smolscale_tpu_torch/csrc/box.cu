@@ -51,10 +51,13 @@
 //     its 4 outputs with one 16-byte store (row 8);
 //   STAGED (everything else: 3-byte pixels, spans not a multiple of 16
 //     bytes, unaligned input): each warp copies its columns' input stretch
-//     of each row (at most 1 KB) into its own shared-memory slots with
-//     16-byte cp.async loads of the aligned chunks that cover it, three
-//     rows in flight, and sums each span from there (word reads; a funnel
-//     shift for 3-byte or unaligned pixels).
+//     of each row (at most 2 KB) into its own shared-memory slots with
+//     16-byte cp.async loads of the aligned chunks that cover it, the next
+//     row in flight while it sums this one (one word per 4-byte pixel;
+//     3-byte pixels as 12-byte groups of three words, their halves sorted
+//     into channels once per row).  It is bound by instructions, not bytes:
+//     stretches of 2 KB halve the per-row cost of staging and of the row's
+//     end against 1 KB ones (PERF.md §6).
 // - Arithmetic in registers only.  Channels 0/2 and 1/3 are summed as the
 //   16-bit halves of two words (w & 0x00ff00ff, (w >> 8) & 0x00ff00ff): a
 //   span of at most 255 values of at most 255 sums to at most 65,025, and so
@@ -99,8 +102,8 @@ namespace {
 enum Form { kDirect = 0, kCopy = 1, kStaged = 2 };
 
 constexpr uint32_t kHalves = 0x00ff00ffu;
-constexpr int kStages = 3;          // rows in flight per warp (STAGED)
-constexpr int kSlotBytes = 1056;    // 1 KB stretch + 15 skew bytes + a word read past it
+constexpr int kStages = 2;        // slots per warp (STAGED): this row and the next
+constexpr int kSlotBytes = 2080;  // 2 KB stretch, 15 skew bytes, the words read past it
 constexpr int kMaxWarps = 8;
 
 // ---------------------------------------------------------------------------
@@ -255,14 +258,17 @@ __device__ __forceinline__ void span_row(const uint32_t* slot, int off, int cols
                                          int lanes, bool h_edge, bool unassoc_in,
                                          bool alpha_first, uint32_t& e, uint32_t& o) {
   if (PX == kRgb) {
-    const int bytes = 3 * cols;
+    // groups of 12 bytes at off + 12 t: four shared words, three funnel
+    // shifts by the span's constant skew; only a last group short of 12
+    // bytes (cols % 4 != 0) is masked
+    const int full = cols >> 2, sh = 8 * (off & 3);
+    const uint32_t* w = slot + (off >> 2);
     uint32_t ae = 0, ao = 0, be = 0, bo = 0, ce = 0, co = 0, first = 0;
-#pragma unroll 2
-    for (int t = g; 12 * t < bytes; t += lanes) {
-      const int base = off + 12 * t, rem = bytes - 12 * t;
-      const uint32_t a = slot_word<kShifted>(slot, base) & low_bytes(rem);
-      const uint32_t b = slot_word<kShifted>(slot, base + 4) & low_bytes(rem - 4);
-      const uint32_t c = slot_word<kShifted>(slot, base + 8) & low_bytes(rem - 8);
+    auto add_group = [&](int t, uint32_t ka, uint32_t kb, uint32_t kc) {
+      const uint32_t w0 = w[3 * t], w1 = w[3 * t + 1], w2 = w[3 * t + 2], w3 = w[3 * t + 3];
+      const uint32_t a = __funnelshift_r(w0, w1, sh) & ka;
+      const uint32_t b = __funnelshift_r(w1, w2, sh) & kb;
+      const uint32_t c = __funnelshift_r(w2, w3, sh) & kc;
       if (t == 0) first = a;
       ae += a & kHalves;
       ao += (a >> 8) & kHalves;
@@ -270,6 +276,13 @@ __device__ __forceinline__ void span_row(const uint32_t* slot, int off, int cols
       bo += (b >> 8) & kHalves;
       ce += c & kHalves;
       co += (c >> 8) & kHalves;
+    };
+    int t = g;
+#pragma unroll 2
+    for (; t < full; t += lanes) add_group(t, ~0u, ~0u, ~0u);
+    if (t == full && (cols & 3)) {
+      const int rem = 3 * (cols & 3);
+      add_group(t, low_bytes(rem), low_bytes(rem - 4), low_bytes(rem - 8));
     }
     const uint32_t c0 = (ae & 0xffffu) + (ao >> 16) + (co & 0xffffu) + (be >> 16);
     const uint32_t c1 = (ao & 0xffffu) + (be & 0xffffu) + (bo >> 16) + (ce >> 16);

@@ -145,7 +145,7 @@ DIRECT, COPY, STAGED = 0, 1, 2
 FORMS = {DIRECT: "direct", COPY: "copy", STAGED: "staged"}
 # a warp's input stretch per row in the staged form, at most (kSlotBytes in
 # csrc/box.cu holds it with its skew)
-STAGE_BYTES = 1024
+STAGE_BYTES = 2048
 MAX_WARPS = 8          # warps per block (kMaxWarps)
 GRID_LIMIT = 65535     # grid y and z
 WAVE_WARPS = 128       # warps per SM the grid aims at: two waves of 64

@@ -297,10 +297,10 @@ def test_launch_shape_covers_every_pixel_once(case):
     [
         ((4096, 4096, 256, 256, 0, 0), 8, (box.DIRECT, 8, 8, 1)),      # row 0
         ((4096, 4096, 4096, 256, 0, 0), 8, (box.COPY, 128, 8, 1)),     # row 8
-        ((4096, 4096, 256, 256, 8, 8), 8, (box.STAGED, 16, 8, 1)),     # rgb24
-        ((3840, 2160, 384, 216, 0, 0), 8, (box.STAGED, 16, 8, 1)),     # box-10
+        ((4096, 4096, 256, 256, 8, 8), 8, (box.STAGED, 32, 4, 2)),     # rgb24
+        ((3840, 2160, 384, 216, 0, 0), 8, (box.STAGED, 32, 8, 1)),     # box-10
         ((4096, 4096, 32, 32, 0, 0), 8, (box.DIRECT, 1, 2, 4)),        # box-deep
-        ((4080, 4080, 16, 16, 0, 0), 8, (box.STAGED, 1, 1, 8)),        # 255:1
+        ((4080, 4080, 16, 16, 0, 0), 8, (box.STAGED, 2, 1, 8)),        # 255:1
     ],
     ids=["row0", "row8", "rgb24", "box-10", "box-deep", "255-1"],
 )
