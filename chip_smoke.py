@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``smolscale_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --parent CHECKOUT   # also time CHECKOUT's box kernel
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -10,14 +11,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. Build: compiles the CUDA kernels from ``smolscale_tpu_torch/csrc`` into
    ``build/kernels/`` (one nvcc per source, all at once) and prints the
    build time, ptxas's report and each kernel's count of template
-   instances, and for each instance of the general kernel
+   instances, and for each instance of the box kernel
+   (``box_kernel<FORM, W, PX>``), the general kernel
    (``bilinear_kernel<KX, KY, PACKED>``), the 128bpp kernel
    (``bilinear128_kernel<KX, KY, MODE, PACKED>``) and the deep box kernel
    (``deep_kernel<MODE, PACKED>``) its registers, stack frame, spills and
    shared memory per block.
 3. Kernels against their plain versions, on the card for a batch of 2: the
    box kernel on each plan of ``CHECK_PLANS`` (plain version
-   ``ops.box.box_scale_ref``), the general kernel on each plan of
+   ``ops.box.box_scale_ref``; its tile edges, 255:1 axes and deep ratios
+   among them), each plan of ``BOX_UNALIGNED`` at the byte offsets of
+   ``BOX_OFFSETS``, ``BOX_TALL`` (more than 65535 output rows in the batch)
+   and ``BOX_CONST_PLANS`` on a constant-255 batch, the general kernel on each plan of
    ``BILINEAR_CHECK_PLANS`` and each row range of ``BILINEAR_CHECK_ROWS``
    (``ops.bilinear.bilinear_scale_ref``; boxes past 64:1 and the staged
    X axes' tile edges among them) and each plan of ``BILINEAR_UNALIGNED``
@@ -64,15 +69,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    one level-kernel launch per level of the other two).  Every image's
    bytes must equal the plain version (row 5b: one probe image per group).
 5. Times: kernel and plain version by CUDA events, in turns plain, kernel,
-   kernel, plain (the 128bpp and deep box rows: plain, five kernel turns,
-   plain, with their median and min-max); Mpix/s and GB/s of input (and of
-   output) with the share of HBM peak, and each row's bound (its input and
+   kernel, plain (the box, 128bpp and deep box rows: plain, five kernel
+   turns, plain, with their median and min-max; with ``--parent``, the
+   other checkout's box kernel in turns with this one's on every box row);
+   Mpix/s and GB/s of input (and of output) with the share of HBM peak, and each row's bound (its input and
    output bytes at the HBM peak) with the kernel's share of it.  Also the
    rows of ``A1_ROWS`` and of ``EXTRA_ROWS``, on no suite row and checked against
    the plain version first: RGB24 4096^2 -> 256^2 (the box kernel's 24bpp
    form), COPY x COPY 1024^2 (the general kernel's cost per output pixel
-   without filtering, beside row 2) and row 0 on the general kernel
-   (beside the box kernel).
+   without filtering, beside row 2), row 0 on the general kernel (beside
+   the box kernel), box-10 (a 10:1 box, the box kernel's staged form) and
+   box-deep (128:1 x 128:1 on split warps, and on the deep box kernel).
    Row 5 is also timed level by level on the general kernel (three
    launches); row 5b as pyramids/s on the pre-uploaded fleet (resident)
    and end to end through ``scale_pyramid_mixed`` on 2,000 of its images
@@ -1290,11 +1297,16 @@ def main(argv: list) -> int:
     calls[name5] = lambda: pyr_fn(x5)
     for name in BUSY_ROWS:
         trace = str(trace_dir / f"{name.replace(' ', '_')}.json")
-        try:
-            busy = device_busy(calls[name], trace)
-        except RuntimeError as e:  # a trace now and then comes back without device events
-            log(f"[busy] {name}: {e}; tracing the calls again")
-            busy = device_busy(calls[name], trace)
+        # a trace now and then comes back without device events, at times
+        # twice in a row: up to five traces, the last one's error raised
+        for attempt in range(5):
+            try:
+                busy = device_busy(calls[name], trace)
+                break
+            except RuntimeError as e:
+                if attempt == 4:
+                    raise
+                log(f"[busy] {name}: {e}; tracing the calls again")
         kernels = "; ".join(f"{k} x{c} mean {ms:.4f} ms"
                             for k, (c, ms) in busy["kernels"].items())
         log(f"[busy] {name}: device busy {100 * busy['busy_share']:.1f}% of a "

@@ -98,15 +98,14 @@ class _Bilinear128Params(ctypes.Structure):
     ] + [("src", ctypes.c_int64 * 4)]
 
 
-# the kernel's blocks (kThreads in csrc/bilinear128.cu), the blocks per SM
-# the grid aims at, and the SMs of an H100 SXM (the wrapper reads the card's)
+# the kernel's blocks (kThreads in csrc/bilinear128.cu) and the blocks per
+# SM the grid aims at
 THREADS = 256
 BLOCKS_PER_SM = 16
-H100_SMS = 132
 
 
 def launch_shape(w_out: int, n_rows: int, batch: int,
-                 sms: int = H100_SMS) -> tuple[int, int, int, int]:
+                 sms: int = pixels.H100_SMS) -> tuple[int, int, int, int]:
     """The kernel's grid for ``n_rows`` output rows of ``batch`` images:
     ``(tile_w, col_tiles, grid_y, grid_z)``.  A block of THREADS threads
     covers ``tile_w`` consecutive output columns (a power of two up to 32)
@@ -124,7 +123,7 @@ def launch_shape(w_out: int, n_rows: int, batch: int,
 
 
 def _params(plan: ScalePlan, batch: int, first: int, n: int,
-            sms: int = H100_SMS) -> _Bilinear128Params:
+            sms: int = pixels.H100_SMS) -> _Bilinear128Params:
     f = pixels.kernel_fields(plan)
     f["src"] = (ctypes.c_int64 * 4)(*f["src"])
     tile_w, _, grid_y, grid_z = launch_shape(plan.width_out, n, batch, sms)
@@ -138,11 +137,6 @@ def _params(plan: ScalePlan, batch: int, first: int, n: int,
         mode=mode(plan), tile_w=tile_w, grid_y=grid_y, grid_z=grid_z,
         pack24_direct=int(plan.pack24_linear_direct), **f,
     )
-
-
-@functools.cache
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.cache
@@ -167,7 +161,7 @@ def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> torch.Te
     with torch.cuda.device(imgs.device):
         lut = pixels.lut_table(imgs.device)
         tx, ty = _tables(plan, imgs.device)
-        params = _params(plan, batch.shape[0], first, n, _sms(imgs.device))
+        params = _params(plan, batch.shape[0], first, n, pixels.sm_count(imgs.device))
         err = _entry()(
             batch.data_ptr(), out.data_ptr(), lut.data_ptr(), tx.data_ptr(), ty.data_ptr(),
             ctypes.byref(params), torch.cuda.current_stream().cuda_stream,

@@ -149,7 +149,6 @@ STAGE_BYTES = 2048
 MAX_WARPS = 8          # warps per block (kMaxWarps)
 GRID_LIMIT = 65535     # grid y and z
 WAVE_WARPS = 128       # warps per SM the grid aims at: two waves of 64
-H100_SMS = 132
 
 
 def _pow2_floor(n: int) -> int:
@@ -178,7 +177,7 @@ def form(plan: ScalePlan, address: int = 0) -> int:
 
 
 def launch_shape(plan: ScalePlan, batch: int, kind: int,
-                 sms: int = H100_SMS) -> dict:
+                 sms: int = pixels.H100_SMS) -> dict:
     """The kernel's work mapping for ``batch`` images in form ``kind``.
 
     A warp covers ``cw`` consecutive output columns of one output row,
@@ -214,7 +213,7 @@ def launch_shape(plan: ScalePlan, batch: int, kind: int,
 
 
 def _params(plan: ScalePlan, batch: int, address: int = 0,
-            sms: int = H100_SMS) -> _BoxParams:
+            sms: int = pixels.H100_SMS) -> _BoxParams:
     rx, drop_x = _span(plan.x)
     ry, drop_y = _span(plan.y)
     f = pixels.kernel_fields(plan)
@@ -228,11 +227,6 @@ def _params(plan: ScalePlan, batch: int, address: int = 0,
         span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul), **f,
         **launch_shape(plan, batch, form(plan, address), sms),
     )
-
-
-@functools.cache
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.cache
@@ -256,7 +250,7 @@ def _launch(plan: ScalePlan, imgs: torch.Tensor) -> torch.Tensor:
     )
     with torch.cuda.device(imgs.device):
         inv_div = pixels.inv_div_table(imgs.device)
-        params = _params(plan, batch.shape[0], batch.data_ptr(), _sms(imgs.device))
+        params = _params(plan, batch.shape[0], batch.data_ptr(), pixels.sm_count(imgs.device))
         err = _entry()(
             batch.data_ptr(), out.data_ptr(), inv_div.data_ptr(),
             ctypes.byref(params), torch.cuda.current_stream().cuda_stream,

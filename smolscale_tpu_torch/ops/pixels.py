@@ -152,6 +152,17 @@ def inv_div_table(device: torch.device) -> torch.Tensor:
     return torch.as_tensor(luts.INV_DIV_P8.astype(np.int32), device=device)
 
 
+# the SMs of an H100 SXM, which the kernels' launch shapes assume when no
+# card is asked (the wrappers read the card's own with sm_count)
+H100_SMS = 132
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of the CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 @functools.cache
 def lut_table(device: torch.device) -> torch.Tensor:
     """The six tables of ``LUT_NAMES`` as one int32 tensor on ``device``,

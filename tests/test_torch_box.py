@@ -18,7 +18,7 @@ from jax.experimental import pallas as pl
 from smolscale_tpu.backends import numpy_ref
 from smolscale_tpu.ops import pallas_box
 from smolscale_tpu.plan import ScalePlan as RefPlan
-from smolscale_tpu_torch.ops import box
+from smolscale_tpu_torch.ops import box, pixels
 from smolscale_tpu_torch.plan import ScalePlan
 
 _ORIG = pl.pallas_call
@@ -312,7 +312,7 @@ def test_launch_shape_of_the_rows(key, batch, want):
     sh = box.launch_shape(plan, batch, box.form(plan))
     assert (sh["form"], sh["cw"], sh["wc"], sh["splits"]) == want
     warps = sh["grid_x"] * sh["wc"] * sh["splits"] * plan.height_out * batch
-    assert warps >= min(box.WAVE_WARPS * box.H100_SMS,
+    assert warps >= min(box.WAVE_WARPS * pixels.H100_SMS,
                         -(-plan.width_out // sh["cw"]) * plan.height_out * batch * 8)
 
 
