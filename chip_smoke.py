@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``smolscale_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent CHECKOUT   # also time CHECKOUT's box kernel
+    python3 chip_smoke.py --parent CHECKOUT   # also time CHECKOUT's box and deep kernels
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -15,8 +15,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (``box_kernel<FORM, W, PX>``), the general kernel
    (``bilinear_kernel<KX, KY, PACKED>``), the 128bpp kernel
    (``bilinear128_kernel<KX, KY, MODE, PACKED>``) and the deep box kernel
-   (``deep_kernel<MODE, PACKED>``) its registers, stack frame, spills and
-   shared memory per block.
+   (``deep_kernel<MODE, FORM, W>``) its registers, stack frame, spills and
+   shared memory per block; it raises if a deep box kernel instance has a
+   stack frame or spills.
 3. Kernels against their plain versions, on the card for a batch of 2: the
    box kernel on each plan of ``CHECK_PLANS`` (plain version
    ``ops.box.box_scale_ref``; its tile edges, 255:1 axes and deep ratios
@@ -28,8 +29,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    X axes' tile edges among them) and each plan of ``BILINEAR_UNALIGNED``
    at byte offsets 1, 2 and 3, whole and by rows, the
    deep box kernel on each plan
-   of ``DEEP_CHECK_PLANS`` (one of them also on a constant-255 batch) and
-   each row range of ``DEEP_CHECK_ROWS`` (``ops.deep.deep_scale_ref``), the
+   of ``DEEP_CHECK_PLANS`` (one of them also on a constant-255 batch; the
+   edges of ``ops.deep.launch_shape`` among them), each plan of
+   ``DEEP_UNALIGNED`` at the byte offsets of ``DEEP_OFFSETS``, whole and by
+   rows, ``DEEP_TALL`` (more than 65535 images) and each row range of
+   ``DEEP_CHECK_ROWS`` (``ops.deep.deep_scale_ref``), the
    128bpp kernel on each plan of ``WIDE_CHECK_PLANS`` (COPY and ONE axes
    among them; two of them, box beside bilinear and box beside COPY, also
    on a constant-255 batch) and each row range of ``WIDE_CHECK_ROWS``
@@ -70,8 +74,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bytes must equal the plain version (row 5b: one probe image per group).
 5. Times: kernel and plain version by CUDA events, in turns plain, kernel,
    kernel, plain (the box, 128bpp and deep box rows: plain, five kernel
-   turns, plain, with their median and min-max; with ``--parent``, the
-   other checkout's box kernel in turns with this one's on every box row);
+   turns, plain, with their median and min-max; row 9 is also timed as its
+   4 chunks through the row form; with ``--parent``, the other checkout's
+   box and deep box kernels in turns with this one's on every box and deep
+   row);
    Mpix/s and GB/s of input (and of output) with the share of HBM peak, and each row's bound (its input and
    output bytes at the HBM peak) with the kernel's share of it.  Also the
    rows of ``A1_ROWS`` and of ``EXTRA_ROWS``, on no suite row and checked against
@@ -321,9 +327,47 @@ DEEP_CHECK_PLANS = [
     (256, 256, 16, 16, 0, 0, True),     # 16:1 linear light
     (300, 200, 30, 20, 4, 4, True),     # 10:1 PREMUL16 linear, 11-row spans
     (99, 200, 9, 20, 8, 4, True),       # 11:1 x 10:1 RGB24 linear -> unassociated
+    # the kernel's mapping (ops/deep.launch_shape at batch 2) on its edges:
+    # covers of 16/17, 32/33, 64/65 and 128/129 words (4 -> 8 -> 16 -> 32
+    # lanes, then two chunks), warps of 8 columns and blocks of 16 (w_out
+    # 15, 16, 17), V spans of 16 and 18 rows (splits)
+    (298, 300, 5, 20, 0, 0, False),
+    (319, 300, 5, 20, 0, 0, False),
+    (249, 300, 2, 20, 0, 0, False),
+    (382, 300, 3, 20, 0, 0, False),
+    (508, 300, 2, 20, 0, 0, False),
+    (515, 300, 2, 20, 0, 0, False),
+    (1019, 300, 2, 20, 0, 0, False),
+    (1026, 300, 2, 20, 4, 4, False),
+    (240, 64, 15, 4, 0, 0, False),
+    (256, 64, 16, 4, 1, 6, False),
+    (272, 64, 17, 4, 4, 0, False),
+    (256, 240, 16, 16, 0, 0, False),
+    (256, 255, 16, 15, 0, 4, False),
+    (250, 90, 10, 9, 0, 0, False),      # spans of 25 pixels
+    (1290, 300, 10, 30, 0, 0, False),   # spans of 129 pixels: 516 bytes
+    (1720, 200, 10, 20, 8, 8, False),   # 3-byte spans of 172 pixels: 516 bytes
+    (1001, 90, 7, 9, 8, 8, False),      # ragged 3-byte spans: every start mod 16
+    (1001, 90, 7, 9, 0, 0, False),      # ragged 4-byte spans, rows of 4004 bytes
+    (2060, 100, 2, 10, 8, 8, True),     # RGB24 linear over two chunks
+    # 3-byte pixels in and out at each mode the planner gives them
+    (999, 333, 11, 3, 8, 8, False),
+    (999, 333, 11, 3, 9, 9, True),
+    (999, 333, 11, 3, 0, 8, True),
+    (999, 333, 11, 3, 8, 0, True),
 ]
 # checked on a constant-255 batch too: numpy_ref gives (97, 97, 97, 255)
 DEEP_CONST_PLAN = (10000, 64, 2, 2, 4, 4, True)
+# the deep box kernel on inputs at byte offsets 1-4 and 8 (offsets 1-3
+# take its SHIFTED reader), whole and by rows: 128:1, ragged PREMUL16,
+# linear light from unassociated input, RGB24 and RGB24 in linear light
+DEEP_UNALIGNED = [(1024, 1024, 8, 8, 0, 0, False), (2000, 2000, 12, 12, 4, 4, False),
+                  (1000, 900, 9, 10, 4, 0, True), (1000, 900, 9, 10, 8, 8, False),
+                  (1198, 900, 5, 7, 8, 4, True)]
+DEEP_OFFSETS = (1, 2, 3, 4, 8)
+# more than 65535 images (grid z loops): (plan, batch), a batch made of 7
+# distinct images repeated
+DEEP_TALL = ((20, 20, 2, 2, 0, 0, False), 70000)
 # (plan, first output row, rows) through the row form
 DEEP_CHECK_ROWS = [
     ((1842, 1538, 10, 15, 0, 0, True), 5, 3),  # from the span starting on row 512
@@ -650,8 +694,8 @@ def fleet_batches(images, types):
 def load_parent(root: str):
     """The ``smolscale_tpu_torch`` package of another checkout at ``root``
     (for example the parent commit, unpacked with ``git archive``), loaded
-    under another name, and its ``ops.box`` module.  Its kernels build into
-    ``root/build/kernels``."""
+    under another name, and its ``ops.box`` and ``ops.deep`` modules.  Its
+    kernels build into ``root/build/kernels``."""
     import importlib
     import importlib.util
 
@@ -661,7 +705,8 @@ def load_parent(root: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
-    return mod, importlib.import_module(spec.name + ".ops.box")
+    return (mod, importlib.import_module(spec.name + ".ops.box"),
+            importlib.import_module(spec.name + ".ops.deep"))
 
 
 def main(argv: list) -> int:
@@ -670,9 +715,9 @@ def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    parent = parent_box = None
+    parent = parent_box = parent_deep = None
     if argv[:1] == ["--parent"] and len(argv) == 2:
-        parent, parent_box = load_parent(argv[1])
+        parent, parent_box, parent_deep = load_parent(argv[1])
     elif argv:
         print("usage: chip_smoke.py [--parent CHECKOUT]", file=sys.stderr)
         return 2
@@ -726,6 +771,13 @@ def main(argv: list) -> int:
             log(f"[build] {r['kernel']}<{r['args']}>: {r['registers']} registers, "
                 f"{r['stack']} bytes stack frame, {r['spill_stores']} + {r['spill_loads']} bytes "
                 f"spill stores + loads, {r['smem']} bytes shared memory per block")
+    # the deep box kernel keeps every value in registers
+    deep_instances = [r for r in instances if r["kernel"] == "deep_kernel"]
+    spilled = [r["args"] for r in deep_instances
+               if r["stack"] or r["spill_stores"] or r["spill_loads"]]
+    if not deep_instances or spilled:
+        raise AssertionError(f"deep_kernel instances with a stack frame or spills: {spilled} "
+                             f"(of {len(deep_instances)})")
 
     # 3. kernels against their plain versions
     err = {"box": 0, "bilinear": 0, "deep": 0, "bilinear128": 0, "pyramid": 0}
@@ -795,12 +847,41 @@ def main(argv: list) -> int:
         check("bilinear", f"{key} rows [{first}, {first + n})",
               bilinear.scale_rows_fn(plan, x, first, n),
               bilinear.bilinear_scale_ref(plan, x, first, n))
+    def deep_label(key, plan, x):
+        sh = deep.launch_shape(plan, x.shape[0], address=x.data_ptr())
+        return (f"{key} ({deep.FORMS[deep.form(plan, x.data_ptr())]}, {sh['lanes']} lanes x "
+                f"{sh['units']} words x {sh['chunks']} chunks, {sh['wc']} x {sh['splits']} warps)")
+
     for i, key in enumerate(DEEP_CHECK_PLANS):
         plan = stt.ScalePlan(*key)
         if not deep.applicable(plan):
             raise AssertionError(f"{key}: outside the deep box class")
         x = random_images(key, 4000 + i)
-        check("deep", key, deep.scale_fn(plan, x), deep.deep_scale_ref(plan, x))
+        check("deep", deep_label(key, plan, x), deep.scale_fn(plan, x),
+              deep.deep_scale_ref(plan, x))
+    for key in DEEP_UNALIGNED:
+        plan = stt.ScalePlan(*key)
+        imgs = random_images(key, 4500)
+        want = deep.deep_scale_ref(plan, imgs)
+        h = plan.height_out
+        for offset in DEEP_OFFSETS:
+            flat = torch.empty(imgs.numel() + offset, dtype=torch.uint8, device=dev)
+            shifted = flat[offset:].view(imgs.shape)
+            shifted.copy_(imgs)
+            label = f"{deep_label(key, plan, shifted)} at byte offset {offset}"
+            check("deep", label, deep.scale_fn(plan, shifted), want)
+            check("deep", f"{label} rows [{h // 3}, {h - 1})",
+                  deep.scale_rows_fn(plan, shifted, h // 3, h - 1 - h // 3),
+                  want[:, h // 3 : h - 1])
+    key, batch = DEEP_TALL
+    plan = stt.ScalePlan(*key)
+    few = torch.from_numpy(np.random.default_rng(4600).integers(
+        0, 256, (7, key[1], key[0], plan.meta_in.n_bytes), dtype=np.uint8)).to(dev)
+    reps = -(-batch // 7)
+    x = few.repeat(reps, 1, 1, 1)[:batch]
+    check("deep", f"{deep_label(key, plan, x)} batch {batch} (7 images repeated)",
+          deep.scale_fn(plan, x), deep.deep_scale_ref(plan, few).repeat(reps, 1, 1, 1)[:batch])
+    del few, x
     plan = stt.ScalePlan(*DEEP_CONST_PLAN)
     x = torch.full((2, plan.height_in, plan.width_in, 4), 255, dtype=torch.uint8, device=dev)
     got = deep.scale_fn(plan, x)
@@ -1085,7 +1166,7 @@ def main(argv: list) -> int:
                 "deep": deep.deep_scale_ref, "bilinear128": bilinear128.bilinear128_scale_ref}
 
     def kernel_of(plan):
-        mod = next(m for m in torch_ops.WHOLE_KERNELS if m.applicable(plan))
+        mod = torch_ops.whole_kernel(plan)
         return next(k for k, m in level_kernels.items() if m is mod)
 
     expect = dict.fromkeys(level_kernels, 0)
@@ -1131,17 +1212,22 @@ def main(argv: list) -> int:
               kernel_fn(plans[name], inputs[name]), plain_fn(plans[name], inputs[name]))
 
     # 5. times (turns: plain, kernel, kernel, plain)
-    def streamed(n_chunks):
+    def streamed(n_chunks, mod=bilinear):
         def run(plan, xin):
             step = -(-plan.height_out // n_chunks)
-            for first in range(0, plan.height_out, step):
-                bilinear.scale_rows_fn(plan, xin, first, min(step, plan.height_out - first))
+            h = plan.height_out
+            return [mod.scale_rows_fn(plan, xin, first, min(step, h - first))
+                    for first in range(0, h, step)]
         return run
 
     timed = [(row, *kernels["box"]) for row in MAIN_ROWS]
     timed += [(row, *kernels["bilinear"]) for row in BILINEAR_ROWS]
     timed += [(STREAM_ROW, streamed(STREAM_CHUNKS), bilinear.bilinear_scale_ref)]
     timed += [(row, *kernels["deep"]) for row in DEEP_ROWS]
+    # row 9 through the row API, timed as the 4 launches of its chunks
+    deep_chunks = f"{DEEP_STREAM_ROW} in {DEEP_STREAM_CHUNKS} chunks"
+    plans[deep_chunks], inputs[deep_chunks] = plans[DEEP_STREAM_ROW], inputs[DEEP_STREAM_ROW]
+    timed += [((deep_chunks, None, 8), streamed(DEEP_STREAM_CHUNKS, deep), deep.deep_scale_ref)]
     timed += [(row, *kernels["bilinear128"]) for row in WIDE_ROWS]
     timed += [(row[:3], streamed(row[4]) if row[4] else kernels[row[3]][0], kernels[row[3]][1])
               for row in A1_ROWS]
@@ -1149,17 +1235,27 @@ def main(argv: list) -> int:
     # the box, 128bpp and deep box rows take five kernel turns (their times
     # moved between calls); the kernel's time is the median of its turns
     box_rows = {r[0] for r in MAIN_ROWS} | {r[0] for r in EXTRA_ROWS if r[3] == "box"}
-    five = ({r[0] for r in WIDE_ROWS + DEEP_ROWS} | box_rows | {"box-deep on deep"}
-            | {r[0] for r in A1_ROWS if r[3] in ("bilinear128", "deep")})
-    # with --parent, another checkout's box kernel in turns with this one's
-    parent_fns = {}
+    deep_rows = ({r[0] for r in DEEP_ROWS} | {deep_chunks}
+                 | {r[0] for r in A1_ROWS + EXTRA_ROWS if r[3] == "deep"})
+    five = ({r[0] for r in WIDE_ROWS} | box_rows | deep_rows
+            | {r[0] for r in A1_ROWS if r[3] == "bilinear128"})
+    # with --parent, another checkout's box and deep box kernels in turns
+    # with this one's, on their rows
+    parent_fns, parent_kind = {}, {}
     if parent is not None:
-        for (name, key, batch) in MAIN_ROWS + [r[:3] for r in EXTRA_ROWS]:
-            if name in box_rows:
-                pplan = parent.ScalePlan(*key, False)
-                parent_fns[name] = lambda xin, pplan=pplan: parent_box.scale_fn(pplan, xin)
-                check("box", f"{name} on the parent's box kernel", parent_fns[name](inputs[name]),
-                      box.box_scale_ref(plans[name], inputs[name]))
+        for name in sorted(box_rows | deep_rows):
+            kind, pmod = ("box", parent_box) if name in box_rows else ("deep", parent_deep)
+            pplan = parent.ScalePlan(*plans[name].key)
+            if name == deep_chunks:
+                fn = streamed(DEEP_STREAM_CHUNKS, parent_deep)
+                parent_fns[name] = lambda xin, pplan=pplan, fn=fn: fn(pplan, xin)
+            else:
+                parent_fns[name] = lambda xin, pplan=pplan, pmod=pmod: pmod.scale_fn(pplan, xin)
+            parent_kind[name] = kind
+            got = parent_fns[name](inputs[name])
+            check(kind, f"{name} on the parent's {kind} kernel",
+                  torch.cat(got, dim=-3) if isinstance(got, list) else got,
+                  kernels[kind][1](plans[name], inputs[name]))
     times, bounds = {}, {}
     for (name, _, batch), kernel_fn, plain_fn in timed:
         plan, xin = plans[name], inputs[name]
@@ -1191,7 +1287,7 @@ def main(argv: list) -> int:
                 f"{100 * (in_gbs + out_gbs) / HBM_PEAK_GBS:.1f}%), on {card}")
         if ps:
             pm = statistics.median(ps)
-            log(f"[compare] {name}: parent box kernel {pm:.4f} ms (turns "
+            log(f"[compare] {name}: parent {parent_kind[name]} kernel {pm:.4f} ms (turns "
                 f"{', '.join(f'{t:.4f}' for t in ps)}, min-max {min(ps):.4f}-{max(ps):.4f}; "
                 f"{100 * bounds[name] / pm:.1f}% of the bound), this tree {k_ms:.4f} ms, "
                 f"in turns; {pm / k_ms:.2f}x, on {card}")

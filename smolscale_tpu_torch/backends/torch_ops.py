@@ -4,7 +4,8 @@ Counterpart of ``smolscale_tpu.backends.xla`` (``scale_fn``,
 ``_scale_fn_impl``, ``scale_rows``).  Whole images try the integer-ratio box
 kernel (``ops.box``) first, then the general 64bpp kernel
 (``ops.bilinear``), then the deep box kernel (``ops.deep``), then the 128bpp
-kernel (``ops.bilinear128``), in the order of ``xla._scale_fn_impl``; row
+kernel (``ops.bilinear128``), in the order of ``xla._scale_fn_impl``, but
+for box x box past 64:1, which goes to the deep box kernel first; row
 ranges go to the general kernel's row form for every plan of its class,
 integer box included, as ``xla._pallas_rows_ok`` does, then to the deep box
 kernel's and the 128bpp kernel's for theirs.  Together the classes hold
@@ -63,11 +64,22 @@ def _not_ported(plan: ScalePlan) -> NotImplementedError:
     )
 
 
-def _scale_fn_impl(plan: ScalePlan, img: torch.Tensor) -> torch.Tensor:
+def whole_kernel(plan: ScalePlan):
+    """The kernel module that computes ``plan`` whole: box x box past 64:1
+    (``bilinear.deep_box``) goes to the deep box kernel, which takes it
+    faster than the box kernel's split warps (PERF.md §6: 4096^2 -> 32^2 at
+    128:1); every other plan to the first of ``WHOLE_KERNELS`` whose class
+    holds it."""
+    if bilinear.deep_box(plan) and deep.applicable(plan):
+        return deep
     for kernel in WHOLE_KERNELS:
         if kernel.applicable(plan):
-            return kernel.scale_fn(plan, img.contiguous())
+            return kernel
     raise _not_ported(plan)
+
+
+def _scale_fn_impl(plan: ScalePlan, img: torch.Tensor) -> torch.Tensor:
+    return whole_kernel(plan).scale_fn(plan, img.contiguous())
 
 
 def scale_fn(plan: ScalePlan, img: torch.Tensor, post_fn=None) -> torch.Tensor:

@@ -66,14 +66,16 @@ def _digest() -> str:
 def build() -> tuple[Path, str, float]:
     """Compile ``csrc/*.cu`` unless an up-to-date library exists.
 
-    Returns the library's path, nvcc's output (empty when nothing was
-    built) and the seconds spent building.  Raises if nvcc fails."""
+    Returns the library's path, nvcc's output (that of the build that made
+    the library, kept beside it, when nothing was built now) and the seconds
+    spent building.  Raises if nvcc fails."""
     sources = _sources()
     lib = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    report = BUILD_DIR / (LIB_NAME + ".log")
     digest = _digest()
     if lib.is_file() and stamp.is_file() and stamp.read_text() == digest:
-        return lib, "", 0.0
+        return lib, report.read_text() if report.is_file() else "", 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     t0 = time.perf_counter()
@@ -93,8 +95,10 @@ def build() -> tuple[Path, str, float]:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}")
         os.replace(part, lib)
+    log = "".join(logs) + res.stdout
+    report.write_text(log)
     stamp.write_text(digest)
-    return lib, "".join(logs) + res.stdout, time.perf_counter() - t0
+    return lib, log, time.perf_counter() - t0
 
 
 @functools.cache

@@ -53,23 +53,27 @@ def axis_kind(ax: AxisPlan) -> int:
     return {FilterType.COPY: COPY, FilterType.ONE: ONE, FilterType.BOX: BOX}[ax.filter]
 
 
-def applicable(plan: ScalePlan) -> bool:
-    # ops.deep.applicable past DEEP_BOX_RATIO, stated here because ops.deep
-    # imports this module
-    deep_box = (
+def deep_box(plan: ScalePlan) -> bool:
+    """Box x box with two or more outputs per axis and an axis past
+    DEEP_BOX_RATIO: the plans the deep box kernel takes first (``ops.deep``
+    imports this module, so the test is stated here)."""
+    return (
         plan.x.filter == FilterType.BOX
         and plan.y.filter == FilterType.BOX
         and plan.width_out >= 2
         and plan.height_out >= 2
         and any(ax.dim_in > DEEP_BOX_RATIO * ax.dim_out for ax in (plan.x, plan.y))
     )
+
+
+def applicable(plan: ScalePlan) -> bool:
     return (
         plan.storage == StorageType.S64
         and plan.internal_alpha == AlphaType.PREMUL8
         and plan.gamma == GammaType.SRGB_COMPRESSED
         and plan.meta_in.n_bytes in (3, 4)
         and plan.meta_out.n_bytes in (3, 4)
-        and not deep_box
+        and not deep_box(plan)
     )
 
 

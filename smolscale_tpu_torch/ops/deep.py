@@ -7,9 +7,10 @@ chunk-centric -- are three TPU tilings of one computation).  The class is
 ``pallas_deep``'s minus the TPU's VMEM and chunk-shape limits: both axes
 BOX, ``width_out >= 2`` and ``height_out >= 2``, 3- or 4-byte pixels in and
 out, at 64 or 128bpp storage, internal PREMUL8 or PREMUL16, compressed or
-linear gamma.  Dispatch reaches it after the box and bilinear kernels, so
-it computes the box axes past 64:1 at 64bpp, every 128bpp box plan (past
-255:1), and box x box plans at PREMUL16 or in linear light at any ratio.
+linear gamma.  Dispatch gives it box x box past 64:1 first (integer ratios
+too, which the box kernel also takes, slower: PERF.md), then the plans the
+box and bilinear kernels leave: every 128bpp box plan (past 255:1) and box
+x box plans at PREMUL16 or in linear light at any ratio.
 The numbers are those of ``backends/numpy_ref`` (the box walk of
 ``_box_axis``, the unpack and pack of every (alpha, gamma) pair); see the
 note at the top of ``csrc/deep.cu``.
@@ -37,7 +38,6 @@ launches = 0
 
 # (internal alpha, gamma) modes, as enum Mode in csrc/deep.cu
 P8_COMPRESSED, P8_LINEAR, P16_COMPRESSED, P16_LINEAR = range(4)
-MAX_WARPS = 16
 
 
 def mode(plan: ScalePlan) -> int:
@@ -108,23 +108,106 @@ class _DeepParams(ctypes.Structure):
         (name, ctypes.c_int64)
         for name in (
             "batch", "h_in", "w_in", "h_out", "w_out", "row0", "n_rows",
-            "span_mul_x", "span_mul_y", "work_mask", "out_mask", "mode", "warps",
+            "span_mul_x", "span_mul_y", "work_mask", "out_mask", "mode",
             "nb_in", "nb_out", "alpha_ch", "unassoc_in", "unassoc_out",
             "pack24_direct",
         )
-    ] + [("src", ctypes.c_int64 * 4)]
+    ] + [("src", ctypes.c_int64 * 4)] + [
+        (name, ctypes.c_int64)
+        for name in ("form", "units", "lanes", "cw", "chunks", "wc", "splits",
+                     "rows_per_split", "grid_x", "grid_y", "grid_z")
+    ]
+
+
+# the kernel's pixel readers (enum Form in csrc/deep.cu)
+PACKED, SHIFTED, RGB = 0, 1, 2
+FORMS = {PACKED: "packed", SHIFTED: "shifted", RGB: "rgb"}
+MAX_UNITS = 4          # 16-byte words per lane per span row and chunk (template W)
+MAX_WARPS = 8          # warps per block (kMaxWarps)
+GRID_LIMIT = 65535     # grid y and z
+WAVE_WARPS = 128       # warps per SM the grid aims at: two waves of 64
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def form(plan: ScalePlan, address: int = 0) -> int:
+    """The pixel reader for an input at byte ``address``: PACKED (4-byte
+    pixels, 4-byte aligned: each word a pixel), SHIFTED (4-byte pixels off
+    word boundaries) or RGB (3-byte pixels)."""
+    if plan.meta_in.n_bytes == 3:
+        return RGB
+    return PACKED if address % 4 == 0 else SHIFTED
+
+
+def row_skews(plan: ScalePlan, address: int = 0) -> tuple[int, ...]:
+    """The offsets from their 16-byte aligned bases that the input rows of an
+    input at byte ``address`` take (rows repeat them every 16 rows)."""
+    row_bytes = plan.width_in * plan.meta_in.n_bytes
+    return tuple(sorted({(address + r * row_bytes) % 16 for r in range(16)}))
 
 
 @functools.cache
-def warps(plan: ScalePlan) -> int:
-    """Warps per block: one input row each at a time, up to ``MAX_WARPS``,
-    no more than the tallest span has rows."""
-    first_idx, _, mid_start, mid_len, last_idx, _ = tables(plan)[1].reshape(6, -1)
-    rows = np.maximum(last_idx, mid_start + mid_len - 1) - first_idx + 1
-    return int(min(MAX_WARPS, max(1, rows.max())))
+def span_words(plan: ScalePlan, skews: tuple[int, ...]) -> int:
+    """The most aligned 16-byte words that cover a span's mid range in an
+    input row whose offset from its aligned base is one of ``skews``."""
+    _, _, mid, mid_len, _, _ = tables(plan)[0].reshape(6, -1).astype(np.int64)
+    nb = plan.meta_in.n_bytes
+    lo = np.asarray(skews)[:, None] + mid[None] * nb
+    hi = lo + mid_len[None] * nb
+    return int(((hi + 15) // 16 - lo // 16).max())
 
 
-def _params(plan: ScalePlan, batch: int, first: int, n: int) -> _DeepParams:
+@functools.cache
+def span_rows(plan: ScalePlan) -> int:
+    """The most input rows a V span reads: first row to max(last, mid end)."""
+    first, _, mid, mid_len, last, _ = tables(plan)[1].reshape(6, -1)
+    return int((np.maximum(last + 1, mid + mid_len) - first).max())
+
+
+def launch_shape(plan: ScalePlan, batch: int, n_rows: int | None = None, address: int = 0,
+                 sms: int = pixels.H100_SMS) -> dict:
+    """The kernel's work mapping for output rows [r, r + ``n_rows``) of
+    ``batch`` images (all rows by default).
+
+    ``lanes`` lanes (4-32) share a span: lane g copies the aligned 16-byte
+    words g, g + lanes, ... of the span's cover in each input row, ``units``
+    of them per chunk, ``chunks`` chunks; ``lanes`` is the least power of
+    two that needs at most MAX_UNITS words per lane for the widest cover at
+    the input's row skews (``address``).  A warp covers ``cw = 32 //
+    lanes`` consecutive output columns of one output row; a block holds
+    ``wc * splits`` warps (warp w: column group w % wc, split w // wc); split
+    s takes the span's input rows [s * rows_per_split, (s + 1) *
+    rows_per_split).  Block x covers column tile x (``wc * cw`` columns);
+    grid y loops over the output rows, grid z over the images.  ``splits``
+    doubles (to MAX_WARPS, keeping at least 4 rows per split) until the grid
+    holds WAVE_WARPS warps per SM: plans with few outputs still fill the
+    card."""
+    n_rows = plan.height_out if n_rows is None else n_rows
+    q = span_words(plan, row_skews(plan, address))
+    lanes = min(32, max(4, _pow2_ceil(-(-q // MAX_UNITS))))
+    per_lane = -(-q // lanes)
+    units = min(per_lane, MAX_UNITS)
+    cw = 32 // lanes
+    chunks = -(-per_lane // units)
+    rows = span_rows(plan)
+    col_warps = -(-plan.width_out // cw)
+    warps = col_warps * n_rows * batch
+    target = WAVE_WARPS * sms
+    splits = 1
+    while splits < MAX_WARPS and rows >= 8 * splits and warps * splits < target:
+        splits *= 2
+    wc = min(MAX_WARPS // splits, _pow2_ceil(col_warps))
+    return dict(
+        units=units, lanes=lanes, cw=cw, chunks=chunks, wc=wc, splits=splits,
+        rows_per_split=-(-rows // splits), grid_x=-(-plan.width_out // (wc * cw)),
+        grid_y=min(n_rows, GRID_LIMIT), grid_z=min(batch, GRID_LIMIT),
+    )
+
+
+def _params(plan: ScalePlan, batch: int, first: int, n: int, address: int = 0,
+            sms: int = pixels.H100_SMS) -> _DeepParams:
     f = pixels.kernel_fields(plan)
     f["src"] = (ctypes.c_int64 * 4)(*f["src"])
     mask, out_mask = masks(plan)
@@ -132,8 +215,9 @@ def _params(plan: ScalePlan, batch: int, first: int, n: int) -> _DeepParams:
         batch=batch, h_in=plan.height_in, w_in=plan.width_in,
         h_out=plan.height_out, w_out=plan.width_out, row0=first, n_rows=n,
         span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul),
-        work_mask=mask, out_mask=out_mask, mode=mode(plan), warps=warps(plan),
+        work_mask=mask, out_mask=out_mask, mode=mode(plan),
         pack24_direct=int(plan.pack24_linear_direct), **f,
+        form=form(plan, address), **launch_shape(plan, batch, n, address, sms),
     )
 
 
@@ -159,7 +243,8 @@ def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> torch.Te
     with torch.cuda.device(imgs.device):
         lut = pixels.lut_table(imgs.device)
         tx, ty = _tables(plan, imgs.device)
-        params = _params(plan, batch.shape[0], first, n)
+        params = _params(plan, batch.shape[0], first, n, batch.data_ptr(),
+                         pixels.sm_count(imgs.device))
         err = _entry()(
             batch.data_ptr(), out.data_ptr(), lut.data_ptr(), tx.data_ptr(), ty.data_ptr(),
             ctypes.byref(params), torch.cuda.current_stream().cuda_stream,

@@ -78,6 +78,11 @@ BILINEAR_PLANS += [k for k in _smoke().BILINEAR_CHECK_PLANS if k not in BILINEAR
 BILINEAR_ROWS = _smoke().BILINEAR_CHECK_ROWS
 BILINEAR_UNALIGNED = _smoke().BILINEAR_UNALIGNED
 DEEP_PLANS = _smoke().DEEP_CHECK_PLANS
+# chip_smoke.py's deep box kernel inputs at byte offsets 1-4 and 8, and its
+# batch of more than 65535 images
+DEEP_UNALIGNED = _smoke().DEEP_UNALIGNED
+DEEP_OFFSETS = _smoke().DEEP_OFFSETS
+DEEP_TALL = _smoke().DEEP_TALL
 WIDE_PLANS = _smoke().WIDE_CHECK_PLANS
 WIDE_ROWS = _smoke().WIDE_CHECK_ROWS
 WIDE_UNALIGNED = _smoke().WIDE_UNALIGNED
@@ -315,6 +320,48 @@ def test_deep_row_api(cuda_device):
     assert torch.equal(stt.scale_rows(plan, shifted, 5, 2), want[:, 5:7])
     with pytest.raises(ValueError, match="contiguous"):
         deep.scale_fn(plan, x.transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", DEEP_UNALIGNED, ids=_id)
+@pytest.mark.parametrize("offset", DEEP_OFFSETS)
+def test_deep_unaligned_input(cuda_device, key, offset):
+    plan = stt.ScalePlan(*key)
+    rng = np.random.default_rng(offset)
+    x = torch.from_numpy(rng.integers(0, 256, (2, key[1], key[0], plan.meta_in.n_bytes),
+                                      dtype=np.uint8)).to(cuda_device)
+    flat = torch.empty(x.numel() + offset, dtype=torch.uint8, device=cuda_device)
+    shifted = flat[offset:].view(x.shape)
+    shifted.copy_(x)
+    want = deep.deep_scale_ref(plan, x)
+    assert torch.equal(deep.scale_fn(plan, shifted), want)
+    h = plan.height_out
+    assert torch.equal(deep.scale_rows_fn(plan, shifted, h // 3, h - 1 - h // 3),
+                       want[:, h // 3 : h - 1])
+
+
+@pytest.mark.cuda
+def test_deep_tall_batch(cuda_device):
+    key, batch = DEEP_TALL
+    plan = stt.ScalePlan(*key)
+    few = torch.randint(0, 256, (7, key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8,
+                        device=cuda_device)
+    reps = -(-batch // 7)
+    got = deep.scale_fn(plan, few.repeat(reps, 1, 1, 1)[:batch])
+    assert batch > 65535 and got.shape[0] == batch
+    assert torch.equal(got, deep.deep_scale_ref(plan, few).repeat(reps, 1, 1, 1)[:batch])
+
+
+@pytest.mark.cuda
+def test_box_past_64_goes_to_deep(cuda_device):
+    """Box x box past 64:1 is in the box kernel's class; the public entry
+    point gives it to the deep box kernel, with the box kernel's bytes."""
+    plan = stt.ScalePlan(4096, 1024, 32, 8, 0, 0)
+    x = torch.randint(0, 256, (2, 1024, 4096, 4), dtype=torch.uint8, device=cuda_device)
+    boxes, deeps = box.launches, deep.launches
+    got = stt.scale(plan, x)
+    assert (box.launches, deep.launches) == (boxes, deeps + 1)
+    assert torch.equal(got, box.scale_fn(plan, x))
 
 
 @pytest.mark.cuda

@@ -55,6 +55,7 @@ LINEAR = [
     (1024, 1024, 8, 8, 4, 0, True),     # PREMUL8 linear, unassociated in
     (1024, 1024, 8, 8, 0, 0, True),     # PREMUL8 linear, premultiplied in
     (1000, 900, 9, 10, 4, 4, True),     # ragged PREMUL16 linear
+    (1000, 900, 9, 10, 4, 0, True),     # ragged PREMUL8 linear, unassociated in
     (1198, 475, 13, 2, 0, 9, True),     # 24bpp out: the pack asymmetry
     (1198, 900, 5, 7, 8, 4, True),      # 24bpp in
     (1842, 1538, 10, 15, 0, 0, True),   # a span ending on a TPU chunk edge
@@ -70,6 +71,7 @@ RGB24 = [
     (1024, 1024, 8, 8, 8, 8, True),     # pack24 direct
     (1198, 900, 5, 7, 8, 4, True),
     (258, 732, 2, 5, 8, 8, True),
+    (1000, 900, 9, 10, 8, 8, False),    # ragged RGB24 (chip_smoke.py's DEEP_UNALIGNED)
 ]
 # sums past 2^31 in the H box; the 16-bit mask after the 128bpp normalisation
 WIDE = [
@@ -83,6 +85,37 @@ SHORT = [
     (300, 200, 30, 20, 4, 4, True),
     (99, 200, 9, 20, 8, 4, True),
 ]
+# csrc/deep.cu's mapping on its edges (chip_smoke.py): covers of 16/17,
+# 32/33, 64/65 and 128/129 words, column warps and blocks, split rows; spans
+# of 25 and 129 pixels and of 516 bytes; ragged spans at every start mod 16;
+# 3-byte pixels in and out at each mode the planner gives them
+EDGES = [
+    (298, 300, 5, 20, 0, 0, False),
+    (319, 300, 5, 20, 0, 0, False),
+    (249, 300, 2, 20, 0, 0, False),
+    (382, 300, 3, 20, 0, 0, False),
+    (508, 300, 2, 20, 0, 0, False),
+    (515, 300, 2, 20, 0, 0, False),
+    (1019, 300, 2, 20, 0, 0, False),
+    (1026, 300, 2, 20, 4, 4, False),
+    (240, 64, 15, 4, 0, 0, False),
+    (256, 64, 16, 4, 1, 6, False),
+    (272, 64, 17, 4, 4, 0, False),
+    (256, 240, 16, 16, 0, 0, False),
+    (256, 255, 16, 15, 0, 4, False),
+    (250, 90, 10, 9, 0, 0, False),
+    (1290, 300, 10, 30, 0, 0, False),
+    (1720, 200, 10, 20, 8, 8, False),
+    (1001, 90, 7, 9, 8, 8, False),
+    (1001, 90, 7, 9, 0, 0, False),
+    (2060, 100, 2, 10, 8, 8, True),
+    (999, 333, 11, 3, 8, 8, False),
+    (999, 333, 11, 3, 9, 9, True),
+    (999, 333, 11, 3, 0, 8, True),
+    (999, 333, 11, 3, 8, 0, True),
+]
+# a batch of more than 65535 images (chip_smoke.py's DEEP_TALL)
+TALL = [(20, 20, 2, 2, 0, 0, False)]
 # (key, first, n): chip_smoke.py's DEEP_CHECK_ROWS
 ROWS = [
     ((1842, 1538, 10, 15, 0, 0, True), 5, 3),  # from the span starting on row 512
@@ -120,7 +153,7 @@ def _port(key, imgs, first=0, n=None):
     return got.numpy()
 
 
-@pytest.mark.parametrize("key", COMPRESSED + LINEAR + RGB24 + WIDE + SHORT, ids=_id)
+@pytest.mark.parametrize("key", COMPRESSED + LINEAR + RGB24 + WIDE + SHORT + EDGES + TALL, ids=_id)
 def test_deep_matches_numpy_ref(key):
     assert deep.applicable(ScalePlan(*key))
     imgs = _images(key, sum(key))
@@ -280,8 +313,8 @@ def test_unpack_pack_match_numpy_ref(srgb):
 
 
 def test_dispatch_order(monkeypatch):
-    """Whole images: box, bilinear, then this kernel; rows: bilinear, then
-    this kernel."""
+    """Whole images: box, bilinear, then this kernel, but box x box past
+    64:1 to this kernel first; rows: bilinear, then this kernel."""
     calls = []
     for mod, name in ((box, "box"), (bilinear, "bilinear"), (deep, "deep")):
         monkeypatch.setattr(mod, "scale_fn", lambda plan, x, name=name: calls.append(name))
@@ -293,9 +326,16 @@ def test_dispatch_order(monkeypatch):
     stt.scale(ScalePlan(2048, 2048, 128, 128, 0, 0), img)   # integer 16:1 box
     stt.scale(ScalePlan(2048, 2048, 8, 8, 0, 0), img)       # 256:1
     stt.scale(ScalePlan(2048, 2048, 128, 128, 4, 4), img)   # PREMUL16
+    stt.scale(ScalePlan(2048, 2048, 16, 16, 0, 0), img)     # integer 128:1 box: deep first
+    stt.scale(ScalePlan(2048, 2048, 32, 32, 0, 0), img)     # integer 64:1 box
     stt.scale_rows(ScalePlan(2048, 2048, 128, 128, 0, 0), img, 0, 1)
     stt.scale_rows(ScalePlan(2048, 2048, 8, 8, 0, 0), img, 0, 1)
-    assert calls == ["bilinear", "box", "deep", "deep", "bilinear rows", "deep rows"]
+    assert calls == ["bilinear", "box", "deep", "deep", "deep", "box", "bilinear rows",
+                     "deep rows"]
+    # box x box past 64:1 is in the box kernel's class too; the deep box
+    # kernel takes it first (PERF.md: 4096^2 -> 32^2 runs faster there)
+    assert box.applicable(ScalePlan(2048, 2048, 16, 16, 0, 0))
+    assert torch_ops.whole_kernel(ScalePlan(2048, 2048, 16, 16, 8, 8)) is deep
 
 
 @pytest.mark.parametrize(
@@ -404,14 +444,21 @@ def test_single_image_shape():
 
 def test_kernel_params_follow_plan():
     p = deep._params(ScalePlan(4096, 4096, 16, 16, 0, 0), 8, 0, 16)
-    assert (p.batch, p.row0, p.n_rows, p.mode, p.warps) == (8, 0, 16, deep.P8_COMPRESSED, 16)
+    assert (p.batch, p.row0, p.n_rows, p.mode) == (8, 0, 16, deep.P8_COMPRESSED)
     assert (p.work_mask, p.out_mask) == (0xFFFFFF, 0xFFFF)              # 256:1 is 128bpp
+    # row 7b: 64 words per span row, 16 lanes of 4 words, 2 columns per
+    # warp, 8 split warps of 33 rows of the 257
+    assert (p.form, p.lanes, p.units, p.cw, p.chunks) == (deep.PACKED, 16, 4, 2, 1)
+    assert (p.wc, p.splits, p.rows_per_split) == (1, 8, 33)
+    assert (p.grid_x, p.grid_y, p.grid_z) == (8, 16, 8)
     q = deep._params(ScalePlan(1024, 1024, 8, 8, 9, 4, True), 2, 3, 4)   # BGR24 linear
     assert (q.mode, q.row0, q.n_rows, q.nb_in, q.alpha_ch, q.unassoc_out) == (
         deep.P8_LINEAR, 3, 4, 3, 3, 1)
+    assert (q.form, q.lanes, q.units, q.splits, q.grid_y, q.grid_z) == (deep.RGB, 8, 3, 8, 4, 2)
     assert deep._params(ScalePlan(2048, 2048, 8, 8, 4, 4, True), 1, 0, 8).mode == deep.P16_LINEAR
     assert deep._params(ScalePlan(1024, 1024, 8, 8, 0, 0), 1, 0, 8).out_mask == 0xFF
-    assert deep.warps(ScalePlan(258, 20, 2, 2, 0, 0)) == 11                  # 10 rows + 1 edge
+    assert deep._params(ScalePlan(1024, 1024, 8, 8, 0, 0), 1, 0, 8, address=2).form == deep.SHIFTED
+    assert deep.span_rows(ScalePlan(258, 20, 2, 2, 0, 0)) == 11             # 10 rows + 1 edge
     direct = ScalePlan(1024, 1024, 8, 8, 8, 8, True)
     assert direct.pack24_linear_direct and deep._params(direct, 1, 0, 8).pack24_direct == 1
 
@@ -439,10 +486,111 @@ def test_chip_smoke_plans_are_held_here():
     every plan and row range it checks is held against numpy_ref by a test
     of this file, and its suite rows are the deep class."""
     mod = _smoke()
-    assert set(mod.DEEP_CHECK_PLANS) <= set(COMPRESSED + LINEAR + RGB24 + WIDE + SHORT)
+    held = set(COMPRESSED + LINEAR + RGB24 + WIDE + SHORT + EDGES)
+    assert set(mod.DEEP_CHECK_PLANS) <= held and set(EDGES) <= set(mod.DEEP_CHECK_PLANS)
+    assert set(mod.DEEP_UNALIGNED) <= held and mod.DEEP_TALL[0] in TALL
+    assert set(mod.DEEP_OFFSETS) == {1, 2, 3, 4, 8} and mod.DEEP_TALL[1] > 65535
     assert set(mod.DEEP_CHECK_ROWS) == set(ROWS)
     assert mod.DEEP_CONST_PLAN in WIDE
     for _, key, _ in mod.DEEP_ROWS:
         plan = stt.ScalePlan(*key)
         assert deep.applicable(plan)
         assert not bilinear.applicable(plan) and not box.applicable(plan)
+
+
+def _launch_cases():
+    """(plan key, batch, output rows per launch or None, input byte address):
+    chip_smoke.py's deep check plans at its batch of 2, its unaligned inputs
+    at each offset, its tall batch, and every timed deep row: the suite's
+    deep rows, row 9 by chunks, the plan of TPU kernel #7 and box-deep."""
+    smoke = _smoke()
+    cases = [(k, 2, None, 0) for k in smoke.DEEP_CHECK_PLANS]
+    cases += [(k, 2, None, off) for k in smoke.DEEP_UNALIGNED for off in smoke.DEEP_OFFSETS]
+    cases.append((smoke.DEEP_TALL[0], smoke.DEEP_TALL[1], None, 0))
+    cases += [(key, batch, None, 0) for _, key, batch in smoke.DEEP_ROWS]
+    key9 = dict((r[0], r[1]) for r in smoke.DEEP_ROWS)[smoke.DEEP_STREAM_ROW]
+    step = -(-ScalePlan(*key9).height_out // smoke.DEEP_STREAM_CHUNKS)
+    cases.append((key9, 8, step, 0))
+    cases += [(r[1], r[2], None, 0) for r in smoke.A1_ROWS + smoke.EXTRA_ROWS if r[3] == "deep"]
+    return cases
+
+
+def _case_id(case):
+    key, batch, n, address = case
+    return f"{_id(key)}-b{batch}-n{n}-at{address}"
+
+
+@pytest.mark.parametrize("case", _launch_cases(), ids=_case_id)
+def test_launch_shape_covers_every_pixel_once(case):
+    """Walks csrc/deep.cu's loops as ops/deep.launch_shape lays them out, in
+    plain Python: every output pixel is stored once (columns by block x,
+    column warp and lane group; rows and images by the grid-stride loops on
+    y and z, both grids below 2^16), the split warps' row ranges tile each V
+    span's rows once, and in every input row skew the lanes' aligned 16-byte
+    words (g + lanes * (units * chunk + w)) cover each span's mid range once,
+    their masks keeping exactly its pixels (4-byte) or bytes (3-byte), with
+    the word phases of the 3-byte reader and the extra word of the SHIFTED
+    one where a kept pixel needs it."""
+    key, batch, n_rows, address = case
+    plan = ScalePlan(*key)
+    assert deep.applicable(plan)
+    nb = plan.meta_in.n_bytes
+    w_out, h_out = plan.width_out, plan.height_out
+    n = h_out if n_rows is None else n_rows
+    sh = deep.launch_shape(plan, batch, n, address)
+    lanes, units, cw, chunks = sh["lanes"], sh["units"], sh["cw"], sh["chunks"]
+    wc, splits, rps = sh["wc"], sh["splits"], sh["rows_per_split"]
+    assert sh["grid_y"] < 2**16 and sh["grid_z"] < 2**16 and sh["grid_x"] < 2**31
+    assert wc * splits <= deep.MAX_WARPS and lanes * cw == 32 and 4 <= lanes <= 32
+    assert 1 <= units <= deep.MAX_UNITS
+    kind = deep.form(plan, address)
+    assert (kind == deep.RGB) == (nb == 3)
+    assert nb == 3 or (kind == deep.PACKED) == (address % 4 == 0)
+    # columns: block x, column warp, lane group
+    cols = np.zeros(w_out, int)
+    for bx in range(sh["grid_x"]):
+        for wcol in range(wc):
+            for grp in range(cw):
+                j = (bx * wc + wcol) * cw + grp
+                if j < w_out:
+                    cols[j] += 1
+    assert (cols == 1).all()
+    # output rows and images: grid-stride loops on y and z
+    for count, grid in ((n, sh["grid_y"]), (batch, sh["grid_z"])):
+        seen = np.zeros(count, int)
+        for start in range(grid):
+            seen[start::grid] += 1
+        assert (seen == 1).all()
+    tx, ty = (t.reshape(6, -1).astype(np.int64) for t in deep.tables(plan))
+    # the split warps' input rows of each V span
+    for i in range(h_out):
+        first, mid, mid_len, last = ty[0][i], ty[2][i], ty[3][i], ty[4][i]
+        r_end = max(last + 1, mid + mid_len)
+        seen = np.zeros(r_end - first, int)
+        for s in range(splits):
+            t0 = s * rps
+            seen[t0 : min(t0 + rps, r_end - first)] += 1
+        assert (seen == 1).all()
+    # each span's words in each row skew, and what their masks keep
+    for skew in deep.row_skews(plan, address):
+        for j in range(w_out):
+            mid, mid_end = tx[2][j], tx[2][j] + tx[3][j]
+            lo, hi = skew + mid * nb, skew + mid_end * nb
+            u0, u_end = lo >> 4, (hi + 15) >> 4
+            got = sorted(u for c in range(chunks) for w in range(units) for g in range(lanes)
+                         if (u := u0 + g + lanes * (units * c + w)) < u_end)
+            assert got == list(range(u0, u_end))
+            if nb == 4:
+                s4 = skew & 3
+                kept = [(16 * u + 4 * k + s4 - skew) // 4 for u in got for k in range(4)
+                        if lo <= 16 * u + 4 * k + s4 < hi]
+                assert kept == list(range(mid, mid_end))
+                for u in got:  # a kept pixel reaching into the next word has it read
+                    if s4 and lo <= 16 * u + 12 + s4 < hi:
+                        assert 16 * u + 16 < hi
+            else:
+                kept = [16 * u + b for u in got for b in range(16) if lo <= 16 * u + b < hi]
+                assert kept == list(range(lo, hi))
+                for u in got:  # word k's first byte is channel (phase + k) mod 3
+                    ph = (16 * u - skew + 48) % 3
+                    assert all((ph + k) % 3 == (16 * u + 4 * k - skew) % 3 for k in range(4))
