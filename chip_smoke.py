@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``smolscale_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent CHECKOUT   # also time CHECKOUT's box and deep kernels
+    python3 chip_smoke.py --parent CHECKOUT [CHECKOUT ...]
+        # also time each CHECKOUT's box and deep kernels
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -75,17 +76,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
 5. Times: kernel and plain version by CUDA events, in turns plain, kernel,
    kernel, plain (the box, 128bpp and deep box rows: plain, five kernel
    turns, plain, with their median and min-max; row 9 is also timed as its
-   4 chunks through the row form; with ``--parent``, the other checkout's
-   box and deep box kernels in turns with this one's on every box and deep
-   row);
+   4 chunks through the row form; with ``--parent``, each other
+   checkout's box and deep box kernels in turns with this one's on every
+   box and deep row);
    Mpix/s and GB/s of input (and of output) with the share of HBM peak, and each row's bound (its input and
    output bytes at the HBM peak) with the kernel's share of it.  Also the
    rows of ``A1_ROWS`` and of ``EXTRA_ROWS``, on no suite row and checked against
    the plain version first: RGB24 4096^2 -> 256^2 (the box kernel's 24bpp
    form), COPY x COPY 1024^2 (the general kernel's cost per output pixel
    without filtering, beside row 2), row 0 on the general kernel (beside
-   the box kernel), box-10 (a 10:1 box, the box kernel's staged form) and
-   box-deep (128:1 x 128:1 on split warps, and on the deep box kernel).
+   the box kernel), box-10 (a 10:1 box, the box kernel's staged form),
+   box-deep (128:1 x 128:1 on split warps, and on the deep box kernel) and
+   the other kinds of box x box past 64:1 that both kernels take (RGB24,
+   16:1 x 128:1, 10:1 x 128:1, 128:1 x 16:1), each on both, which decide
+   ``torch_ops.whole_kernel``'s route.
    Row 5 is also timed level by level on the general kernel (three
    launches); row 5b as pyramids/s on the pre-uploaded fleet (resident)
    and end to end through ``scale_pyramid_mixed`` on 2,000 of its images
@@ -114,6 +118,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -552,6 +557,16 @@ EXTRA_ROWS = [
     # the box kernel, and the same plan on the deep box kernel beside it
     ("box-deep", (4096, 4096, 32, 32, 0, 0), 8, "box"),
     ("box-deep on deep", (4096, 4096, 32, 32, 0, 0), 8, "deep"),
+    # the other kinds of box x box past 64:1 in both kernels' classes, each
+    # on both: 3-byte pixels, and a narrow box axis beside a 128:1 one
+    ("box-deep rgb24", (4096, 4096, 32, 32, 8, 8), 8, "box"),
+    ("box-deep rgb24 on deep", (4096, 4096, 32, 32, 8, 8), 8, "deep"),
+    ("box-16x128", (4096, 4096, 256, 32, 0, 0), 8, "box"),
+    ("box-16x128 on deep", (4096, 4096, 256, 32, 0, 0), 8, "deep"),
+    ("box-10x128", (3840, 4096, 384, 32, 0, 0), 8, "box"),
+    ("box-10x128 on deep", (3840, 4096, 384, 32, 0, 0), 8, "deep"),
+    ("box-128x16", (4096, 4096, 32, 256, 0, 0), 8, "box"),
+    ("box-128x16 on deep", (4096, 4096, 32, 256, 0, 0), 8, "deep"),
 ]
 # the pyramid kernel's sets: (w_in, h_in, ((w_out, h_out), ...), type_in,
 # type_out), with_srgb False.  Those of tests/test_torch_pyramid.py (the
@@ -691,17 +706,17 @@ def fleet_batches(images, types):
     return out
 
 
-def load_parent(root: str):
+def load_parent(root: str, name: str):
     """The ``smolscale_tpu_torch`` package of another checkout at ``root``
     (for example the parent commit, unpacked with ``git archive``), loaded
-    under another name, and its ``ops.box`` and ``ops.deep`` modules.  Its
-    kernels build into ``root/build/kernels``."""
+    as ``name``, and its ``ops.box`` and ``ops.deep`` modules.  Its kernels
+    build into ``root/build/kernels``."""
     import importlib
     import importlib.util
 
     pkg = Path(root).resolve() / "smolscale_tpu_torch"
     spec = importlib.util.spec_from_file_location(
-        "parent_smolscale_tpu_torch", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
@@ -715,11 +730,14 @@ def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    parent = parent_box = parent_deep = None
-    if argv[:1] == ["--parent"] and len(argv) == 2:
-        parent, parent_box, parent_deep = load_parent(argv[1])
+    # with --parent: (label, package, ops.box, ops.deep) of each checkout
+    parents = []
+    if argv[:1] == ["--parent"] and len(argv) >= 2:
+        parents = [(Path(root).resolve().name,
+                    *load_parent(root, f"parent{k}_smolscale_tpu_torch"))
+                   for k, root in enumerate(argv[1:])]
     elif argv:
-        print("usage: chip_smoke.py [--parent CHECKOUT]", file=sys.stderr)
+        print("usage: chip_smoke.py [--parent CHECKOUT [CHECKOUT ...]]", file=sys.stderr)
         return 2
 
     import smolscale_tpu_torch as stt
@@ -737,19 +755,19 @@ def main(argv: list) -> int:
         f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     log(card)
 
-    # 2. build (with --parent, the other checkout's kernels at the same time)
-    parent_build = None
-    if parent is not None:
-        import importlib
-        import threading
+    # 2. build (with --parent, the other checkouts' kernels at the same time)
+    import importlib
+    import threading
 
-        parent_build = threading.Thread(
-            target=importlib.import_module(parent.__name__ + ".ops._build").library)
-        parent_build.start()
+    parent_builds = [
+        threading.Thread(target=importlib.import_module(pkg.__name__ + ".ops._build").library)
+        for _, pkg, _, _ in parents]
+    for t in parent_builds:
+        t.start()
     lib_path, build_log, secs = _build.build()
     _build.library()
-    if parent_build is not None:
-        parent_build.join()
+    for t in parent_builds:
+        t.join()
     log(f"[build] {lib_path} in {secs:.1f} s")
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
@@ -1239,32 +1257,31 @@ def main(argv: list) -> int:
                  | {r[0] for r in A1_ROWS + EXTRA_ROWS if r[3] == "deep"})
     five = ({r[0] for r in WIDE_ROWS} | box_rows | deep_rows
             | {r[0] for r in A1_ROWS if r[3] == "bilinear128"})
-    # with --parent, another checkout's box and deep box kernels in turns
-    # with this one's, on their rows
-    parent_fns, parent_kind = {}, {}
-    if parent is not None:
+    # with --parent, each other checkout's box and deep box kernels in turns
+    # with this one's, on their rows: name -> [(label, kind, fn), ...]
+    parent_fns = {}
+    for label, parent, parent_box, parent_deep in parents:
         for name in sorted(box_rows | deep_rows):
             kind, pmod = ("box", parent_box) if name in box_rows else ("deep", parent_deep)
             pplan = parent.ScalePlan(*plans[name].key)
             if name == deep_chunks:
-                fn = streamed(DEEP_STREAM_CHUNKS, parent_deep)
-                parent_fns[name] = lambda xin, pplan=pplan, fn=fn: fn(pplan, xin)
+                fn = partial(streamed(DEEP_STREAM_CHUNKS, parent_deep), pplan)
             else:
-                parent_fns[name] = lambda xin, pplan=pplan, pmod=pmod: pmod.scale_fn(pplan, xin)
-            parent_kind[name] = kind
-            got = parent_fns[name](inputs[name])
-            check(kind, f"{name} on the parent's {kind} kernel",
+                fn = partial(pmod.scale_fn, pplan)
+            parent_fns.setdefault(name, []).append((label, kind, fn))
+            got = fn(inputs[name])
+            check(kind, f"{name} on {label}'s {kind} kernel",
                   torch.cat(got, dim=-3) if isinstance(got, list) else got,
                   kernels[kind][1](plans[name], inputs[name]))
     times, bounds = {}, {}
     for (name, _, batch), kernel_fn, plain_fn in timed:
         plan, xin = plans[name], inputs[name]
         p1 = cuda_time_ms(lambda: plain_fn(plan, xin), warmup=1, iters=5)
-        ks, ps = [], []
+        ks, ps = [], [[] for _ in parent_fns.get(name, ())]
         for _ in range(5 if name in five else 2):
             ks.append(cuda_time_ms(lambda: kernel_fn(plan, xin)))
-            if name in parent_fns:
-                ps.append(cuda_time_ms(lambda: parent_fns[name](xin)))
+            for turns, (_, _, fn) in zip(ps, parent_fns.get(name, ())):
+                turns.append(cuda_time_ms(lambda: fn(xin)))
         p2 = cuda_time_ms(lambda: plain_fn(plan, xin), warmup=1, iters=5)
         k_ms, p_ms = statistics.median(ks), (p1 + p2) / 2
         times[name] = (k_ms, p_ms)
@@ -1285,12 +1302,12 @@ def main(argv: list) -> int:
                 f"input ({100 * in_gbs / HBM_PEAK_GBS:.1f}% of {HBM_PEAK_GBS:.0f} GB/s), "
                 f"{out_gbs:.1f} GB/s of output (in + out "
                 f"{100 * (in_gbs + out_gbs) / HBM_PEAK_GBS:.1f}%), on {card}")
-        if ps:
-            pm = statistics.median(ps)
-            log(f"[compare] {name}: parent {parent_kind[name]} kernel {pm:.4f} ms (turns "
-                f"{', '.join(f'{t:.4f}' for t in ps)}, min-max {min(ps):.4f}-{max(ps):.4f}; "
-                f"{100 * bounds[name] / pm:.1f}% of the bound), this tree {k_ms:.4f} ms, "
-                f"in turns; {pm / k_ms:.2f}x, on {card}")
+        for turns, (label, kind, _) in zip(ps, parent_fns.get(name, ())):
+            pm = statistics.median(turns)
+            log(f"[compare] {name}: {label}'s {kind} kernel {pm:.4f} ms (turns "
+                f"{', '.join(f'{t:.4f}' for t in turns)}, min-max {min(turns):.4f}-"
+                f"{max(turns):.4f}; {100 * bounds[name] / pm:.1f}% of the bound), this tree "
+                f"{k_ms:.4f} ms, in turns; {pm / k_ms:.2f}x, on {card}")
 
     # row 5: the pyramid kernel, its plain version, and the same levels level
     # by level on the general kernel (three launches, each reading the batch)

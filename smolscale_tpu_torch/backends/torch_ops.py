@@ -5,7 +5,8 @@ Counterpart of ``smolscale_tpu.backends.xla`` (``scale_fn``,
 kernel (``ops.box``) first, then the general 64bpp kernel
 (``ops.bilinear``), then the deep box kernel (``ops.deep``), then the 128bpp
 kernel (``ops.bilinear128``), in the order of ``xla._scale_fn_impl``, but
-for box x box past 64:1, which goes to the deep box kernel first; row
+for box x box past 64:1 with 4-byte input pixels and an x axis past 64:1,
+which goes to the deep box kernel first (:func:`deep_first`); row
 ranges go to the general kernel's row form for every plan of its class,
 integer box included, as ``xla._pallas_rows_ok`` does, then to the deep box
 kernel's and the 128bpp kernel's for theirs.  Together the classes hold
@@ -64,13 +65,28 @@ def _not_ported(plan: ScalePlan) -> NotImplementedError:
     )
 
 
+def deep_first(plan: ScalePlan) -> bool:
+    """Whether the deep box kernel takes ``plan`` before the box kernel: box
+    x box past 64:1 (``bilinear.deep_box``) with 4-byte input pixels and an
+    x axis past 64:1, whose spans of 256 bytes and more its 16-byte covers
+    read faster than the box kernel's split warps.  RGB24 input and a
+    narrow x box beside a deep y box stay on the box kernel, which takes
+    them faster (PERF.md §6: 4096^2 -> 32^2 and -> 32 x 256 faster on the
+    deep box kernel; RGB24 -> 32^2, -> 256 x 32 and 3840 x 4096 -> 384 x 32
+    faster on the box kernel)."""
+    return (
+        bilinear.deep_box(plan)
+        and deep.applicable(plan)
+        and plan.meta_in.n_bytes == 4
+        and plan.x.dim_in > bilinear.DEEP_BOX_RATIO * plan.x.dim_out
+    )
+
+
 def whole_kernel(plan: ScalePlan):
-    """The kernel module that computes ``plan`` whole: box x box past 64:1
-    (``bilinear.deep_box``) goes to the deep box kernel, which takes it
-    faster than the box kernel's split warps (PERF.md §6: 4096^2 -> 32^2 at
-    128:1); every other plan to the first of ``WHOLE_KERNELS`` whose class
-    holds it."""
-    if bilinear.deep_box(plan) and deep.applicable(plan):
+    """The kernel module that computes ``plan`` whole: the deep box kernel
+    where :func:`deep_first` holds, else the first of ``WHOLE_KERNELS``
+    whose class holds it."""
+    if deep_first(plan):
         return deep
     for kernel in WHOLE_KERNELS:
         if kernel.applicable(plan):

@@ -100,6 +100,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "pixels.cuh"
 
 // Launch parameters; the field order and the all-int64 layout match the
@@ -130,6 +132,8 @@ namespace {
 enum Form { kPacked = 0, kShifted = 1, kRgb = 2 };
 
 constexpr int kMaxWarps = 8;
+// devices whose opt-in to the stages' shared memory is remembered
+constexpr int kMaxDevices = 64;
 constexpr int kMinBlocks = 3;  // blocks per SM that the register budget allows
 constexpr uint32_t kHalves = 0x00ff00ffu;
 
@@ -637,17 +641,24 @@ cudaError_t launch(const uint8_t* in, uint8_t* out, const int32_t* luts, const i
   constexpr size_t kStageBytes = stages<MODE, W>() * sizeof(Stage<FORM, W>);
   // the stages' shared memory, and the largest shared-memory carveout: left
   // to the driver, the carveout after another kernel may hold fewer blocks
-  // per SM
-  static const cudaError_t opt_in = [] {
-    const cudaError_t e = cudaFuncSetAttribute(deep_kernel<MODE, FORM, W>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(kMaxWarps * kStageBytes));
+  // per SM.  CUDA keeps function attributes per device, so each device that
+  // launches this instance opts in once (a device past kMaxDevices, at
+  // every launch).
+  static std::atomic<bool> opted[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices || !opted[dev].load(std::memory_order_acquire)) {
+    e = cudaFuncSetAttribute(deep_kernel<MODE, FORM, W>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kMaxWarps * kStageBytes));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(deep_kernel<MODE, FORM, W>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(deep_kernel<MODE, FORM, W>,
-                                cudaFuncAttributePreferredSharedMemoryCarveout,
-                                cudaSharedmemCarveoutMaxShared);
-  }();
-  if (opt_in != cudaSuccess) return opt_in;
+    if (dev < kMaxDevices) opted[dev].store(true, std::memory_order_release);
+  }
   const dim3 grid(static_cast<unsigned>(p.grid_x), static_cast<unsigned>(p.grid_y),
                   static_cast<unsigned>(p.grid_z));
   const unsigned threads = static_cast<unsigned>(32 * p.wc * p.splits);

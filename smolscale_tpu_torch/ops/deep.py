@@ -7,8 +7,9 @@ chunk-centric -- are three TPU tilings of one computation).  The class is
 ``pallas_deep``'s minus the TPU's VMEM and chunk-shape limits: both axes
 BOX, ``width_out >= 2`` and ``height_out >= 2``, 3- or 4-byte pixels in and
 out, at 64 or 128bpp storage, internal PREMUL8 or PREMUL16, compressed or
-linear gamma.  Dispatch gives it box x box past 64:1 first (integer ratios
-too, which the box kernel also takes, slower: PERF.md), then the plans the
+linear gamma.  Dispatch gives it box x box past 64:1 with 4-byte input
+pixels and an x axis past 64:1 first (integer ratios too, which the box
+kernel also takes, slower: ``torch_ops.deep_first``), then the plans the
 box and bilinear kernels leave: every 128bpp box plan (past 255:1) and box
 x box plans at PREMUL16 or in linear light at any ratio.
 The numbers are those of ``backends/numpy_ref`` (the box walk of

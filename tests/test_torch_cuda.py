@@ -365,6 +365,26 @@ def test_box_past_64_goes_to_deep(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("key", [(4096, 1024, 32, 8, 0, 0), (2000, 2000, 7, 7, 0, 0, True)],
+                         ids=_id)
+def test_deep_on_every_card(cuda_device, key):
+    """Blocks of eight split warps need more than 48 KB of shared memory, an
+    opt-in that CUDA keeps per device: the same kernel instance, launched
+    first on card 0 and then on each other card, gives the plain version's
+    bytes on every one."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    plan = stt.ScalePlan(*key)
+    assert deep.launch_shape(plan, 2)["splits"] == 8
+    x = torch.randint(0, 256, (2, key[1], key[0], 4), dtype=torch.uint8, device=cuda_device)
+    want = deep.deep_scale_ref(plan, x).cpu()
+    for k in range(torch.cuda.device_count()):
+        xk = x.to(torch.device("cuda", k))
+        got = deep.scale_fn(plan, xk)
+        assert got.device == xk.device and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("key", WIDE_PLANS, ids=_id)
 def test_bilinear128_kernel_matches_plain(cuda_device, key):
     plan = stt.ScalePlan(*key)

@@ -314,7 +314,8 @@ def test_unpack_pack_match_numpy_ref(srgb):
 
 def test_dispatch_order(monkeypatch):
     """Whole images: box, bilinear, then this kernel, but box x box past
-    64:1 to this kernel first; rows: bilinear, then this kernel."""
+    64:1 with 4-byte input and an x axis past 64:1 to this kernel first;
+    rows: bilinear, then this kernel."""
     calls = []
     for mod, name in ((box, "box"), (bilinear, "bilinear"), (deep, "deep")):
         monkeypatch.setattr(mod, "scale_fn", lambda plan, x, name=name: calls.append(name))
@@ -333,9 +334,23 @@ def test_dispatch_order(monkeypatch):
     assert calls == ["bilinear", "box", "deep", "deep", "deep", "box", "bilinear rows",
                      "deep rows"]
     # box x box past 64:1 is in the box kernel's class too; the deep box
-    # kernel takes it first (PERF.md: 4096^2 -> 32^2 runs faster there)
+    # kernel takes it first where its x spans are deep and its input pixels
+    # 4 bytes (PERF.md: 4096^2 -> 32^2 and -> 32 x 256 run faster there),
+    # the box kernel RGB24 and a narrow x box beside a deep y box
     assert box.applicable(ScalePlan(2048, 2048, 16, 16, 0, 0))
-    assert torch_ops.whole_kernel(ScalePlan(2048, 2048, 16, 16, 8, 8)) is deep
+    for key, kernel in [
+        ((2048, 2048, 16, 16, 0, 0), deep),     # 128:1 x 128:1
+        ((2048, 2048, 16, 16, 0, 8), deep),     # 4 bytes in, 3 out
+        ((2048, 2048, 16, 128, 0, 0), deep),    # 128:1 x 16:1
+        ((2048, 2048, 16, 16, 8, 8), box),      # RGB24
+        ((2048, 2048, 16, 16, 8, 0), box),      # 3 bytes in, 4 out
+        ((2048, 2048, 128, 16, 0, 0), box),     # 16:1 x 128:1
+        ((3840, 4096, 384, 32, 0, 0), box),     # 10:1 x 128:1
+        ((2048, 2048, 16, 16, 4, 4), deep),     # PREMUL16: the box kernel's class holds none
+    ]:
+        plan = ScalePlan(*key)
+        assert box.applicable(plan) == (plan.internal_alpha == AlphaType.PREMUL8), key
+        assert torch_ops.whole_kernel(plan) is kernel, key
 
 
 @pytest.mark.parametrize(
