@@ -101,6 +101,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    per call, and the share of an event-pair window that the kernel's
    phase-5 time fills.
 
+7. Split over a device list (``smolscale_tpu_torch.parallel``): the counts
+   set to 0, then row 0 through ``make_batched_scale`` over a mesh of every
+   card and over ``cuda:0`` listed 2 and 4 times, row 4 through
+   ``make_row_sharded_scale`` over 4 row shards and a plan of 3 output rows
+   over 4 shards, row 6 through ``make_sharded_batch_step`` on a 2 x 2 mesh,
+   row 5 through ``make_pyramid_fn(mesh=...)`` over every card and over 4
+   entries, and 200 images of row 5b's fleet through
+   ``scale_pyramid_mixed(mesh=...)``: each kernel launched once per shard,
+   every result byte-equal to the unsplit ``scale`` on ``cuda:0`` (also
+   ``dryrun_multichip`` over 4 and 16 entries).  Then row 0's host-clock
+   time per call over a one-entry mesh beside the unsplit ``scale``.
+8. The CLI (``smolscale_tpu_torch.cli``): ``check --colors 1`` (its default
+   sweep for one colour, every case on a kernel and byte-equal to the plain
+   versions on the CPU) must exit 0; ``generate`` on a PNG that the port's
+   writer made under ``build/cli/``, each output equal to the plain
+   version; ``benchmark --steps 4 --reps 2`` and ``benchmark-conv --reps
+   1``, their lines printed.
+
 All inputs but row 5b's are views of one random 512 MiB tensor made from a
 seed; the row 5b fleet is made on the host from seed 0 as the suite makes
 it.  The line before the last is a JSON object describing each kernel (its
@@ -1440,6 +1458,163 @@ def main(argv: list) -> int:
             f"event window {window:.4f} ms for 10 calls, so the kernel's "
             f"{times[name][0]:.4f} ms x10 fills {100 * 10 * times[name][0] / window:.1f}% "
             f"of it, on {card}")
+
+    # 7. the split over a device list: each result byte-equal to the
+    # unsplit scale on card 0; the unsplit results are made first, then the
+    # counts set to 0 and the split paths driven
+    from smolscale_tpu_torch import cli, parallel
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    every = parallel.default_mesh()
+    meshes = [("every card", every), ("cuda:0 x2", parallel.default_mesh(devices=[dev] * 2)),
+              ("cuda:0 x4", parallel.default_mesh(devices=[dev] * 4))]
+    quad = meshes[2][1]
+    rows4 = parallel.DeviceMesh(quad.devices, ("rows",))
+    grid = parallel.default_mesh(("dp", "rows"), devices=[dev] * 4)
+    plan0, x0 = plans["row 0"], inputs["row 0"]
+    plan4, x4 = plans[stream_name], inputs[stream_name][0]
+    plan_few = stt.ScalePlan(2000, 2000, 7, 3, 0, 0)  # deep box, 3 output rows over 4 shards
+    x_few = view_input(x, plan_few, 1)[0]
+    plan6, x6 = plans["row 6"], inputs["row 6"]
+    fleet_idx = list(range(0, len(images), len(images) // 200))[:200]
+    fleet_imgs, fleet_types = [images[i] for i in fleet_idx], [types[i] for i in fleet_idx]
+    unsplit = {"row 0": stt.scale(plan0, x0), "row 4": stt.scale(plan4, x4),
+               "few": stt.scale(plan_few, x_few), "row 6": stt.scale(plan6, x6),
+               "row 5": pyr_fn(x5)}
+    fleet_want = stt.scale_pyramid_mixed(fleet_imgs, fleet_types, sizes=FLEET_SIZES)
+    parallel.dryrun_multichip(4, dev)
+    parallel.dryrun_multichip(16, dev)
+    log(f"[split] dryrun_multichip over 4 and 16 entries of {dev}: each flavour == unsplit")
+
+    def same(label, got, want):
+        torch.cuda.synchronize()
+        if got.device != dev or tuple(got.shape) != tuple(want.shape) or not torch.equal(got, want):
+            raise AssertionError(f"[split] {label}: differs from the unsplit scale on {dev}")
+        log(f"[split] {label}: == unsplit scale, shape {tuple(got.shape)} on {got.device}")
+
+    split_expect = dict.fromkeys(level_kernels, 0)
+    for _, mesh in meshes:
+        split_expect["box"] += mesh.shape["dp"]
+    split_expect["bilinear"] += 4
+    row_kernel = next(m for m in torch_ops.ROW_KERNELS if m.applicable(plan_few))
+    split_expect[next(k for k, m in level_kernels.items() if m is row_kernel)] += 3
+    split_expect["bilinear128"] += 4
+    split_expect["pyramid"] += every.shape["dp"] + quad.shape["dp"]
+    fleet_groups = dict.fromkeys((img.shape, pt) for img, pt in zip(fleet_imgs, fleet_types))
+    for shape_, pt in fleet_groups:
+        gplans = tuple(stt.ScalePlan(shape_[1], shape_[0], sz, sz, pt, pt, False)
+                       for sz in FLEET_SIZES)
+        if pyramid.applicable(gplans):
+            split_expect["pyramid"] += quad.shape["dp"]
+        else:
+            for p_ in gplans:
+                split_expect[kernel_of(p_)] += quad.shape["dp"]
+    for mod in level_kernels.values():
+        mod.launches = 0
+    got = {name: parallel.make_batched_scale(plan0, mesh)(x0) for name, mesh in meshes}
+    got["row 4"] = parallel.make_row_sharded_scale(plan4, rows4)(x4)
+    got["few"] = parallel.make_row_sharded_scale(plan_few, rows4)(x_few)
+    got["row 6"] = parallel.make_sharded_batch_step(plan6, grid)(x6)
+    got["row 5 every card"] = stt.make_pyramid_fn(w5, h5, pt5, sizes=sizes5, mesh=every)(x5)
+    got["row 5 cuda:0 x4"] = stt.make_pyramid_fn(w5, h5, pt5, sizes=sizes5, mesh=quad)(x5)
+    fleet_got = stt.scale_pyramid_mixed(fleet_imgs, fleet_types, sizes=FLEET_SIZES, mesh=quad)
+    torch.cuda.synchronize()
+    split_launches = {k: m.launches for k, m in level_kernels.items()}
+    log(f"[split] kernel launches in the split paths: {split_launches}, expected {split_expect}")
+    if split_launches != split_expect:
+        raise AssertionError("the split paths did not launch each kernel once per shard")
+    for name, mesh in meshes:
+        same(f"row 0 {plan0.key} batch 8 through make_batched_scale over {name} "
+             f"({mesh.shape['dp']} shards)", got[name], unsplit["row 0"])
+    same(f"row 4 {plan4.key} through make_row_sharded_scale over 4 row shards", got["row 4"],
+         unsplit["row 4"])
+    same(f"{plan_few.key} (3 rows) through make_row_sharded_scale over 4 row shards",
+         got["few"], unsplit["few"])
+    same(f"row 6 {plan6.key} batch 8 through make_sharded_batch_step on a 2 x 2 mesh",
+         got["row 6"], unsplit["row 6"])
+    for name in ("row 5 every card", "row 5 cuda:0 x4"):
+        for g, w in zip(got[name], unsplit["row 5"]):
+            same(f"{name}: make_pyramid_fn(mesh=...) level {tuple(w.shape[1:3])}", g, w)
+    for i, (g, w) in enumerate(zip(fleet_got, fleet_want)):
+        if not all(np.array_equal(a, b) for a, b in zip(g, w)):
+            raise AssertionError(f"[split] fleet image {fleet_idx[i]}: differs from unsplit")
+    log(f"[split] scale_pyramid_mixed over cuda:0 x4: {len(fleet_imgs)} images in "
+        f"{len(fleet_groups)} groups == unsplit")
+    del got, unsplit
+
+    # the split layer's overhead: row 0 over a one-entry mesh beside the
+    # unsplit scale, host clock to a synchronize, in turns
+    one = parallel.make_batched_scale(plan0, parallel.default_mesh(devices=[dev]))
+
+    def wall_ms(fn, n=30):
+        ts = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    turns = [wall_ms(lambda: stt.scale(plan0, x0)), wall_ms(lambda: one(x0)),
+             wall_ms(lambda: one(x0)), wall_ms(lambda: stt.scale(plan0, x0))]
+    log(f"[split] row 0 host clock per call (median of 30, to a synchronize): unsplit "
+        f"{(turns[0] + turns[3]) / 2:.4f} ms (turns {turns[0]:.4f}, {turns[3]:.4f}), over a "
+        f"one-entry mesh {(turns[1] + turns[2]) / 2:.4f} ms (turns {turns[1]:.4f}, "
+        f"{turns[2]:.4f}), on {card}")
+    log(f"[split] phase in {time.perf_counter() - t_phase:.1f} s ({n_cards} card(s))")
+
+    # 8. the CLI: check's default sweep for one colour, generate, benchmarks
+    import contextlib
+    import io
+
+    from smolscale_tpu_torch.utils import png
+
+    t_phase = time.perf_counter()
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        return rc, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+    for mod in level_kernels.values():
+        mod.launches = 0
+    rc, lines, secs = run_cli(["check", "--colors", "1"])
+    check_launches = {k: m.launches for k, m in level_kernels.items()}
+    for line in [ln for ln in lines if ln.startswith("FAIL")][:20] + lines[-2:]:
+        log(f"[cli] {line}")
+    log(f"[cli] check --colors 1: exit {rc}, {len(list(cli._check_cases(False, 1)))} cases in "
+        f"{secs:.1f} s, kernel launches {check_launches}, on {card}")
+    if rc != 0 or not (check_launches["bilinear"] and check_launches["bilinear128"]):
+        raise AssertionError("cli check failed, or did not run the cases through the kernels")
+    gen_dir = Path(__file__).resolve().parent / "build" / "cli"
+    gen_dir.mkdir(parents=True, exist_ok=True)
+    src = np.random.default_rng(11).integers(0, 256, (300, 400, 4), dtype=np.uint8)
+    png.write_png(gen_dir / "in.png", src)
+    rc, lines, secs = run_cli(["generate", str(gen_dir / "in.png"), str(gen_dir / "out"), "3"])
+    if rc != 0 or len(lines) != 3:
+        raise AssertionError(f"cli generate: exit {rc}, {lines}")
+    for path in lines:
+        out = png.read_png(path)
+        want = stt.scale_simple(src, stt.PixelType.RGBA8_UNASSOCIATED, out.shape[1],
+                                out.shape[0], device="cpu").numpy()
+        if not np.array_equal(out, want):
+            raise AssertionError(f"cli generate: {path} differs from the plain version")
+    log(f"[cli] generate: {len(lines)} PNGs of {src.shape} == plain version, {secs:.2f} s")
+    for argv in (["benchmark", "--steps", "4", "--reps", "2"], ["benchmark-conv", "--reps", "1"]):
+        for mod in level_kernels.values():
+            mod.launches = 0
+        rc, lines, secs = run_cli(argv)
+        if rc != 0:
+            raise AssertionError(f"cli {argv[0]}: exit {rc}")
+        for line in lines:
+            log(f"[cli] {line}")
+        log(f"[cli] {' '.join(argv)}: {secs:.1f} s, kernel launches "
+            f"{ {k: m.launches for k, m in level_kernels.items()} }, on {card}")
+    log(f"[cli] phase in {time.perf_counter() - t_phase:.1f} s")
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -9,9 +9,9 @@ by level through ``backends.torch_ops.scale_fn``, as the JAX package's
 smol_scale_simple calls would be: cascading levels would change the bytes.
 
 Mixed fleets are grouped by (shape, pixel type) and streamed through
-sub-batches that a pinned host ring of two buffers feeds to the card.
-Sharding a batch over a device list (the JAX package's ``mesh`` and
-``axis``) waits for ROADMAP item A4.
+sub-batches that a pinned host ring of two buffers feeds to the card.  With
+a ``mesh`` (``parallel.DeviceMesh``), each batch is split over the devices
+of ``axis``, as ``parallel.make_batched_scale`` splits one.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 from .backends import torch_ops
 from .formats import PixelType
 from .ops import pyramid as pyramid_op
+from .parallel.sharding import split_batch
 from .plan import ScalePlan
 
 
@@ -35,11 +36,15 @@ def make_pyramid_fn(
     pixel_type_out: PixelType | None = None,
     with_srgb: bool = False,
     device=None,
+    mesh=None,
+    axis: str = "dp",
 ):
     """A function ``(B, H, W, nb) uint8 -> tuple of (B, s, s, nb_out) uint8``
     tensors, one per size (an unbatched ``(H, W, nb)`` image gives unbatched
     levels).  A tensor runs where it lies; a numpy batch runs on ``device``,
-    by default the card."""
+    by default the card.  With ``mesh``, the batch (B divisible by the size
+    of ``axis``) is split over the devices of ``axis``, each slice runs on
+    its device, and the levels are gathered on the mesh's first device."""
     if pixel_type_out is None:
         pixel_type_out = pixel_type_in
     plans = tuple(
@@ -54,7 +59,7 @@ def make_pyramid_fn(
             return pyramid_op.pyramid_fn(plans, x.contiguous())
         return tuple(torch_ops.scale_fn(p, x) for p in plans)
 
-    return fn
+    return fn if mesh is None else split_batch(fn, mesh, axis)
 
 
 class _PinnedRing:
@@ -89,7 +94,7 @@ class _PinnedRing:
 
 def scale_pyramid_mixed(images, pixel_types, sizes=(64, 128, 256), max_batch_bytes=None,
                         device=None, pixel_type_out: PixelType | None = None,
-                        with_srgb: bool = False):
+                        with_srgb: bool = False, mesh=None, axis: str = "dp"):
     """Pyramids of a mixed-format, mixed-shape fleet of ``(H, W, nb)`` uint8
     numpy images: grouped by (shape, pixel type), one batched call per
     sub-batch, per-image tuples of numpy levels in input order.
@@ -102,8 +107,14 @@ def scale_pyramid_mixed(images, pixel_types, sizes=(64, 128, 256), max_batch_byt
     dispatched before any result is fetched, so the copies and kernels of
     different sub-batches queue back to back.  The fleet runs on ``device``,
     by default the card.
+
+    With ``mesh``, every sub-batch is split over the devices of ``axis``
+    (:func:`make_pyramid_fn`'s ``mesh``): it is padded in the same way to a
+    multiple of the axis's size, uploaded to the mesh's first device and
+    copied from there to the others.
     """
-    dev = torch_ops.numpy_device(device)
+    dev = torch_ops.numpy_device(device) if mesh is None else mesh.first
+    n_dev = 1 if mesh is None else mesh.shape[axis]
     groups: dict = {}
     for i, (img, pt) in enumerate(zip(images, pixel_types)):
         groups.setdefault((img.shape, int(pt)), []).append(i)
@@ -112,13 +123,16 @@ def scale_pyramid_mixed(images, pixel_types, sizes=(64, 128, 256), max_batch_byt
         cap = len(idxs)
         if max_batch_bytes is not None:
             cap = max(1, min(cap, int(max_batch_bytes) // int(np.prod(shape))))
+        cap = -(-cap // n_dev) * n_dev
         fn = make_pyramid_fn(shape[1], shape[0], PixelType(pt), sizes=sizes,
-                             pixel_type_out=pixel_type_out, with_srgb=with_srgb, device=dev)
+                             pixel_type_out=pixel_type_out, with_srgb=with_srgb,
+                             device=None if mesh is not None else dev, mesh=mesh, axis=axis)
         for c0 in range(0, len(idxs), cap):
             sub = idxs[c0 : c0 + cap]
             stack = [images[i] for i in sub]
-            if len(sub) < cap and c0 > 0:  # pad the remainder sub-batch
-                stack += [stack[-1]] * (cap - len(sub))
+            # pad the remainder sub-batch, and any sub-batch to split evenly
+            size = cap if c0 > 0 else -(-len(sub) // n_dev) * n_dev
+            stack += [stack[-1]] * (size - len(sub))
             subs.append((fn, sub, stack))
     ring = None
     if dev.type == "cuda" and subs:

@@ -610,3 +610,84 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.find_nvcc()
+
+
+def _split_meshes(n_entries):
+    from smolscale_tpu_torch import parallel
+
+    cards = [torch.device("cuda", k) for k in range(torch.cuda.device_count())]
+    return parallel, [parallel.default_mesh(), parallel.default_mesh(devices=[cards[0]] * n_entries)]
+
+
+@pytest.mark.cuda
+def test_split_on_every_card(cuda_device):
+    """The batch and row splits over a mesh of every card (and over one card
+    listed four times): each result lies on card 0 and equals the unsplit
+    scale there, byte for byte; the farm splits the same way."""
+    parallel, meshes = _split_meshes(4)
+    for mesh in meshes:
+        n = mesh.shape["dp"]
+        plan = stt.ScalePlan(4096, 1024, 256, 64, 0, 0)          # box kernel
+        x = torch.randint(0, 256, (2 * n, 1024, 4096, 4), dtype=torch.uint8, device=cuda_device)
+        got = parallel.make_batched_scale(plan, mesh)(x)
+        assert got.device == cuda_device and torch.equal(got, stt.scale(plan, x))
+        for key in [(2048, 2048, 256, 256, 0, 0), (640, 2000, 16, 3, 4, 4, True),
+                    (700, 500, 123, 77, 8, 8)]:                  # general, deep, 3-byte
+            plan = stt.ScalePlan(*key)
+            rows = parallel.DeviceMesh(mesh.devices, ("rows",))
+            xi = x.view(-1)[: key[1] * key[0] * plan.meta_in.n_bytes].view(
+                key[1], key[0], plan.meta_in.n_bytes)
+            got = parallel.make_row_sharded_scale(plan, rows)(xi)
+            assert got.device == cuda_device and torch.equal(got, stt.scale(plan, xi)), key
+        grid = parallel.default_mesh(("dp", "rows"), devices=list(mesh.devices))
+        plan = stt.ScalePlan(2048, 1024, 300, 77, 4, 0, True)     # 128bpp by rows
+        xb = x.view(-1)[: 2 * grid.shape["dp"] * 1024 * 2048 * 4].view(-1, 1024, 2048, 4)
+        got = parallel.make_sharded_batch_step(plan, grid)(xb)
+        assert torch.equal(got, stt.scale(plan, xb))
+        xp = x.view(-1)[: 4 * n * 512 * 512 * 4].view(4 * n, 512, 512, 4)
+        before = pyramid.launches
+        levels = stt.make_pyramid_fn(512, 512, 0, mesh=mesh)(xp)
+        assert pyramid.launches == before + n
+        want = stt.make_pyramid_fn(512, 512, 0)(xp)
+        assert all(g.device == cuda_device and torch.equal(g, w) for g, w in zip(levels, want))
+
+
+@pytest.mark.cuda
+def test_split_fleet_and_dryrun_on_card(cuda_device):
+    """scale_pyramid_mixed over a mesh gives the unsplit fleet's bytes; the
+    dry run's four plans split over one card listed 4 and 16 times."""
+    parallel, meshes = _split_meshes(3)
+    rng = np.random.default_rng(8)
+    images = [rng.integers(0, 256, (256, 256, 4), dtype=np.uint8) for _ in range(5)]
+    images += [rng.integers(0, 256, (192, 128, 3), dtype=np.uint8) for _ in range(2)]
+    types = [0, 0, 4, 0, 0, 8, 8]
+    want = stt.scale_pyramid_mixed(images, types, sizes=(32, 64))
+    for mesh in meshes:
+        got = stt.scale_pyramid_mixed(images, types, sizes=(32, 64), mesh=mesh,
+                                      max_batch_bytes=2 * 256 * 256 * 4)
+        for g, w in zip(got, want):
+            assert all(np.array_equal(a, b) for a, b in zip(g, w))
+    for n in (4, 16):
+        parallel.dryrun_multichip(n, device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_cli_on_card(cuda_device, monkeypatch, tmp_path, capsys):
+    """check on the card over a cut ladder (every case through a kernel,
+    against the plain versions on the CPU), generate, and one benchmark
+    line."""
+    from smolscale_tpu_torch import cli
+    from smolscale_tpu_torch.ops import bilinear128 as b128
+    from smolscale_tpu_torch.utils import png
+
+    monkeypatch.setattr(cli, "_check_sizes", lambda full: [1, 2, 3, 63, 64, 255, 256, 257])
+    before = bilinear.launches + b128.launches
+    assert cli.main(["check", "--colors", "1"]) == 0
+    assert "FAIL" not in capsys.readouterr().out
+    assert bilinear.launches + b128.launches > before
+    png.write_png(tmp_path / "in.png", np.random.default_rng(1).integers(
+        0, 256, (60, 80, 4), dtype=np.uint8))
+    assert cli.main(["generate", str(tmp_path / "in.png"), str(tmp_path / "out"), "2"]) == 0
+    assert png.read_png(tmp_path / "out-40x30.png").shape == (30, 40, 4)
+    assert cli.main(["benchmark", "--steps", "1", "--reps", "1"]) == 0
+    assert "device=cuda" in capsys.readouterr().out

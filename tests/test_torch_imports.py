@@ -38,6 +38,9 @@ def test_port_imports_no_jax():
         "import smolscale_tpu_torch.ops._build",
         "import smolscale_tpu_torch.backends.torch_ops",
         "import smolscale_tpu_torch.utils.timing",
+        "import smolscale_tpu_torch.utils.png",
+        "import smolscale_tpu_torch.parallel",
+        "import smolscale_tpu_torch.cli",
         "assert not any(m == 'smolscale_tpu' or m.startswith('smolscale_tpu.')"
         " for m in sys.modules), 'the port imported the JAX package'",
     ])
