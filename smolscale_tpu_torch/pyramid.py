@@ -110,8 +110,10 @@ def scale_pyramid_mixed(images, pixel_types, sizes=(64, 128, 256), max_batch_byt
 
     With ``mesh``, every sub-batch is split over the devices of ``axis``
     (:func:`make_pyramid_fn`'s ``mesh``): it is padded in the same way to a
-    multiple of the axis's size, uploaded to the mesh's first device and
-    copied from there to the others.
+    multiple of the axis's size (so it may pass ``max_batch_bytes`` by fewer
+    images than that size), uploaded to the mesh's first device and copied
+    from there to the others (a pinned ring per device was no faster on
+    four H100s, PERF.md §6).
     """
     dev = torch_ops.numpy_device(device) if mesh is None else mesh.first
     n_dev = 1 if mesh is None else mesh.shape[axis]
