@@ -113,11 +113,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``dryrun_multichip`` over 4 and 16 entries).  Then row 0's host-clock
    time per call over a one-entry mesh beside the unsplit ``scale``.
 8. The CLI (``smolscale_tpu_torch.cli``): ``check --colors 1`` (its default
-   sweep for one colour, every case on a kernel and byte-equal to the plain
-   versions on the CPU) must exit 0; ``generate`` on a PNG that the port's
-   writer made under ``build/cli/``, each output equal to the plain
-   version; ``benchmark --steps 4 --reps 2`` and ``benchmark-conv --reps
-   1``, their lines printed.
+   sweep for one colour, every case one launch of the bilinear or the
+   128bpp kernel and byte-equal to the plain versions on the CPU) must
+   exit 0; ``generate`` on a PNG that the port's writer made under
+   ``build/cli/``, each output equal to the plain version; ``benchmark
+   --steps 4 --reps 2`` and ``benchmark-conv --reps 1``, their lines
+   printed.
 
 All inputs but row 5b's are views of one random 512 MiB tensor made from a
 seed; the row 5b fleet is made on the host from seed 0 as the suite makes
@@ -1586,10 +1587,17 @@ def main(argv: list) -> int:
     check_launches = {k: m.launches for k, m in level_kernels.items()}
     for line in [ln for ln in lines if ln.startswith("FAIL")][:20] + lines[-2:]:
         log(f"[cli] {line}")
-    log(f"[cli] check --colors 1: exit {rc}, {len(list(cli._check_cases(False, 1)))} cases in "
-        f"{secs:.1f} s, kernel launches {check_launches}, on {card}")
-    if rc != 0 or not (check_launches["bilinear"] and check_launches["bilinear128"]):
-        raise AssertionError("cli check failed, or did not run the cases through the kernels")
+    n_cases = sum(1 for _ in cli._check_cases(False, 1))
+    log(f"[cli] check --colors 1: exit {rc}, {n_cases} cases in {secs:.1f} s, kernel "
+        f"launches {check_launches}, on {card}")
+    # every case has one output row or column: one launch of the bilinear
+    # or the 128bpp kernel each, and none of the box, deep box or pyramid
+    if rc != 0:
+        raise AssertionError(f"cli check: exit {rc}")
+    if (sum(check_launches.values()) != n_cases
+            or check_launches["bilinear"] + check_launches["bilinear128"] != n_cases):
+        raise AssertionError(f"cli check: {check_launches} kernel launches for {n_cases} "
+                             "cases, not one launch of bilinear or bilinear128 each")
     gen_dir = Path(__file__).resolve().parent / "build" / "cli"
     gen_dir.mkdir(parents=True, exist_ok=True)
     src = np.random.default_rng(11).integers(0, 256, (300, 400, 4), dtype=np.uint8)

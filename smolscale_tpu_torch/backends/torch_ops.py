@@ -22,11 +22,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import bilinear, bilinear128, box, deep
+from ..ops import _plan_cache, bilinear, bilinear128, box, deep
 from ..plan import ScalePlan
 
 WHOLE_KERNELS = (box, bilinear, deep, bilinear128)
 ROW_KERNELS = (bilinear, deep, bilinear128)
+
+
+def transient_plans():
+    """A scope whose plans the kernels forget when it closes: what each
+    kernel caches for a plan first seen inside it (index tables on a
+    device, launch-shape sums) is dropped on exit, and what was cached
+    before stays.  For a caller that runs many plans once each."""
+    return _plan_cache.transient()
 
 
 def numpy_device(device=None) -> torch.device:

@@ -23,14 +23,9 @@ import torch
 
 import smolscale_tpu_torch as stt
 from .backends import torch_ops
-from .ops import bilinear, bilinear128, deep
 from .plan import ScalePlan
 from .utils import png
 from .utils.timing import cuda_time_ms
-
-# the per-(plan, device) table caches that a sweep of fresh plans fills
-_PLAN_CACHES = (bilinear._tables, bilinear._stage_tables, bilinear128._tables, deep._tables)
-_MAX_CACHED_PLANS = 256
 
 
 def _check_sizes(full: bool):
@@ -79,14 +74,6 @@ def _plain(plan: ScalePlan, img: np.ndarray) -> np.ndarray:
     return stt.scale(plan, img, device="cpu").numpy()
 
 
-def _trim_caches() -> None:
-    """Every case of the sweep is a new plan; keep the table caches from
-    growing without bound over it (they refill on the next call)."""
-    for cache in _PLAN_CACHES:
-        if cache.cache_info().currsize > _MAX_CACHED_PLANS:
-            cache.cache_clear()
-
-
 def cmd_check(args) -> int:
     """Solid-colour sweep on the reference's plan (test.c:1119-1298):
     ARGB-premultiplied canvases of the colours (i, i+1, i+2, i+3), swept
@@ -115,8 +102,9 @@ def cmd_check(args) -> int:
         last = ci
         img = np.broadcast_to(color, (hi, wi, 4)).copy()
         plan = ScalePlan(wi, hi, wo, ho, TYPE, TYPE, False)
-        out, ref = _scale(plan, img, dev), _plain(plan, img)
-        _trim_caches()
+        # every case is a new plan: what the kernels cache for it goes with it
+        with torch_ops.transient_plans():
+            out, ref = _scale(plan, img, dev), _plain(plan, img)
         total += 1
         ok = out.shape == ref.shape and np.array_equal(out, ref)
         # solid invariance holds exactly away from the drop-affected edge

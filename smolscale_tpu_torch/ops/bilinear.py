@@ -37,6 +37,7 @@ import torch
 from ..formats import AlphaType, GammaType, StorageType
 from ..plan import AxisPlan, FilterType, ScalePlan
 from . import pixels
+from ._plan_cache import plan_cache
 
 launches = 0
 
@@ -169,7 +170,7 @@ def axis_table(ax: AxisPlan, vertical: bool,
     return np.zeros(0, dtype=np.int32)
 
 
-@functools.cache
+@plan_cache
 def _tables(plan: ScalePlan, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     return tuple(
         torch.as_tensor(axis_table(ax, vertical), device=device)
@@ -230,7 +231,7 @@ def stage_table(ax: AxisPlan, nb: int) -> tuple[int, np.ndarray]:
         lanes *= 2
 
 
-@functools.cache
+@plan_cache
 def _stage_tables(plan: ScalePlan, device: torch.device) -> tuple[int, torch.Tensor]:
     lanes, table = stage_table(plan.x, plan.meta_in.n_bytes)
     return lanes, torch.as_tensor(table.reshape(-1), device=device)

@@ -34,6 +34,7 @@ import torch
 from ..formats import StorageType
 from ..plan import ScalePlan
 from . import pixels
+from ._plan_cache import plan_cache
 from .bilinear import axis_kind, axis_table, filter_scale, table_len
 from .deep import masks, mode
 
@@ -65,7 +66,7 @@ def tables(plan: ScalePlan):
             axis_table(plan.y, vertical=True, storage=StorageType.S128))
 
 
-@functools.cache
+@plan_cache
 def _tables(plan: ScalePlan, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     return tuple(torch.as_tensor(t, device=device) for t in tables(plan))
 

@@ -33,6 +33,7 @@ import torch
 from ..formats import AlphaType, GammaType, StorageType
 from ..plan import FilterType, ScalePlan
 from . import pixels
+from ._plan_cache import plan_cache
 from .bilinear import axis_table, filter_scale
 
 launches = 0
@@ -81,7 +82,7 @@ def tables(plan: ScalePlan) -> tuple[np.ndarray, np.ndarray]:
             axis_table(plan.y, vertical=True, storage=plan.storage))
 
 
-@functools.cache
+@plan_cache
 def _tables(plan: ScalePlan, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     return tuple(torch.as_tensor(t, device=device) for t in tables(plan))
 
@@ -149,7 +150,7 @@ def row_skews(plan: ScalePlan, address: int = 0) -> tuple[int, ...]:
     return tuple(sorted({(address + r * row_bytes) % 16 for r in range(16)}))
 
 
-@functools.cache
+@plan_cache
 def span_words(plan: ScalePlan, skews: tuple[int, ...]) -> int:
     """The most aligned 16-byte words that cover a span's mid range in an
     input row whose offset from its aligned base is one of ``skews``."""
@@ -160,7 +161,7 @@ def span_words(plan: ScalePlan, skews: tuple[int, ...]) -> int:
     return int(((hi + 15) // 16 - lo // 16).max())
 
 
-@functools.cache
+@plan_cache
 def span_rows(plan: ScalePlan) -> int:
     """The most input rows a V span reads: first row to max(last, mid end)."""
     first, _, mid, mid_len, last, _ = tables(plan)[1].reshape(6, -1)

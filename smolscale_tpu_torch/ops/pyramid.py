@@ -46,6 +46,7 @@ import torch
 from ..formats import AlphaType, GammaType, StorageType
 from ..plan import ScalePlan
 from . import bilinear, pixels
+from ._plan_cache import plan_cache
 
 launches = 0
 
@@ -76,7 +77,7 @@ def applicable(plans) -> bool:
     return _applicable(tuple(plans))
 
 
-@functools.cache
+@plan_cache
 def _applicable(plans: tuple) -> bool:
     # cached: a farm calls this for every batch, and the ladder checks
     # compare whole offset arrays

@@ -200,14 +200,16 @@ def make_sharded_batch_step(plan: ScalePlan, mesh: DeviceMesh,
     return run
 
 
-def dryrun_multichip(n_devices: int, device="cpu") -> None:
+def dryrun_multichip(n_devices: int, device=None) -> None:
     """One fully split step over a mesh of ``n_devices`` entries of
     ``device`` (``"dp" x "rows"``), on the four plans of
     ``__graft_entry__.dryrun_multichip``: a 2D step on a format-converting
     sRGB bilinear plan, and row splits of a box plan, a deep box plan with
     uneven rows and a COPY x box strip.  Each result must equal the
-    unsplit ``scale`` on one device, byte for byte; raises otherwise."""
-    devices = [device] * n_devices
+    unsplit ``scale`` on one device, byte for byte; raises otherwise.
+    ``device`` is by default the card, and without one this raises: the
+    CPU runs only when ``device="cpu"`` says so."""
+    devices = [torch_ops.numpy_device(device)] * n_devices
     mesh = default_mesh(("dp", "rows"), devices=devices)
     rows_mesh = default_mesh(("rows",), devices=devices)
     dev = mesh.first

@@ -13,10 +13,13 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 from smolscale_tpu import cli as jax_cli
 from smolscale_tpu.utils import png as jax_png
 from smolscale_tpu_torch import cli
+from smolscale_tpu_torch.backends import torch_ops
+from smolscale_tpu_torch.ops import bilinear, bilinear128, deep, pyramid
 from smolscale_tpu_torch.plan import ScalePlan
 from smolscale_tpu_torch.utils import png
 
@@ -167,10 +170,39 @@ def test_check_fails_on_one_flipped_byte(short_sweep, capsys):
     assert out.count("FAIL") == 1 and "FAIL 65535x1->257x1" in out
 
 
+# the ops layer's per-plan caches
+PLAN_CACHES = (bilinear._tables, bilinear._stage_tables, bilinear128._tables, deep._tables,
+               deep.span_words, deep.span_rows, pyramid._applicable)
+
+
 def test_check_keeps_the_table_caches_bounded(short_sweep):
-    short_sweep.setattr(cli, "_MAX_CACHED_PLANS", 4)
+    """check forgets what the kernels cached for its plans, and keeps what
+    another caller cached before it ran, a plan of the sweep included."""
+    cpu = torch.device("cpu")
+    kept = bilinear._tables(ScalePlan(65535, 1, 257, 1, 2, 2), cpu)
+    before = [c.cache_len() for c in PLAN_CACHES]
     assert cli.main(["--device", "cpu", "check", "--colors", "1"]) == 0
-    assert all(c.cache_info().currsize <= 5 for c in cli._PLAN_CACHES)
+    assert [c.cache_len() for c in PLAN_CACHES] == before
+    assert bilinear._tables(ScalePlan(65535, 1, 257, 1, 2, 2), cpu) is kept
+
+
+def test_transient_plans_forget_only_their_own_entries():
+    """The plain versions fill the per-plan caches; a scope drops what was
+    made inside it, nested scopes included, and nothing made before."""
+    cpu = torch.device("cpu")
+    old, new, inner = (ScalePlan(w, 7, 2 * w + 1, 9, 2, 2) for w in (51, 52, 53))  # bilinear
+    img = np.zeros((7, 53, 4), np.uint8)
+    n0 = bilinear._tables.cache_len()
+    cli._plain(old, img[:, :51].copy())
+    assert bilinear._tables.cache_len() == n0 + 1
+    with torch_ops.transient_plans():
+        cli._plain(old, img[:, :51].copy())
+        cli._plain(new, img[:, :52].copy())
+        with torch_ops.transient_plans():
+            cli._plain(inner, img)
+            assert bilinear._tables.cache_len() == n0 + 3
+        assert bilinear._tables.cache_len() == n0 + 2
+    assert bilinear._tables.cache_len() == n0 + 1
 
 
 def test_check_needs_a_device_without_card(monkeypatch):

@@ -673,9 +673,9 @@ def test_split_fleet_and_dryrun_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_cli_on_card(cuda_device, monkeypatch, tmp_path, capsys):
-    """check on the card over a cut ladder (every case through a kernel,
-    against the plain versions on the CPU), generate, and one benchmark
-    line."""
+    """check on the card over a cut ladder (every case one launch of the
+    bilinear or the 128bpp kernel, against the plain versions on the CPU),
+    generate, and one benchmark line."""
     from smolscale_tpu_torch import cli
     from smolscale_tpu_torch.ops import bilinear128 as b128
     from smolscale_tpu_torch.utils import png
@@ -684,7 +684,8 @@ def test_cli_on_card(cuda_device, monkeypatch, tmp_path, capsys):
     before = bilinear.launches + b128.launches
     assert cli.main(["check", "--colors", "1"]) == 0
     assert "FAIL" not in capsys.readouterr().out
-    assert bilinear.launches + b128.launches > before
+    n_cases = sum(1 for _ in cli._check_cases(False, 1))
+    assert bilinear.launches + b128.launches - before == n_cases
     png.write_png(tmp_path / "in.png", np.random.default_rng(1).integers(
         0, 256, (60, 80, 4), dtype=np.uint8))
     assert cli.main(["generate", str(tmp_path / "in.png"), str(tmp_path / "out"), "2"]) == 0

@@ -188,7 +188,7 @@ def test_dryrun_multichip(n):
     """One fully split step over n entries (2 x 4 and 4 x 4), each flavour
     byte-equal to the unsplit scale; the JAX package's dry run on its four
     plans against numpy_ref is tests/test_parallel.py's."""
-    parallel.dryrun_multichip(n)
+    parallel.dryrun_multichip(n, "cpu")
     mesh = parallel.default_mesh(("dp", "rows"), devices=["cpu"] * n)
     key = (64, 2000, 16, 7, 0, 0, False)
     img = _random((2000, 64, 4), n)
@@ -199,13 +199,21 @@ def test_dryrun_multichip(n):
     assert np.array_equal(step(imgs).numpy(), _spec((48, 40, 24, 18, 4, 0, True), imgs))
 
 
+def test_dryrun_multichip_needs_a_card_by_default(monkeypatch):
+    """No card and no device: the dry run raises rather than run on the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.dryrun_multichip(4)
+
+
 def test_dryrun_multichip_fails_on_a_wrong_split(monkeypatch):
     """The dry run's check can fail: a row split that drops its last shard
     raises."""
     ranges = parallel.sharding._row_ranges
     monkeypatch.setattr(parallel.sharding, "_row_ranges", lambda h, n: ranges(h, n)[:-1])
     with pytest.raises((AssertionError, RuntimeError)):
-        parallel.dryrun_multichip(4)
+        parallel.dryrun_multichip(4, "cpu")
 
 
 @pytest.mark.parametrize("sizes", [(8, 16, 24), (16, 32)], ids=str)
