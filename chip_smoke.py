@@ -119,6 +119,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``build/cli/``, each output equal to the plain version; ``benchmark
    --steps 4 --reps 2`` and ``benchmark-conv --reps 1``, their lines
    printed.
+9. The differential fuzz (``smolscale_tpu_torch.fuzz``): ``FUZZ_CASES``
+   cases of every mode at fixed seeds, each through every kernel that takes
+   it and the public ``scale``, held against the plain versions on the card
+   (poisoned outputs, two runs each); it raises on any failure, and unless
+   all five kernels launched, all three forms of the box kernel were
+   reached and the deep box kernel took more than one lane count.
 
 All inputs but row 5b's are views of one random 512 MiB tensor made from a
 seed; the row 5b fleet is made on the host from seed 0 as the suite makes
@@ -634,6 +640,8 @@ FLEET_SIZE, FLEET_TEMPLATES, FLEET_COLD = 10_000, 32, 2_000
 FLEET_SIZES, FLEET_BATCH_BYTES = (64, 128, 256), 192 * 2**20
 BUSY_ROWS = ["row 0", "row 3e", "row 8", "rgb24", "row 1b", "row 3d", "row 7b", "row 9c",
              "row 6", "row 5"]
+# phase 9: cases of each fuzz mode, and the first mode's seed (mode k: + k)
+FUZZ_CASES, FUZZ_SEED = 60, 14
 HBM_PEAK_GBS = 3350.0  # H100 SXM data sheet, at the 700 W power limit
 
 
@@ -1623,6 +1631,36 @@ def main(argv: list) -> int:
         log(f"[cli] {' '.join(argv)}: {secs:.1f} s, kernel launches "
             f"{ {k: m.launches for k, m in level_kernels.items()} }, on {card}")
     log(f"[cli] phase in {time.perf_counter() - t_phase:.1f} s")
+
+    # 9. the differential fuzz: FUZZ_CASES cases of every mode at a fixed
+    # seed, each through every kernel that takes it against its plain version
+    from smolscale_tpu_torch import fuzz
+
+    def fuzz_log(line):
+        if ": OK (" not in line:  # a failure, or a case with one
+            log(f"[fuzz] {line}")
+
+    t_phase = time.perf_counter()
+    fuzz_launches = dict.fromkeys(fuzz.KERNELS, 0)
+    box_forms, deep_lanes = set(), set()
+    for k, mode in enumerate(fuzz.MODES):
+        report = fuzz.run(mode, FUZZ_CASES, FUZZ_SEED + k, dev, log=fuzz_log)
+        for line in report.lines():
+            log(f"[fuzz] {line}")
+        if report.failed():
+            raise AssertionError(f"fuzz --{mode}: {report.fails[:10]}, target missed on "
+                                 f"cases {report.missed[:10]}")
+        for name, n in report.launches.items():
+            fuzz_launches[name] += n
+        box_forms |= report.cover["box forms"]
+        deep_lanes |= report.cover["deep lanes"]
+    log(f"[fuzz] {len(fuzz.MODES)} modes x {FUZZ_CASES} cases: launches {fuzz_launches}, box "
+        f"forms {sorted(box_forms)}, deep lanes {sorted(deep_lanes)}, phase in "
+        f"{time.perf_counter() - t_phase:.1f} s, on {card}")
+    if (not all(fuzz_launches.values()) or box_forms != set(box.FORMS.values())
+            or len(deep_lanes) < 2):
+        raise AssertionError("the fuzz did not reach every kernel, every box form and more "
+                             "than one deep lane count")
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -45,6 +45,7 @@ def transient():
     try:
         yield
     finally:
-        _scopes.remove(added)
+        # by identity: an inner scope's list may equal this one
+        del _scopes[next(k for k, s in enumerate(_scopes) if s is added)]
         for table, key in added:
             table.pop(key, None)

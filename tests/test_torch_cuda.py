@@ -20,6 +20,7 @@ import torch
 import smolscale_tpu_torch as stt
 from smolscale_tpu.backends import numpy_ref
 from smolscale_tpu.plan import ScalePlan as RefPlan
+from smolscale_tpu_torch import fuzz
 from smolscale_tpu_torch.ops import _build, bilinear, bilinear128, box, deep, pyramid
 from smolscale_tpu_torch.utils import timing
 
@@ -692,3 +693,13 @@ def test_cli_on_card(cuda_device, monkeypatch, tmp_path, capsys):
     assert png.read_png(tmp_path / "out-40x30.png").shape == (30, 40, 4)
     assert cli.main(["benchmark", "--steps", "1", "--reps", "1"]) == 0
     assert "device=cuda" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", fuzz.MODES)
+def test_fuzz_on_card(cuda_device, mode, capsys):
+    """A few cases of each fuzz mode: every kernel that takes a case agrees
+    with its plain version, and the mode's target kernel launched."""
+    flag = [] if mode == "uniform" else [f"--{mode}"]
+    assert fuzz.main(["6", "14", *flag]) == 0
+    assert "mismatch=0 exc=0 flaky=0" in capsys.readouterr().out

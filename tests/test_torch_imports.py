@@ -41,6 +41,7 @@ def test_port_imports_no_jax():
         "import smolscale_tpu_torch.utils.png",
         "import smolscale_tpu_torch.parallel",
         "import smolscale_tpu_torch.cli",
+        "import smolscale_tpu_torch.fuzz",
         "assert not any(m == 'smolscale_tpu' or m.startswith('smolscale_tpu.')"
         " for m in sys.modules), 'the port imported the JAX package'",
     ])
