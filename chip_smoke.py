@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --parent CHECKOUT [CHECKOUT ...]
-        # also time each CHECKOUT's box and deep kernels
+        # also time each CHECKOUT's box, deep and general kernels
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -14,21 +14,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    build time, ptxas's report and each kernel's count of template
    instances, and for each instance of the box kernel
    (``box_kernel<FORM, W, PX>``), the general kernel
-   (``bilinear_kernel<KX, KY, PACKED>``), the 128bpp kernel
-   (``bilinear128_kernel<KX, KY, MODE, PACKED>``) and the deep box kernel
-   (``deep_kernel<MODE, FORM, W>``) its registers, stack frame, spills and
-   shared memory per block; it raises if a deep box kernel instance has a
-   stack frame or spills.
+   (``bilinear_kernel<KX, KY, PACKED, FORM>``: FORM 0 LOOP, 1 H TILE, 2
+   STAGED ROWS; KY 4 for the h tile forms, which read the V kind at run
+   time), the 128bpp kernel (``bilinear128_kernel<KX, KY, MODE, PACKED>``)
+   and the deep box kernel (``deep_kernel<MODE, FORM, W>``) its registers,
+   stack frame, spills and shared memory per block; it raises if a deep box
+   or general kernel instance has a stack frame or spills.
 3. Kernels against their plain versions, on the card for a batch of 2: the
    box kernel on each plan of ``CHECK_PLANS`` (plain version
    ``ops.box.box_scale_ref``; its tile edges, 255:1 axes and deep ratios
    among them), each plan of ``BOX_UNALIGNED`` at the byte offsets of
    ``BOX_OFFSETS``, ``BOX_TALL`` (more than 65535 output rows in the batch)
    and ``BOX_CONST_PLANS`` on a constant-255 batch, the general kernel on each plan of
-   ``BILINEAR_CHECK_PLANS`` and each row range of ``BILINEAR_CHECK_ROWS``
-   (``ops.bilinear.bilinear_scale_ref``; boxes past 64:1 and the staged
-   X axes' tile edges among them) and each plan of ``BILINEAR_UNALIGNED``
-   at byte offsets 1, 2 and 3, whole and by rows, the
+   ``BILINEAR_CHECK_PLANS`` and ``DIRECT_CHECK_PLANS`` and each row range
+   of ``BILINEAR_CHECK_ROWS`` and ``DIRECT_CHECK_ROWS``
+   (``ops.bilinear.bilinear_scale_ref``; boxes past 64:1, the staged X
+   axes' tile edges and the direct path's tile edges among them), each
+   plan of ``BILINEAR_UNALIGNED`` at byte offsets 1, 2 and 3, whole and by
+   rows, and ``BILINEAR_TALL`` (more than 65,535 output rows, and more than
+   65,535 images), a plan on the direct path in each of its forms that fits
+   (``ops.bilinear.direct_forms``), the
    deep box kernel on each plan
    of ``DEEP_CHECK_PLANS`` (one of them also on a constant-255 batch; the
    edges of ``ops.deep.launch_shape`` among them), each plan of
@@ -73,12 +78,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    sub-batches: one pyramid launch per sub-batch of the three fused groups,
    one level-kernel launch per level of the other two).  Every image's
    bytes must equal the plain version (row 5b: one probe image per group).
-5. Times: kernel and plain version by CUDA events, in turns plain, kernel,
-   kernel, plain (the box, 128bpp and deep box rows: plain, five kernel
-   turns, plain, with their median and min-max; row 9 is also timed as its
-   4 chunks through the row form; with ``--parent``, each other
-   checkout's box and deep box kernels in turns with this one's on every
-   box and deep row);
+5. Times: kernel and plain version by CUDA events, in turns plain, five
+   kernel turns, plain, with the kernel's median and min-max (row 9 is also
+   timed as its 4 chunks through the row form; with ``--parent``, each
+   other checkout's box, deep box and general kernels in turns with this
+   one's on every box, deep and general row; a general row on the direct
+   path also in each other form that fits it, in the same turns);
    Mpix/s and GB/s of input (and of output) with the share of HBM peak, and each row's bound (its input and
    output bytes at the HBM peak) with the kernel's share of it.  Also the
    rows of ``A1_ROWS`` and of ``EXTRA_ROWS``, on no suite row and checked against
@@ -90,10 +95,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the other kinds of box x box past 64:1 that both kernels take (RGB24,
    16:1 x 128:1, 10:1 x 128:1, 128:1 x 16:1), each on both, which decide
    ``torch_ops.whole_kernel``'s route.
-   Row 5 is also timed level by level on the general kernel (three
-   launches); row 5b as pyramids/s on the pre-uploaded fleet (resident)
-   and end to end through ``scale_pyramid_mixed`` on 2,000 of its images
-   (cold), as ``benchmarks/suite.py`` reports them.
+   The copy row is timed beside ``torch.Tensor.clone``, which gives its
+   bytes (COPY x COPY between identical formats is the identity; checked
+   first), as its library time.  Row 5 is also timed level by level on the
+   general kernel (three launches); row 5b as pyramids/s on the
+   pre-uploaded fleet (resident), each group's share of a sweep, its 384^2
+   group's three levels apart on the general kernel (in turns with each
+   other checkout's and with each other form), and end to end through
+   ``scale_pyramid_mixed`` on 2,000 of its images (cold), as
+   ``benchmarks/suite.py`` reports them.
 6. Device busy share over 10 back-to-back calls of the public entry point
    (``scale``; ``make_pyramid_fn``'s function for row 5) per row of
    ``BUSY_ROWS``, from a ``torch.profiler`` trace (written to
@@ -310,12 +320,58 @@ BILINEAR_CHECK_ROWS = [
     ((4224, 20, 33, 10, 4, 1), 3, 4),
     ((16400, 8, 1025, 4, 0, 0), 1, 2),
 ]
+# DIRECT of tests/test_torch_bilinear.py: the direct path's tiles
+# (ops/bilinear.launch_shape: tile_w output columns by 256 / tile_w rows) on
+# their edges, w_out 1, 7, 31, 32, 33, 257 and 4096 by h_out 1, 7, 8, 9 and
+# 257, over each V kind (COPY, ONE, bilinear 0h-2h, box) beside each X kind
+# that loads directly; phase 3 runs each in every form that fits it
+DIRECT_CHECK_PLANS = [
+    (3, 9, 1, 8, 0, 0),            # 1h x 0h, one column
+    (7, 1, 7, 7, 0, 1),            # COPY x ONE
+    (62, 14, 31, 7, 8, 8),         # 0h x 0h, RGB24
+    (128, 72, 32, 9, 0, 0),        # 1h x 2h
+    (33, 257, 33, 257, 5, 2),      # COPY x COPY
+    (257, 100, 257, 1, 0, 0),      # COPY x 100:1 box, one row
+    (4096, 40, 4096, 8, 0, 0),     # COPY x 2h
+    (4096, 9, 4096, 9, 8, 8),      # COPY x COPY, RGB24
+    (66, 18, 33, 9, 1, 6),         # 0h x 0h, reorders
+    (100, 257, 31, 257, 4, 0),     # 1h x COPY, unassociated in
+    (14, 7, 7, 14, 0, 4),          # 0h x 0h upscale, unassociated out
+    (20, 80, 257, 8, 9, 9),        # 0h upscale x 10:1 box, BGR24
+    (700, 90, 257, 9, 0, 0),       # 1h x 10:1 box
+    (310, 1500, 31, 100, 2, 3),    # 10:1 box x 15:1 box
+    (10, 1, 1, 1, 0, 0),           # 10:1 box x ONE
+    (1, 300, 7, 8, 0, 0),          # ONE x 37.5:1 box
+    (448, 8, 32, 8, 0, 0),         # 14:1 box x COPY
+    (300, 200, 290, 190, 8, 9),    # 0h x 0h, RGB24 -> BGR24
+    (512, 512, 171, 171, 8, 8),    # row 3a's 1h ladder, RGB24
+    (512, 512, 375, 375, 8, 8),    # row 3b's 0h, RGB24
+    (384, 384, 64, 64, 0, 0),      # row 5b's 384^2 levels: 2h, 1h, 0h
+    (384, 384, 128, 128, 0, 0),
+    (384, 384, 256, 256, 0, 0),
+]
+# (plan, first output row, rows) through the row form: ranges that start and
+# end inside a row group
+DIRECT_CHECK_ROWS = [
+    ((300, 200, 290, 190, 0, 0), 13, 100),
+    ((128, 72, 32, 9, 0, 0), 3, 5),
+    ((33, 257, 33, 257, 5, 2), 100, 157),
+    ((100, 257, 31, 257, 4, 0), 250, 7),
+    ((4096, 40, 4096, 8, 0, 0), 5, 1),
+    ((512, 512, 171, 171, 8, 8), 9, 150),
+]
 # the general kernel on inputs at byte offsets 1-3: a 2h ladder with tails
 # (direct byte loads), and staged boxes (ragged stretch ends staged byte by
 # byte, pixels read across shared words): 128:1 at 8 lanes, 16:1 RGB24, and
-# 255:1 with unassociated out
+# 255:1 with unassociated out; the direct path's 3-byte rows (rows 3a and
+# 3b's classes)
 BILINEAR_UNALIGNED = [(700, 500, 123, 77, 2, 3), (4224, 20, 33, 10, 4, 1),
-                      (4112, 64, 257, 16, 8, 8), (4335, 10, 17, 5, 0, 4)]
+                      (4112, 64, 257, 16, 8, 8), (4335, 10, 17, 5, 0, 4),
+                      (512, 512, 171, 171, 8, 8), (512, 512, 375, 375, 8, 8),
+                      (62, 14, 31, 7, 8, 8)]
+# batch x rows past 65,535 on the direct path: (plan, batch); the second
+# also loops over images (grid z at 65,535)
+BILINEAR_TALL = [((16, 9000, 8, 8200, 0, 0), 8), ((8, 4, 4, 2, 8, 8), 70000)]
 
 # the three plan lists of tests/test_pallas_deep.py (:21-36, :50-71, :86-98),
 # two plans whose sums pass 16 and 32 bits and four with spans shorter than
@@ -736,8 +792,8 @@ def fleet_batches(images, types):
 def load_parent(root: str, name: str):
     """The ``smolscale_tpu_torch`` package of another checkout at ``root``
     (for example the parent commit, unpacked with ``git archive``), loaded
-    as ``name``, and its ``ops.box`` and ``ops.deep`` modules.  Its kernels
-    build into ``root/build/kernels``."""
+    as ``name``, and its ``ops.box``, ``ops.deep`` and ``ops.bilinear``
+    modules.  Its kernels build into ``root/build/kernels``."""
     import importlib
     import importlib.util
 
@@ -747,8 +803,8 @@ def load_parent(root: str, name: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
-    return (mod, importlib.import_module(spec.name + ".ops.box"),
-            importlib.import_module(spec.name + ".ops.deep"))
+    return (mod, *(importlib.import_module(f"{spec.name}.ops.{op}")
+                   for op in ("box", "deep", "bilinear")))
 
 
 def main(argv: list) -> int:
@@ -757,7 +813,8 @@ def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    # with --parent: (label, package, ops.box, ops.deep) of each checkout
+    # with --parent: (label, package, ops.box, ops.deep, ops.bilinear) of
+    # each checkout
     parents = []
     if argv[:1] == ["--parent"] and len(argv) >= 2:
         parents = [(Path(root).resolve().name,
@@ -788,7 +845,7 @@ def main(argv: list) -> int:
 
     parent_builds = [
         threading.Thread(target=importlib.import_module(pkg.__name__ + ".ops._build").library)
-        for _, pkg, _, _ in parents]
+        for _, pkg, *_ in parents]
     for t in parent_builds:
         t.start()
     lib_path, build_log, secs = _build.build()
@@ -816,13 +873,13 @@ def main(argv: list) -> int:
             log(f"[build] {r['kernel']}<{r['args']}>: {r['registers']} registers, "
                 f"{r['stack']} bytes stack frame, {r['spill_stores']} + {r['spill_loads']} bytes "
                 f"spill stores + loads, {r['smem']} bytes shared memory per block")
-    # the deep box kernel keeps every value in registers
-    deep_instances = [r for r in instances if r["kernel"] == "deep_kernel"]
-    spilled = [r["args"] for r in deep_instances
-               if r["stack"] or r["spill_stores"] or r["spill_loads"]]
-    if not deep_instances or spilled:
-        raise AssertionError(f"deep_kernel instances with a stack frame or spills: {spilled} "
-                             f"(of {len(deep_instances)})")
+    # the deep box and general kernels keep every value in registers
+    for name in ("deep_kernel", "bilinear_kernel"):
+        mine = [r for r in instances if r["kernel"] == name]
+        spilled = [r["args"] for r in mine if r["stack"] or r["spill_stores"] or r["spill_loads"]]
+        if not mine or spilled:
+            raise AssertionError(f"{name} instances with a stack frame or spills: {spilled} "
+                                 f"(of {len(mine)})")
 
     # 3. kernels against their plain versions
     err = {"box": 0, "bilinear": 0, "deep": 0, "bilinear128": 0, "pyramid": 0}
@@ -880,18 +937,43 @@ def main(argv: list) -> int:
         got = box.scale_fn(plan, x)
         check("box", f"{box_label(key, plan, x)} constant 255", got, box.box_scale_ref(plan, x))
         log(f"[check] box {key} constant 255: pixel (0, 0) {got[0, 0, 0].tolist()}")
-    for i, key in enumerate(BILINEAR_CHECK_PLANS):
+    def bilinear_forms(plan):
+        """The general kernel's routes for a plan: (label, form) of its
+        direct path's routed form first, then every other form that fits;
+        the staged box path alone."""
+        if bilinear.stage_table(plan.x, plan.meta_in.n_bytes)[0]:
+            return [("staged box", None)]
+        chosen = bilinear.direct_form(plan)
+        return [(f"{bilinear.FORMS[f]}{' (routed)' if f == chosen else ''}", f)
+                for f in sorted(bilinear.direct_forms(plan), key=lambda f: f != chosen)]
+
+    def check_bilinear(label, plan, x, first, n, want):
+        tile_w, _, grid_y, grid_z = bilinear.launch_shape(plan.width_out, first, n, x.shape[0])
+        for route, form in bilinear_forms(plan):
+            check("bilinear", f"{label} ({route}, tile {tile_w} x {256 // tile_w}, grid y "
+                  f"{grid_y}, z {grid_z})", bilinear.scale_rows_fn(plan, x, first, n, form), want)
+
+    for i, key in enumerate(BILINEAR_CHECK_PLANS + DIRECT_CHECK_PLANS):
         plan = stt.ScalePlan(*key, False)
         if not bilinear.applicable(plan):
             raise AssertionError(f"{key}: outside the bilinear class")
         x = random_images(key, 2000 + i)
-        check("bilinear", key, bilinear.scale_fn(plan, x), bilinear.bilinear_scale_ref(plan, x))
-    for i, (key, first, n) in enumerate(BILINEAR_CHECK_ROWS):
+        check_bilinear(key, plan, x, 0, plan.height_out, bilinear.bilinear_scale_ref(plan, x))
+    for i, (key, first, n) in enumerate(BILINEAR_CHECK_ROWS + DIRECT_CHECK_ROWS):
         plan = stt.ScalePlan(*key, False)
         x = random_images(key, 3000 + i)
-        check("bilinear", f"{key} rows [{first}, {first + n})",
-              bilinear.scale_rows_fn(plan, x, first, n),
-              bilinear.bilinear_scale_ref(plan, x, first, n))
+        check_bilinear(f"{key} rows [{first}, {first + n})", plan, x, first, n,
+                       bilinear.bilinear_scale_ref(plan, x, first, n))
+    for key, batch in BILINEAR_TALL:
+        plan = stt.ScalePlan(*key, False)
+        few = torch.from_numpy(np.random.default_rng(3500).integers(
+            0, 256, (7, key[1], key[0], plan.meta_in.n_bytes), dtype=np.uint8)).to(dev)
+        reps = -(-batch // 7)
+        x = few.repeat(reps, 1, 1, 1)[:batch]
+        check_bilinear(f"{key} batch {batch} ({batch * plan.height_out} output rows, 7 images "
+                       f"repeated)", plan, x, 0, plan.height_out,
+                       bilinear.bilinear_scale_ref(plan, few).repeat(reps, 1, 1, 1)[:batch])
+    del few, x
     def deep_label(key, plan, x):
         sh = deep.launch_shape(plan, x.shape[0], address=x.data_ptr())
         return (f"{key} ({deep.FORMS[deep.form(plan, x.data_ptr())]}, {sh['lanes']} lanes x "
@@ -995,8 +1077,13 @@ def main(argv: list) -> int:
                 flat = torch.empty(imgs.numel() + offset, dtype=torch.uint8, device=dev)
                 shifted = flat[offset:].view(imgs.shape)
                 shifted.copy_(imgs)
-                check(kind, f"{key} at byte offset {offset}", mod.scale_fn(plan, shifted), want)
                 h = plan.height_out
+                if kind == "bilinear":
+                    check_bilinear(f"{key} at byte offset {offset}", plan, shifted, 0, h, want)
+                    check_bilinear(f"{key} at byte offset {offset} rows [{h // 3}, {h - 1})",
+                                   plan, shifted, h // 3, h - 1 - h // 3, want[:, h // 3 : h - 1])
+                    continue
+                check(kind, f"{key} at byte offset {offset}", mod.scale_fn(plan, shifted), want)
                 check(kind, f"{key} at byte offset {offset} rows [{h // 3}, {h - 1})",
                       mod.scale_rows_fn(plan, shifted, h // 3, h - 1 - h // 3),
                       want[:, h // 3 : h - 1])
@@ -1277,25 +1364,54 @@ def main(argv: list) -> int:
     timed += [(row[:3], streamed(row[4]) if row[4] else kernels[row[3]][0], kernels[row[3]][1])
               for row in A1_ROWS]
     timed += [(row[:3], *kernels[row[3]]) for row in EXTRA_ROWS]
-    # the box, 128bpp and deep box rows take five kernel turns (their times
-    # moved between calls); the kernel's time is the median of its turns
+    # every row takes five kernel turns; the kernel's time is the median of
+    # its turns
     box_rows = {r[0] for r in MAIN_ROWS} | {r[0] for r in EXTRA_ROWS if r[3] == "box"}
     deep_rows = ({r[0] for r in DEEP_ROWS} | {deep_chunks}
                  | {r[0] for r in A1_ROWS + EXTRA_ROWS if r[3] == "deep"})
-    five = ({r[0] for r in WIDE_ROWS} | box_rows | deep_rows
-            | {r[0] for r in A1_ROWS if r[3] == "bilinear128"})
-    # with --parent, each other checkout's box and deep box kernels in turns
-    # with this one's, on their rows: name -> [(label, kind, fn), ...]
+    # the general kernel's rows, and the chunks of those run through the row
+    # form
+    bilinear_rows = {r[0] for r in BILINEAR_ROWS + A1_ROWS + EXTRA_ROWS
+                     if len(r) == 3 or r[3] == "bilinear"} | {stream_name}
+    chunks_of = {stream_name: STREAM_CHUNKS} | {r[0]: r[4] for r in A1_ROWS if r[4]}
+    # beside this tree's kernel, in turns with it: each other checkout's box,
+    # deep box and general kernels on their rows (with --parent), and this
+    # tree's general kernel in each other form of its direct path that fits
+    # the row: name -> [(label, kind, fn), ...]
     parent_fns = {}
-    for label, parent, parent_box, parent_deep in parents:
-        for name in sorted(box_rows | deep_rows):
-            kind, pmod = ("box", parent_box) if name in box_rows else ("deep", parent_deep)
+
+    def as_rows(mod, plan, n_chunks, form=()):
+        """``mod``'s kernel on a row: whole, or in ``n_chunks`` chunks
+        through the row form; ``form``: (form,) for this tree's direct
+        path, else ()."""
+        if n_chunks:
+            step = -(-plan.height_out // n_chunks)
+            return lambda xin: [
+                mod.scale_rows_fn(plan, xin, first, min(step, plan.height_out - first), *form)
+                for first in range(0, plan.height_out, step)]
+        return lambda xin: mod.scale_fn(plan, xin, *form)
+
+    for label, parent, parent_box, parent_deep, parent_bil in parents:
+        for name in sorted(box_rows | deep_rows | bilinear_rows):
+            kind, pmod = (("box", parent_box) if name in box_rows else
+                          ("deep", parent_deep) if name in deep_rows else ("bilinear", parent_bil))
             pplan = parent.ScalePlan(*plans[name].key)
             if name == deep_chunks:
                 fn = partial(streamed(DEEP_STREAM_CHUNKS, parent_deep), pplan)
             else:
-                fn = partial(pmod.scale_fn, pplan)
+                fn = as_rows(pmod, pplan, chunks_of.get(name, 0))
             parent_fns.setdefault(name, []).append((label, kind, fn))
+    for name in sorted(bilinear_rows):
+        plan = plans[name]
+        if bilinear.stage_table(plan.x, plan.meta_in.n_bytes)[0]:
+            continue
+        for form in bilinear.direct_forms(plan):
+            if form != bilinear.direct_form(plan):
+                parent_fns.setdefault(name, []).append(
+                    (f"this tree's {bilinear.FORMS[form]} form", "bilinear",
+                     as_rows(bilinear, plan, chunks_of.get(name, 0), (form,))))
+    for name, fns_ in parent_fns.items():
+        for label, kind, fn in fns_:
             got = fn(inputs[name])
             check(kind, f"{name} on {label}'s {kind} kernel",
                   torch.cat(got, dim=-3) if isinstance(got, list) else got,
@@ -1305,7 +1421,7 @@ def main(argv: list) -> int:
         plan, xin = plans[name], inputs[name]
         p1 = cuda_time_ms(lambda: plain_fn(plan, xin), warmup=1, iters=5)
         ks, ps = [], [[] for _ in parent_fns.get(name, ())]
-        for _ in range(5 if name in five else 2):
+        for _ in range(5):
             ks.append(cuda_time_ms(lambda: kernel_fn(plan, xin)))
             for turns, (_, _, fn) in zip(ps, parent_fns.get(name, ())):
                 turns.append(cuda_time_ms(lambda: fn(xin)))
@@ -1331,10 +1447,28 @@ def main(argv: list) -> int:
                 f"{100 * (in_gbs + out_gbs) / HBM_PEAK_GBS:.1f}%), on {card}")
         for turns, (label, kind, _) in zip(ps, parent_fns.get(name, ())):
             pm = statistics.median(turns)
-            log(f"[compare] {name}: {label}'s {kind} kernel {pm:.4f} ms (turns "
+            what = label if label.startswith("this tree") else f"{label}'s {kind} kernel"
+            log(f"[compare] {name}: {what} {pm:.4f} ms (turns "
                 f"{', '.join(f'{t:.4f}' for t in turns)}, min-max {min(turns):.4f}-"
                 f"{max(turns):.4f}; {100 * bounds[name] / pm:.1f}% of the bound), this tree "
                 f"{k_ms:.4f} ms, in turns; {pm / k_ms:.2f}x, on {card}")
+
+    # the copy row's library call: COPY x COPY between identical formats is
+    # the identity, so torch.Tensor.clone gives its bytes; in turns with the
+    # general kernel (the port never calls it)
+    plan, xin = plans["copy"], inputs["copy"]
+    check("bilinear", f"copy {plan.key}: torch.Tensor.clone", xin.clone(),
+          bilinear.scale_fn(plan, xin))
+    ks, cs = [], []
+    for _ in range(5):
+        ks.append(cuda_time_ms(lambda: bilinear.scale_fn(plan, xin)))
+        cs.append(cuda_time_ms(xin.clone))
+    library_ms = {"copy": statistics.median(cs)}
+    log(f"[library] copy {plan.key}: torch.Tensor.clone {library_ms['copy']:.4f} ms (turns "
+        f"{', '.join(f'{t:.4f}' for t in cs)}, min-max {min(cs):.4f}-{max(cs):.4f}; "
+        f"{100 * bounds['copy'] / library_ms['copy']:.1f}% of the bound), the general kernel "
+        f"{statistics.median(ks):.4f} ms (turns {', '.join(f'{t:.4f}' for t in ks)}), in "
+        f"turns, on {card}")
 
     # row 5: the pyramid kernel, its plain version, and the same levels level
     # by level on the general kernel (three launches, each reading the batch)
@@ -1419,7 +1553,40 @@ def main(argv: list) -> int:
             f"({len(xbs)} calls, {route}), {n_img / (ms / 1e3):.1f} pyramids/s; bound "
             f"{bound_ms(g_in, g_out):.4f} ms ({g_in} + {g_out} bytes), "
             f"{100 * bound_ms(g_in, g_out) / ms:.1f}% of it, on {card}")
-    del resident, fns
+    # 5b's 384^2 group level by level (64^2, 128^2, 256^2 apart) over its
+    # sub-batches, on the general kernel, in turns with each other
+    # checkout's and with this tree's other forms of the direct path
+    key384 = next(k for k in group_plans if k[0][:2] == (384, 384))
+    xbs = [xb for k, _, xb in resident if k == key384]
+    n384, in384 = sum(xb.shape[0] for xb in xbs), sum(xb.numel() for xb in xbs)
+    for p_ in group_plans[key384]:
+        if kernel_of(p_) != "bilinear":
+            raise AssertionError(f"5b's 384^2 level {p_.key} is not on the general kernel")
+        runs = [("this tree", partial(lambda p_: [bilinear.scale_fn(p_, xb) for xb in xbs], p_))]
+        for label, parent, *_, parent_bil in parents:
+            runs.append((f"{label}'s general kernel", partial(
+                lambda pp: [parent_bil.scale_fn(pp, xb) for xb in xbs],
+                parent.ScalePlan(*p_.key))))
+        for form in bilinear.direct_forms(p_):
+            if form != bilinear.direct_form(p_):
+                runs.append((f"this tree's {bilinear.FORMS[form]} form", partial(
+                    lambda p_, form: [bilinear.scale_fn(p_, xb, form) for xb in xbs], p_, form)))
+        want = runs[0][1]()
+        for label, fn in runs[1:]:
+            if not all(torch.equal(a, b) for a, b in zip(fn(), want)):
+                raise AssertionError(f"5b 384^2 -> {p_.width_out}^2: {label} differs")
+        turns = [[] for _ in runs]
+        for _ in range(5):
+            for t, (_, fn) in zip(turns, runs):
+                t.append(cuda_time_ms(fn, warmup=1, iters=5))
+        bound = bound_ms(in384, n384 * p_.width_out * p_.height_out * 4)
+        for (label, _), t in zip(runs, turns):
+            ms = statistics.median(t)
+            log(f"[time] 5b 384^2 -> {p_.width_out}^2 level ({n384} images, {len(xbs)} "
+                f"launches, {bilinear.FORMS[bilinear.direct_form(p_)]} routed): {label} "
+                f"{ms:.4f} ms (turns {', '.join(f'{v:.4f}' for v in t)}, min-max {min(t):.4f}-"
+                f"{max(t):.4f}); bound {bound:.4f} ms, {100 * bound / ms:.1f}% of it, on {card}")
+    del resident, fns, xbs, want
     cold = list(range(0, len(images), len(images) // FLEET_COLD))[:FLEET_COLD]
     torch.cuda.synchronize()
     t0 = time.perf_counter()

@@ -28,43 +28,65 @@
 // read: 24bpp input gets a constant alpha of 255 (this replaces the TPU's
 // planes feed), unassociated input is premultiplied, ((v+1)*(a+1)-1) >> 8.
 // `row0` is the first output row computed: the row API needs no sliced
-// tables.
+// tables.  No register array is indexed at run time (nvcc would put it in
+// local memory): alpha is picked with selects and the output bytes are
+// swizzled with __byte_perm.
 //
-// What bounds it: device memory.  One thread per output pixel loads the
-// pixels its output needs straight from global memory (L1 serves the
-// neighbouring outputs' overlaps), and no register array is indexed at run
-// time: alpha is picked with selects and the output bytes are swizzled with
-// __byte_perm, so nothing goes to local memory, whose traffic per pixel
-// would cost more than the loads.  That direct path carries ladders, COPY,
-// ONE and boxes under 16 pixels per output column.
+// Two paths, chosen on the host per plan (ops/bilinear.py).
 //
-// A box X axis whose columns read 16 pixels or more, edges included (about
-// 15:1 and past), is staged instead: a thread walking such a span alone loads 4 bytes
-// 64 bytes or more apart from its neighbours.  A block of 256 threads owns
-// a tile of 256/G consecutive output columns of one output row, G threads
-// (lanes, a power of two up to 32) per column.  For each tap row of the V
-// filter, in order, the block copies the stretch of that input row that
-// the tile's spans cover (a host table, `stages`: [lo, hi) per tile, at
-// most kStageBytes; ops/bilinear.stage_table) into shared memory with
-// 16-byte loads from an aligned start, bytes at the ragged ends, so 3-byte
-// and unaligned pixels load as fast as the rest; then each column's lanes
-// sum its span from there, lane g taking pixels g, g + G, ..., and add
-// their sums with shuffles; the V filter runs over the h values in
-// registers, and a tap row equal to the last is not staged again.  Shared
-// words are skewed by one per 32, so that lanes reading spans 4 to 32
-// words apart hit distinct banks.  G grows with the span (128:1: G = 8),
-// so no span is staged in pieces.  Staging ladders and short boxes the
-// same way was slower than the direct path (PERF.md §6): one stretch in
-// flight per block leaves each tap row's load latency bare.  Left for
-// later: a multi-stage cp.async or TMA ring that loads the next tap row
-// while this one is filtered, and an h-row cache shared across output rows
-// (upscales and overlapping ladder pairs load each input row for every
-// output row that reads it).
+// The direct path (ladders, COPY, ONE, boxes under 16 pixels per output
+// column) maps a block of 256 threads onto a tile of tile_w output columns
+// (a power of two up to 32) by 256 / tile_w output rows, a row group; the
+// row groups are counted from output row 0, so that the host's tables of
+// them hold for any `row0`.  Block (x, y, z) takes column tile x, row groups
+// y, y + grid_y, ... of the range and images z, z + grid_z, ...
+// (ops/bilinear.launch_shape: about 16 blocks per SM, grid y and z below
+// 2^16).  Indices are 32-bit within an image; only an image's and a row's
+// base offsets are 64-bit; nothing is divided per output pixel.  Each thread
+// loads its column's X table words once.  Three forms, chosen on the host
+// by class (ops/bilinear.direct_form; the rule and its numbers: PERF.md §6):
+//
+//   LOOP: each thread walks the V taps of its output pixel and H-filters
+//     each tap row from global memory (L1 serves the neighbours' overlaps).
+//     Every tap row is H-filtered again for every output row that reads it.
+//   H TILE: a row group's output rows read a contiguous range of tap rows,
+//     [r_lo, r_hi) (a host table per row group, `windows`); the block
+//     H-filters each (tap row, column) of its tile once, all of them at
+//     once, so many loads are in flight, and keeps each result in shared
+//     memory as one word (8 bits per channel, rounded per row as the
+//     reference does); then each thread runs the V filter over those words.
+//     At most kHWords words a tile (the host keeps plans over it on LOOP).
+//   STAGED ROWS: as H TILE, but the tile's stretch of each tap row, input
+//     columns [c_lo, c_hi) (a host table per column tile), is first copied
+//     into shared memory with 16-byte cp.async of the aligned words that
+//     cover it, `chunk_rows` rows per stage, in a ring of kSlots stages: the
+//     next two chunks' copies are in flight while this one is H-filtered
+//     from shared memory.  3-byte and unaligned pixels are then read as two
+//     shared words and a funnel shift, not as byte loads.
+//
+// The staged box path: a box X axis whose columns read 16 pixels or more,
+// edges included (about 15:1 and past), is staged: a thread walking such a
+// span alone loads 4 bytes 64 bytes or more apart from its neighbours.  A
+// block of 256 threads owns a tile of 256/G consecutive output columns of
+// one output row, G threads (lanes, a power of two up to 32) per column.
+// For each tap row of the V filter, in order, the block copies the stretch
+// of that input row that the tile's spans cover (a host table, `windows`:
+// [lo, hi) per tile, at most kStageBytes; ops/bilinear.stage_table) into
+// shared memory with 16-byte loads from an aligned start, bytes at the
+// ragged ends, so 3-byte and unaligned pixels load as fast as the rest;
+// then each column's lanes sum its span from there, lane g taking pixels g,
+// g + G, ..., and add their sums with shuffles; the V filter runs over the
+// h values in registers, and a tap row equal to the last is not staged
+// again.  Shared words are skewed by one per 32, so that lanes reading spans
+// 4 to 32 words apart hit distinct banks.  G grows with the span (128:1: G =
+// 8), so no span is staged in pieces.
 //
 // Arithmetic: a box span at 64bpp is at most 255:1 (the planner goes to
 // 128bpp past it), so it holds at most 257 values of at most 255 and its
-// sum stays below 2^17; the normalising multiply is 64-bit, and so are byte
-// offsets (32 x 2048^2 x 4 bytes is 512 MiB, larger inputs pass 2^31).
+// sum stays below 2^17; the normalising multiply is 64-bit.  Offsets within
+// an image stay below 2^31 (65535 rows of 65535 x 4 bytes is 2^34: image
+// bases are 64-bit, and so are row bases; a row is below 2^18 bytes, a
+// table index below 65535 * 4).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,6 +105,11 @@ struct BilinearParams {
   int64_t alpha_ch;                // work channel holding alpha (3 for 24bpp input)
   int64_t unassoc_in, unassoc_out;
   int64_t src[4];                  // output byte k <- work channel src[k]
+  int64_t tile_w;                  // direct path: output columns per block, a power of two <= 32
+  int64_t grid_y, grid_z;          // direct path: blocks over the row groups, over the batch
+  int64_t form;                    // direct path: Form
+  int64_t chunk_rows, pitch;       // STAGED ROWS: tap rows per stage, 16-byte units per row
+  int64_t h_words;                 // h tile forms: words of the h tile, a multiple of 4
 };
 
 enum AxisKind { kCopy = 0, kOne = 1, kBilinear = 2, kBox = 3 };
@@ -90,12 +117,22 @@ enum AxisKind { kCopy = 0, kOne = 1, kBilinear = 2, kBox = 3 };
 namespace {
 
 // The X axis's template kinds: kCopy serves COPY and ONE (ONE reads column
-// 0), kBilinear and kBox load directly, kStaged is a staged BOX axis; with
-// the four V kinds and PACKED, 32 instances, none holding both paths.
+// 0), kBilinear and kBox load directly, kStaged is a staged BOX axis.
 constexpr int kStaged = 4;
+// The direct path's forms (ops/bilinear.LOOP, H_TILE, STAGED_ROWS); the two
+// h tile forms read the V kind at run time, their template KY is kAnyY.
+enum Form { kLoop = 0, kHTile = 1, kStagedRows = 2 };
+constexpr int kAnyY = 4;
 
 constexpr int kThreads = 256;
-// Largest input stretch staged at once, in bytes: ops/bilinear.STAGE_BYTES.
+// The h tile's words: ops/bilinear.H_WORDS.
+constexpr int kHWords = 4096;
+// One stage of STAGED ROWS, in bytes, and the stages of its ring:
+// ops/bilinear.SLOT_BYTES and SLOTS.
+constexpr int kSlotBytes = 8192;
+constexpr int kSlots = 3;
+// Largest input stretch of the staged box path at once, in bytes:
+// ops/bilinear.STAGE_BYTES.
 constexpr int kStageBytes = 24576;
 // Its words, with the 16-byte aligned head before it and the word read past
 // its end by an unaligned pixel; then one skew word per 32.
@@ -159,20 +196,20 @@ __device__ __forceinline__ int normalise(int acc, int64_t span_mul) {
                             (int64_t{1} << 23)) >> 24) & 0xff);
 }
 
-// Output `j` of an axis of kind KIND over the values fetch(index, v).
-template <int KIND, class Fetch>
-__device__ __forceinline__ void filter(Fetch&& fetch, const Axis& ax, int64_t j,
-                                       int out[4]) {
+// Output `j` of an axis of kind KIND over the values fetch(index, v); I is
+// the index type (int on the direct path, int64_t on the staged box path).
+template <int KIND, class I, class Fetch>
+__device__ __forceinline__ void filter(Fetch&& fetch, const Axis& ax, I j, int out[4]) {
   if (KIND == kCopy) {
     fetch(j, out);
   } else if (KIND == kOne) {
-    fetch(0, out);
+    fetch(I{0}, out);
   } else if (KIND == kBilinear) {
     const int n = ax.halvings;
     int sum[4] = {0, 0, 0, 0};
     for (int k = 0; k < (1 << n); ++k) {
-      const int64_t s = (j << n) + k;
-      const int64_t o = __ldg(ax.tab + s);
+      const I s = (j << n) + k;
+      const I o = __ldg(ax.tab + s);
       const int f = __ldg(ax.tab + ax.len + s);
       int p[4], q[4];
       fetch(o, p);
@@ -187,9 +224,9 @@ __device__ __forceinline__ void filter(Fetch&& fetch, const Axis& ax, int64_t j,
     const int64_t len = ax.len;
     const int w_first = __ldg(t + len), n_mid = __ldg(t + 3 * len);
     const int w_last = __ldg(t + 5 * len);
-    const int64_t mid = __ldg(t + 2 * len);
+    const I mid = __ldg(t + 2 * len);
     int v[4], acc[4];
-    fetch(__ldg(t), v);
+    fetch(static_cast<I>(__ldg(t)), v);
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[c] = ((v[c] * w_first) >> 8) & 0xff;
     for (int k = 0; k < n_mid; ++k) {
@@ -197,7 +234,7 @@ __device__ __forceinline__ void filter(Fetch&& fetch, const Axis& ax, int64_t j,
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[c] += v[c];
     }
-    fetch(__ldg(t + 4 * len), v);
+    fetch(static_cast<I>(__ldg(t + 4 * len)), v);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       acc[c] += ((v[c] * w_last) >> 8) & 0xff;
@@ -238,54 +275,351 @@ __device__ __forceinline__ void store(int o[4], const BilinearParams& p, bool al
 }
 
 // ---------------------------------------------------------------------------
-// Direct path: one thread per output pixel, pixels loaded from global memory
+// Direct path: output tiles over row groups, three forms
 // ---------------------------------------------------------------------------
 
-// The pixels of one input row, by column.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The pixels of one input row in global memory, by input column.
 template <bool PACKED>
-struct RowPixels {
+struct GlobalRow {
   const uint8_t* row;
   Unpack u;
-  __device__ __forceinline__ void operator()(int64_t x, int v[4]) const {
+  __device__ __forceinline__ void operator()(int x, int v[4]) const {
     load_pixel<PACKED>(row + x * u.nb, u, v);
   }
 };
 
-// The H-filtered values of output column j, by input row.
-template <int KX, bool PACKED>
-struct HValues {
-  const uint8_t* img;
-  int64_t row_bytes;
+// The pixels of one input row staged in shared memory: input column x at
+// byte base + x * nb of the words `s`.  PACKED: 4-byte pixels on word
+// boundaries, one read; else two words and a funnel shift (24bpp: alpha
+// 255).
+template <bool PACKED>
+struct SharedRow {
+  const uint32_t* s;
+  int base;
   Unpack u;
-  Axis ax;
-  int64_t j;
-  __device__ __forceinline__ void operator()(int64_t r, int v[4]) const {
-    filter<KX>(RowPixels<PACKED>{img + r * row_bytes, u}, ax, j, v);
+  __device__ __forceinline__ void operator()(int x, int v[4]) const {
+    const int o = base + x * u.nb, w = o >> 2;
+    uint32_t px;
+    if (PACKED) {
+      px = s[w];
+    } else {
+      px = __funnelshift_r(s[w], s[w + 1], 8 * (o & 3));
+      if (u.nb == 3) px |= 0xff000000u;
+    }
+    unpack(px, u, v);
   }
 };
 
+// The X filter of output column j for the h tile forms: the H-filtered
+// value of a row whose pixels `px` gives.  A BILINEAR column's samples are
+// loaded once (at most 2 halvings at 64bpp, a ratio past 8:1 being a box, so
+// 4 samples); a BOX column reads its six table words per row (L1 serves
+// them), which keeps them out of the registers live across the H pass.
+template <int KX>
+struct XCol {
+  Axis ax;
+  int x;             // the column read: j (0 for ONE)
+  int n;             // kBilinear: halvings
+  int ofs[4], fx[4];  // kBilinear: the samples
+
+  __device__ __forceinline__ XCol(const BilinearParams& p, const int32_t* __restrict__ tab,
+                                  int j)
+      : ax{tab, p.len_x, static_cast<int>(p.halvings_x), p.span_mul_x},
+        x(p.kind_x == kOne ? 0 : j), n(static_cast<int>(p.halvings_x)) {
+    const int len = static_cast<int>(p.len_x);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const bool on = KX == kBilinear && k < (1 << n);
+      ofs[k] = on ? __ldg(tab + (j << n) + k) : 0;
+      fx[k] = on ? __ldg(tab + len + (j << n) + k) : 0;
+    }
+  }
+
+  template <class Px>
+  __device__ __forceinline__ void operator()(const Px& px, int out[4]) const {
+    if constexpr (KX == kBilinear) {
+      int sum[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k < (1 << n)) {
+          int a[4], b[4];
+          px(ofs[k], a);
+          px(ofs[k] + 1, b);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sum[c] += lerp(a[c], b[c], fx[k]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) out[c] = (sum[c] >> n) & 0xff;
+    } else {  // kCopy reads column x, kBox walks its span
+      filter<KX>(px, ax, x, out);
+    }
+  }
+};
+
+// LOOP: the H-filtered values of output column j by input row, from global
+// memory (the X table read per tap, as L1 serves it).
+template <int KX, bool PACKED>
+struct RowsH {
+  const uint8_t* img;
+  int row_bytes;
+  Unpack u;
+  Axis ax;
+  int j;
+  __device__ __forceinline__ void operator()(int r, int v[4]) const {
+    filter<KX>(GlobalRow<PACKED>{img + static_cast<int64_t>(r) * row_bytes, u}, ax, j, v);
+  }
+};
+
+// H TILE, STAGED ROWS: the h words of one column of the tile, by input row
+// (row r_lo is the tile's first; a column's words are `shift` apart).
+struct TileH {
+  const uint32_t* s;
+  int shift, r_lo;
+  __device__ __forceinline__ void operator()(int r, int v[4]) const {
+    const uint32_t w = s[(r - r_lo) << shift];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = (w >> (8 * c)) & 0xff;
+  }
+};
+
+// The V filter of kind `ky` over the h tile's column `h` for output row i,
+// and the store.
+__device__ __forceinline__ void tile_store(int ky, const TileH& h, const Axis& ay, int i,
+                                           const BilinearParams& p, bool alpha_first,
+                                           unsigned perm,
+                                           const int32_t* __restrict__ inv_div_p8,
+                                           uint8_t* dst) {
+  int o[4];
+  switch (ky) {
+    case kCopy: filter<kCopy>(h, ay, i, o); break;
+    case kOne: filter<kOne>(h, ay, i, o); break;
+    case kBilinear: filter<kBilinear>(h, ay, i, o); break;
+    default: filter<kBox>(h, ay, i, o); break;
+  }
+  store(o, p, alpha_first, perm, inv_div_p8, dst);
+}
+
+__device__ __forceinline__ uint32_t pack_h(const int v[4]) {
+  return static_cast<uint32_t>(v[0]) | (static_cast<uint32_t>(v[1]) << 8) |
+         (static_cast<uint32_t>(v[2]) << 16) | (static_cast<uint32_t>(v[3]) << 24);
+}
+
+// The tile and loop geometry shared by the three forms.
+struct Tiles {
+  int tile_w, shift, hshift, tile_h;  // tile_w columns by tile_h = 2^hshift rows
+  int c, tr;                          // this thread's column and row in the tile
+  int j, w_out;                       // its output column; j < w_out: it computes one
+  int row0, row_end;                  // the output rows [row0, row_end)
+  int g_first, g_end;                 // this block's first row group, the range's end
+  int row_bytes, out_row, nb_out;
+
+  // this thread's output row in row group g, or -1 outside [row0, row_end)
+  __device__ __forceinline__ int row(int g) const {
+    const int i = (g << hshift) + tr;
+    return j < w_out && i >= row0 && i < row_end ? i : -1;
+  }
+  __device__ __forceinline__ uint8_t* dst(uint8_t* out, const BilinearParams& p, int64_t b,
+                                          int i) const {
+    return out + (b * p.n_rows + (i - row0)) * out_row + j * nb_out;
+  }
+};
+
+__device__ __forceinline__ Tiles tiles(const BilinearParams& p) {
+  Tiles t;
+  t.tile_w = static_cast<int>(p.tile_w);
+  t.shift = __ffs(t.tile_w) - 1;
+  t.hshift = 8 - t.shift;
+  t.tile_h = 1 << t.hshift;
+  t.c = static_cast<int>(threadIdx.x) & (t.tile_w - 1);
+  t.tr = static_cast<int>(threadIdx.x) >> t.shift;
+  t.j = static_cast<int>(blockIdx.x) * t.tile_w + t.c;
+  t.w_out = static_cast<int>(p.w_out);
+  t.row0 = static_cast<int>(p.row0);
+  t.row_end = t.row0 + static_cast<int>(p.n_rows);
+  t.g_first = (t.row0 >> t.hshift) + static_cast<int>(blockIdx.y);
+  t.g_end = ((t.row_end - 1) >> t.hshift) + 1;
+  t.row_bytes = static_cast<int>(p.w_in * p.nb_in);
+  t.out_row = static_cast<int>(p.w_out * p.nb_out);
+  t.nb_out = static_cast<int>(p.nb_out);
+  return t;
+}
+
 template <int KX, int KY, bool PACKED>
-__device__ __forceinline__ void direct(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
-                                       const int32_t* __restrict__ inv_div_p8,
-                                       const int32_t* __restrict__ tab_x,
-                                       const int32_t* __restrict__ tab_y,
-                                       const BilinearParams& p) {
+__device__ __forceinline__ void direct_loop(const uint8_t* __restrict__ in,
+                                            uint8_t* __restrict__ out,
+                                            const int32_t* __restrict__ inv_div_p8,
+                                            const int32_t* __restrict__ tab_x,
+                                            const int32_t* __restrict__ tab_y,
+                                            const BilinearParams& p) {
+  const Tiles T = tiles(p);
+  if (T.j >= T.w_out) return;
   const Unpack u{static_cast<int>(p.nb_in), p.alpha_ch == 0, p.unassoc_in != 0};
   const Axis ax{tab_x, p.len_x, static_cast<int>(p.halvings_x), p.span_mul_x};
   const Axis ay{tab_y, p.len_y, static_cast<int>(p.halvings_y), p.span_mul_y};
-  const int64_t row_bytes = p.w_in * p.nb_in;
-  const int64_t n_total = p.batch * p.n_rows * p.w_out;
+  const int jx = KX == kCopy && p.kind_x == kOne ? 0 : T.j;
   const unsigned perm = swizzle(p);
-  for (int64_t n = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       n < n_total; n += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t j = n % p.w_out;
-    const int64_t i = p.row0 + (n / p.w_out) % p.n_rows;
-    const int64_t b = n / (p.w_out * p.n_rows);
-    const int64_t jx = KX == kCopy && p.kind_x == kOne ? 0 : j;
-    int o[4];
-    filter<KY>(HValues<KX, PACKED>{in + b * p.h_in * row_bytes, row_bytes, u, ax, jx}, ay, i,
-               o);
-    store(o, p, u.alpha_first, perm, inv_div_p8, out + n * p.nb_out);
+  for (int64_t b = blockIdx.z; b < p.batch; b += gridDim.z) {
+    const RowsH<KX, PACKED> h{in + b * p.h_in * T.row_bytes, T.row_bytes, u, ax, jx};
+    for (int g = T.g_first; g < T.g_end; g += static_cast<int>(gridDim.y)) {
+      const int i = T.row(g);
+      if (i < 0) continue;
+      int o[4];
+      filter<KY>(h, ay, i, o);
+      store(o, p, u.alpha_first, perm, inv_div_p8, T.dst(out, p, b, i));
+    }
+  }
+}
+
+// H TILE (STAGED false) and STAGED ROWS (true).  `windows` holds [r_lo,
+// r_hi) of every row group of the plan (groups counted from output row 0:
+// r_lo row, then r_hi row), then [c_lo, c_hi) of every column tile.
+template <int KX, bool PACKED, bool STAGED>
+__device__ __forceinline__ void direct_tile(const uint8_t* __restrict__ in,
+                                            uint8_t* __restrict__ out,
+                                            const int32_t* __restrict__ inv_div_p8,
+                                            const int32_t* __restrict__ tab_x,
+                                            const int32_t* __restrict__ tab_y,
+                                            const int32_t* __restrict__ windows,
+                                            const BilinearParams& p) {
+  // dynamic shared memory, sized per plan: the h tile's h_words words,
+  // then STAGED ROWS' kSlots stages of chunk_rows * pitch 16-byte units
+  extern __shared__ uint4 s_dyn[];
+  uint32_t* s_h = reinterpret_cast<uint32_t*>(s_dyn);
+  uint4* s_stage = s_dyn + p.h_words / 4;
+  const Tiles T = tiles(p);
+  if (T.g_first >= T.g_end) return;  // the whole block: no row group
+  const bool active = T.j < T.w_out;
+  const Unpack u{static_cast<int>(p.nb_in), p.alpha_ch == 0, p.unassoc_in != 0};
+  const XCol<KX> col(p, tab_x, active ? T.j : T.w_out - 1);
+  const Axis ay{tab_y, p.len_y, static_cast<int>(p.halvings_y), p.span_mul_y};
+  const int ky = static_cast<int>(p.kind_y);
+  const unsigned perm = swizzle(p);
+  const int groups = (static_cast<int>(p.h_out) + T.tile_h - 1) >> T.hshift;
+  const int32_t* r_lo_of = windows;
+  const int32_t* r_hi_of = windows + groups;
+  uint32_t* h_col = s_h + T.c;
+
+  if constexpr (!STAGED) {
+    for (int64_t b = blockIdx.z; b < p.batch; b += gridDim.z) {
+      const uint8_t* img = in + b * p.h_in * T.row_bytes;
+      for (int g = T.g_first; g < T.g_end; g += static_cast<int>(gridDim.y)) {
+        const int r_lo = __ldg(r_lo_of + g), n_taps = __ldg(r_hi_of + g) - r_lo;
+        if (active) {
+          for (int t = T.tr; t < n_taps; t += T.tile_h) {
+            int v[4];
+            col(GlobalRow<PACKED>{img + static_cast<int64_t>(r_lo + t) * T.row_bytes, u}, v);
+            h_col[t << T.shift] = pack_h(v);
+          }
+        }
+        __syncthreads();
+        const int i = T.row(g);
+        if (i >= 0)
+          tile_store(ky, TileH{h_col, T.shift, r_lo}, ay, i, p, u.alpha_first, perm, inv_div_p8,
+                     T.dst(out, p, b, i));
+        __syncthreads();
+      }
+    }
+  } else {
+    const int col_tiles = (T.w_out + T.tile_w - 1) >> T.shift;
+    const int c_lo = __ldg(windows + 2 * groups + blockIdx.x);
+    const int c_hi = __ldg(windows + 2 * groups + col_tiles + blockIdx.x);
+    const int nb = u.nb, span = (c_hi - c_lo) * nb, skip = c_lo * nb;
+    const int pitch = static_cast<int>(p.pitch), chunk = static_cast<int>(p.chunk_rows);
+    const int slot_units = chunk * pitch;
+    const int warp = static_cast<int>(threadIdx.x) >> 5, lane = static_cast<int>(threadIdx.x) & 31;
+    // (image, row group, first tap row of a chunk) and the group's taps
+    struct Cursor {
+      int64_t b;
+      int g, t0, r_lo, n_taps;
+    };
+    const auto open = [&](Cursor& k) {
+      k.r_lo = __ldg(r_lo_of + k.g);
+      k.n_taps = __ldg(r_hi_of + k.g) - k.r_lo;
+    };
+    const auto advance = [&](Cursor& k) {
+      k.t0 += chunk;
+      if (k.t0 < k.n_taps) return;
+      k.t0 = 0;
+      k.g += static_cast<int>(gridDim.y);
+      if (k.g >= T.g_end) {
+        k.g = T.g_first;
+        k.b += gridDim.z;
+      }
+      if (k.b < p.batch) open(k);
+    };
+    // chunk k's rows into stage `slot`: warp w copies rows w, w + 8, ...,
+    // each as the aligned 16-byte words that cover its stretch
+    const auto issue = [&](const Cursor& k, int slot) {
+      const uint8_t* img = in + k.b * p.h_in * T.row_bytes;
+      const int rows = min(chunk, k.n_taps - k.t0);
+      uint4* dst = s_stage + slot * slot_units;
+      for (int t = warp; t < rows; t += kThreads / 32) {
+        const uintptr_t s = reinterpret_cast<uintptr_t>(
+            img + static_cast<int64_t>(k.r_lo + k.t0 + t) * T.row_bytes + skip);
+        const uint4* a0 = reinterpret_cast<const uint4*>(s & ~uintptr_t{15});
+        const int units = (static_cast<int>(s & 15) + span + 15) >> 4;
+        for (int q = lane; q < units; q += 32) cp_async16(dst + t * pitch + q, a0 + q);
+      }
+    };
+    Cursor cur{static_cast<int64_t>(blockIdx.z), T.g_first, 0, 0, 0};
+    open(cur);
+    Cursor ld = cur;
+#pragma unroll
+    for (int s = 0; s < kSlots - 1; ++s) {
+      if (ld.b < p.batch) {
+        issue(ld, s);
+        advance(ld);
+      }
+      cp_async_commit();
+    }
+    for (int slot = 0, slot_ld = kSlots - 1; cur.b < p.batch;) {
+      cp_async_wait<kSlots - 2>();  // this thread's copies of chunk `cur`
+      __syncthreads();              // everyone's, and the slot refilled next is read
+      if (ld.b < p.batch) {
+        issue(ld, slot_ld);
+        advance(ld);
+      }
+      cp_async_commit();
+      const int rows = min(chunk, cur.n_taps - cur.t0);
+      if (active) {
+        const uint32_t base = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(in)) +
+                              static_cast<uint32_t>(cur.b * p.h_in * T.row_bytes) +
+                              static_cast<uint32_t>(skip);
+        const uint32_t* rows_s = reinterpret_cast<const uint32_t*>(s_stage + slot * slot_units);
+        for (int t = T.tr; t < rows; t += T.tile_h) {
+          const int r = cur.r_lo + cur.t0 + t;
+          const int head = static_cast<int>((base + static_cast<uint32_t>(r) *
+                                             static_cast<uint32_t>(T.row_bytes)) & 15);
+          int v[4];
+          col(SharedRow<PACKED>{rows_s + 4 * t * pitch, head - skip, u}, v);
+          h_col[(cur.t0 + t) << T.shift] = pack_h(v);
+        }
+      }
+      if (cur.t0 + chunk >= cur.n_taps) {  // the group's last chunk
+        __syncthreads();
+        const int i = T.row(cur.g);
+        if (i >= 0)
+          tile_store(ky, TileH{h_col, T.shift, cur.r_lo}, ay, i, p, u.alpha_first, perm,
+                     inv_div_p8, T.dst(out, p, cur.b, i));
+      }
+      advance(cur);
+      slot = slot + 1 == kSlots ? 0 : slot + 1;
+      slot_ld = slot_ld + 1 == kSlots ? 0 : slot_ld + 1;
+    }
+    cp_async_wait<0>();
   }
 }
 
@@ -462,62 +796,81 @@ __device__ __forceinline__ void staged(const uint8_t* __restrict__ in, uint8_t* 
   }
 }
 
-template <int KX, int KY, bool PACKED>
+template <int KX, int KY, bool PACKED, int FORM>
 __global__ void __launch_bounds__(kThreads)
 bilinear_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
                 const int32_t* __restrict__ inv_div_p8,
                 const int32_t* __restrict__ tab_x,
                 const int32_t* __restrict__ tab_y,
-                const int32_t* __restrict__ stages, const BilinearParams p) {
+                const int32_t* __restrict__ windows, const BilinearParams p) {
   if constexpr (KX == kStaged)
-    staged<KY, PACKED>(in, out, inv_div_p8, tab_x, tab_y, stages, p);
+    staged<KY, PACKED>(in, out, inv_div_p8, tab_x, tab_y, windows, p);
+  else if constexpr (FORM == kLoop)
+    direct_loop<KX, KY, PACKED>(in, out, inv_div_p8, tab_x, tab_y, p);
   else
-    direct<KX, KY, PACKED>(in, out, inv_div_p8, tab_x, tab_y, p);
+    direct_tile<KX, PACKED, FORM == kStagedRows>(in, out, inv_div_p8, tab_x, tab_y, windows, p);
 }
 
 typedef void (*Launcher)(const uint8_t*, uint8_t*, const int32_t*, const int32_t*,
                          const int32_t*, const int32_t*, const BilinearParams&,
                          cudaStream_t);
 
-template <int KX, int KY, bool PACKED>
+template <int KX, int KY, bool PACKED, int FORM>
 void launch(const uint8_t* in, uint8_t* out, const int32_t* inv_div_p8,
-            const int32_t* tab_x, const int32_t* tab_y, const int32_t* stages,
+            const int32_t* tab_x, const int32_t* tab_y, const int32_t* windows,
             const BilinearParams& p, cudaStream_t s) {
-  int64_t blocks;
+  dim3 grid;
+  size_t smem = 0;
   if (KX == kStaged) {
     const int64_t T = kThreads / p.lanes_x;
-    blocks = p.batch * p.n_rows * ((p.w_out + T - 1) / T);
+    int64_t blocks = p.batch * p.n_rows * ((p.w_out + T - 1) / T);
+    if (blocks > 0x7fffffff) blocks = 0x7fffffff;
+    grid = dim3(static_cast<unsigned>(blocks));
   } else {
-    blocks = (p.batch * p.n_rows * p.w_out + kThreads - 1) / kThreads;
+    grid = dim3(static_cast<unsigned>((p.w_out + p.tile_w - 1) / p.tile_w),
+                static_cast<unsigned>(p.grid_y), static_cast<unsigned>(p.grid_z));
+    if (FORM != kLoop) smem = 4 * p.h_words;
+    if (FORM == kStagedRows) smem += 16 * kSlots * p.chunk_rows * p.pitch;
   }
-  if (blocks > 0x7fffffff) blocks = 0x7fffffff;
-  bilinear_kernel<KX, KY, PACKED><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      in, out, inv_div_p8, tab_x, tab_y, stages, p);
+  bilinear_kernel<KX, KY, PACKED, FORM><<<grid, kThreads, smem, s>>>(
+      in, out, inv_div_p8, tab_x, tab_y, windows, p);
 }
 
-template <int KX, int KY>
+template <int KX, int KY, int FORM>
 Launcher pick(bool packed) {
-  if (packed) return &launch<KX, KY, true>;
-  return &launch<KX, KY, false>;
+  if (packed) return &launch<KX, KY, true, FORM>;
+  return &launch<KX, KY, false, FORM>;
 }
 
+// LOOP and the staged box path: one instance per V kind
 template <int KX>
-Launcher pick(int64_t ky, bool packed) {
+Launcher pick_y(int64_t ky, bool packed) {
   switch (ky) {
-    case kCopy: return pick<KX, kCopy>(packed);
-    case kOne: return pick<KX, kOne>(packed);
-    case kBilinear: return pick<KX, kBilinear>(packed);
-    case kBox: return pick<KX, kBox>(packed);
+    case kCopy: return pick<KX, kCopy, kLoop>(packed);
+    case kOne: return pick<KX, kOne, kLoop>(packed);
+    case kBilinear: return pick<KX, kBilinear, kLoop>(packed);
+    case kBox: return pick<KX, kBox, kLoop>(packed);
   }
   return nullptr;
 }
 
-Launcher pick(int64_t kx, bool staged, int64_t ky, bool packed) {
+template <int KX>
+Launcher pick_form(int64_t ky, int64_t form, bool packed) {
+  if (ky < kCopy || ky > kBox) return nullptr;
+  switch (form) {
+    case kLoop: return pick_y<KX>(ky, packed);
+    case kHTile: return pick<KX, kAnyY, kHTile>(packed);
+    case kStagedRows: return pick<KX, kAnyY, kStagedRows>(packed);
+  }
+  return nullptr;
+}
+
+Launcher pick(int64_t kx, bool staged, int64_t ky, int64_t form, bool packed) {
   switch (kx) {
     case kCopy:
-    case kOne: return pick<kCopy>(ky, packed);
-    case kBilinear: return pick<kBilinear>(ky, packed);
-    case kBox: return staged ? pick<kStaged>(ky, packed) : pick<kBox>(ky, packed);
+    case kOne: return pick_form<kCopy>(ky, form, packed);
+    case kBilinear: return pick_form<kBilinear>(ky, form, packed);
+    case kBox: return staged ? pick_y<kStaged>(ky, packed) : pick_form<kBox>(ky, form, packed);
   }
   return nullptr;
 }
@@ -527,19 +880,23 @@ Launcher pick(int64_t kx, bool staged, int64_t ky, bool packed) {
 // C entry point for ctypes.  `in` is (batch, h_in, w_in, nb_in) uint8,
 // `out` is (batch, n_rows, w_out, nb_out) uint8 and 4-byte aligned,
 // `inv_div_p8` holds 256 int32 (read only for unassociated output), `tab_x`
-// and `tab_y` the axes' tables (unused for COPY and ONE), `stages` the
-// stretch table of a staged BOX X axis (lanes_x > 0; ops/bilinear.
-// stage_table: [lo, hi) of each tile of 256 / lanes_x output columns, at
-// most kStageBytes of input; unused when lanes_x is 0).  The kernel runs on
-// `stream` and is not waited for.  Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for an unknown axis kind, or a lane
-// count that is not 0 or a power of two up to 32 or is set for another
-// kind than BOX.
+// and `tab_y` the axes' tables (unused for COPY and ONE), `windows` the
+// host's windows (ops/bilinear.windows): for a staged BOX X axis (lanes_x >
+// 0) [lo, hi) of each tile of 256 / lanes_x output columns, at most
+// kStageBytes of input; for the direct path's H TILE and STAGED ROWS forms
+// [r_lo, r_hi) of each row group of 256 / tile_w output rows, at most
+// kHWords / tile_w rows, then [c_lo, c_hi) of each column tile (unused by
+// LOOP).  The direct path's grid is (ceil(w_out / tile_w), grid_y, grid_z)
+// (ops/bilinear.launch_shape).  The kernel runs on `stream` and is not
+// waited for.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for an unknown axis kind or form, a lane count that
+// is not 0 or a power of two up to 32 or is set for another kind than BOX,
+// or a tile, grid or stage outside the limits.
 extern "C" int smolscale_bilinear_scale(const uint8_t* in, uint8_t* out,
                                         const int32_t* inv_div_p8,
                                         const int32_t* tab_x,
                                         const int32_t* tab_y,
-                                        const int32_t* stages,
+                                        const int32_t* windows,
                                         const BilinearParams* params,
                                         void* stream) {
   const BilinearParams p = *params;
@@ -547,10 +904,17 @@ extern "C" int smolscale_bilinear_scale(const uint8_t* in, uint8_t* out,
   if (p.lanes_x < 0 || p.lanes_x > 32 || (p.lanes_x & (p.lanes_x - 1)) != 0 ||
       (p.lanes_x > 0 && p.kind_x != kBox))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (p.lanes_x == 0 &&
+      (p.tile_w < 1 || p.tile_w > 32 || (p.tile_w & (p.tile_w - 1)) != 0 || p.grid_y < 1 ||
+       p.grid_y > 65535 || p.grid_z < 1 || p.grid_z > 65535 ||
+       (p.form != kLoop && (p.h_words < 4 || p.h_words > kHWords || p.h_words % 4 != 0)) ||
+       (p.form == kStagedRows &&
+        (p.chunk_rows < 1 || p.pitch < 1 || p.chunk_rows * p.pitch * 16 > kSlotBytes))))
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool packed =
       p.nb_in == 4 && (reinterpret_cast<uintptr_t>(in) & 3) == 0;
-  const Launcher fn = pick(p.kind_x, p.lanes_x > 0, p.kind_y, packed);
+  const Launcher fn = pick(p.kind_x, p.lanes_x > 0, p.kind_y, p.form, packed);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  fn(in, out, inv_div_p8, tab_x, tab_y, stages, p, static_cast<cudaStream_t>(stream));
+  fn(in, out, inv_div_p8, tab_x, tab_y, windows, p, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

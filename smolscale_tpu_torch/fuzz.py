@@ -8,9 +8,12 @@ whole through every one of ``box``, ``bilinear``, ``deep`` and
 ``bilinear128`` whose class holds it (box x box past 64:1 on both ``box.cu``
 and ``deep.cu``), its row range through every kernel of
 ``torch_ops.ROW_KERNELS`` whose class holds it, a level set through
-``ops.pyramid.pyramid_fn``, and the public ``scale`` on each plan.  Every
-result is held against that module's plain version on the same input on
-the card; rows against those rows of the plain whole image.
+``ops.pyramid.pyramid_fn``, and the public ``scale`` on each plan; a plan
+on ``bilinear.cu``'s direct path also runs, whole and by rows, in each of
+its forms that fits (``ops.bilinear.direct_forms``) beside the one it is
+routed to.  Every result is held against that module's plain version on
+the same input on the card; rows against those rows of the plain whole
+image.
 
     python -m smolscale_tpu_torch.fuzz [N] [seed] [--MODE]
 
@@ -257,6 +260,14 @@ def _stage_lanes(plan: ScalePlan) -> int:
         return -1
 
 
+def _other_forms(plan: ScalePlan) -> list[int]:
+    """The forms of ``bilinear.cu``'s direct path that fit the plan, beside
+    the one it is routed to (none for a staged X box)."""
+    if _stage_lanes(plan) != 0:
+        return []
+    return [f for f in bilinear.direct_forms(plan) if f != bilinear.direct_form(plan)]
+
+
 def _draw_staged(rng, index):
     while True:
         ti, to = _int(rng, 0, 10), _int(rng, 0, 10)
@@ -495,9 +506,11 @@ def _name(mod) -> str:
 
 
 def kernel_runs(case: Case, x: torch.Tensor, distinct: torch.Tensor, cover: dict) -> list:
-    """``(label, run, want)`` for every kernel that takes the case, and the
-    public ``scale`` on each plan; adds what each run covers (box forms,
-    deep lanes and chunks, staged lanes, 128bpp tile widths) to ``cover``."""
+    """``(label, run, want)`` for every kernel that takes the case (the
+    general kernel's direct path in each form that fits), and the public
+    ``scale`` on each plan; adds what each run covers (box forms, deep lanes
+    and chunks, staged lanes, direct forms, 128bpp tile widths) to
+    ``cover``."""
     batch, address = case.batch, x.data_ptr()
     reps = -(-batch // distinct.shape[0])
 
@@ -522,7 +535,11 @@ def kernel_runs(case: Case, x: torch.Tensor, distinct: torch.Tensor, cover: dict
             cover["deep chunks"].add(shape["chunks"])
             cover["deep readers"].add(deep.FORMS[deep.form(plan, address)])
         elif name == "bilinear":
-            cover["bilinear staged lanes"].add(_stage_lanes(plan))
+            lanes = _stage_lanes(plan)
+            cover["bilinear staged lanes"].add(lanes)
+            if lanes == 0:
+                cover["bilinear forms"].update(
+                    bilinear.FORMS[f] for f in [bilinear.direct_form(plan)] + _other_forms(plan))
         elif name == "bilinear128":
             tile_w, _, grid_y, _ = bilinear128.launch_shape(plan.width_out, n_rows, batch, sms)
             cover["bilinear128 tile_w"].add(tile_w)
@@ -537,6 +554,10 @@ def kernel_runs(case: Case, x: torch.Tensor, distinct: torch.Tensor, cover: dict
                 note(name, plan, plan.height_out)
                 runs.append((f"{name} {plan.key}", partial(mod.scale_fn, plan, x),
                              partial(plain, i, name, plan)))
+                for f in _other_forms(plan) if mod is bilinear else ():
+                    runs.append((f"{name} {bilinear.FORMS[f]} {plan.key}",
+                                 partial(bilinear.scale_fn, plan, x, f),
+                                 partial(plain, i, name, plan)))
         runs.append((f"scale {plan.key}", partial(stt.scale, plan, x),
                      lambda i=i, plan=plan: plain(i, _name(torch_ops.whole_kernel(plan)), plan)))
     plan = plans[0]
@@ -545,9 +566,12 @@ def kernel_runs(case: Case, x: torch.Tensor, distinct: torch.Tensor, cover: dict
         name = _name(mod)
         if mod.applicable(plan):
             note(name, plan, n)
-            runs.append((f"{name} rows [{first}, {first + n}) {plan.key}",
-                         partial(mod.scale_rows_fn, plan, x, first, n),
-                         lambda name=name: plain(0, name, plan)[:, first : first + n]))
+            for f in [None] + (_other_forms(plan) if mod is bilinear else []):
+                runs.append((f"{name}{'' if f is None else ' ' + bilinear.FORMS[f]} rows "
+                             f"[{first}, {first + n}) {plan.key}",
+                             partial(mod.scale_rows_fn, plan, x, first, n,
+                                     *(() if f is None else (f,))),
+                             lambda name=name: plain(0, name, plan)[:, first : first + n]))
     if len(plans) > 1:
         runs.append((f"pyramid {[p.key[2:4] for p in plans]}",
                      partial(pyramid.pyramid_fn, plans, x),
@@ -567,7 +591,7 @@ class Report:
     launches: dict = dataclasses.field(default_factory=lambda: dict.fromkeys(KERNELS, 0))
     cover: dict = dataclasses.field(default_factory=lambda: {
         k: set() for k in ("box forms", "deep lanes", "deep chunks", "deep readers",
-                           "bilinear staged lanes", "bilinear128 tile_w",
+                           "bilinear staged lanes", "bilinear forms", "bilinear128 tile_w",
                            "bilinear128 row loops")})
     poisoned: int = 0
     runs: int = 0

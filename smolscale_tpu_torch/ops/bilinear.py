@@ -15,10 +15,16 @@ TPU kernel's geometry and VMEM limits play no part.  The numbers are those
 of ``backends/numpy_ref`` for the class (see the note at the top of
 ``csrc/bilinear.cu``).
 
-The kernel loads pixels directly, one thread per output, but for a box X
-axis of about 15:1 and past, whose input it stages in shared memory tile by
-tile of output columns: :func:`stage_table` gives each tile's stretch of an
-input row and the threads per output column.
+The kernel has two paths.  A box X axis of about 15:1 and past is staged
+in shared memory tile by tile of output columns: :func:`stage_table` gives
+each tile's stretch of an input row and the threads per output column.
+Every other plan takes the direct path: blocks over tiles of output columns
+by row groups (:func:`launch_shape`), in one of three forms that
+:func:`direct_form` picks by class -- LOOP (each thread H-filters its own
+tap rows from global memory), H_TILE (each tap row of a row group
+H-filtered once per tile into shared memory, :func:`row_windows`) and
+STAGED_ROWS (as H_TILE, over tap rows copied into shared memory with
+``cp.async``, :func:`column_windows`).
 
 ``scale_fn`` and ``scale_rows_fn`` take ``(B, H, W, nb_in)`` or
 ``(H, W, nb_in)`` uint8 tensors.  A tensor on the CPU goes to
@@ -190,16 +196,21 @@ STAGE_MIN_READS = 16
 LANE_READS = 16
 
 
+def _span_reads(first, last, mid_start, mid_len) -> tuple[np.ndarray, np.ndarray]:
+    """The inputs [lo, hi) of box spans: both edges and those between."""
+    has_mid = mid_len > 0
+    mid_lo = np.where(has_mid, mid_start, first)
+    mid_hi = np.where(has_mid, mid_start + mid_len, first + 1)
+    lo = np.minimum(np.minimum(first, last), mid_lo)
+    hi = np.maximum(np.maximum(first, last) + 1, mid_hi)
+    return lo, hi
+
+
 def box_reads(ax: AxisPlan) -> tuple[np.ndarray, np.ndarray]:
     """For each output column of a BOX axis, the input columns [lo, hi)
     that its H filter reads: both edges and the pixels between them."""
     t = box_h_arrays(ax)
-    has_mid = t["mid_len"] > 0
-    mid_lo = np.where(has_mid, t["mid_start"], t["left_idx"])
-    mid_hi = np.where(has_mid, t["mid_start"] + t["mid_len"], t["left_idx"] + 1)
-    lo = np.minimum(np.minimum(t["left_idx"], t["right_idx"]), mid_lo)
-    hi = np.maximum(np.maximum(t["left_idx"], t["right_idx"]) + 1, mid_hi)
-    return lo, hi
+    return _span_reads(t["left_idx"], t["right_idx"], t["mid_start"], t["mid_len"])
 
 
 def stage_table(ax: AxisPlan, nb: int) -> tuple[int, np.ndarray]:
@@ -235,6 +246,157 @@ def stage_table(ax: AxisPlan, nb: int) -> tuple[int, np.ndarray]:
 def _stage_tables(plan: ScalePlan, device: torch.device) -> tuple[int, torch.Tensor]:
     lanes, table = stage_table(plan.x, plan.meta_in.n_bytes)
     return lanes, torch.as_tensor(table.reshape(-1), device=device)
+
+
+# the direct path (csrc/bilinear.cu): blocks of THREADS threads over tiles of
+# tile_w output columns (a power of two up to 32) by THREADS // tile_w output
+# rows, a row group, counted from output row 0; the grid aims at
+# BLOCKS_PER_SM blocks per SM.  The h tile forms keep at most H_WORDS words
+# of H-filtered values per tile; STAGED_ROWS copies chunks of the tap rows
+# into a ring of SLOTS stages of SLOT_BYTES (kHWords, kSlots, kSlotBytes)
+BLOCKS_PER_SM = 16
+H_WORDS = 4096
+SLOT_BYTES = 8192
+SLOTS = 3
+LOOP, H_TILE, STAGED_ROWS = range(3)
+FORMS = {LOOP: "loop", H_TILE: "h tile", STAGED_ROWS: "staged rows"}
+
+
+def tile_width(w_out: int) -> int:
+    """The direct path's output columns per block: w_out rounded up to a
+    power of two, at most 32."""
+    return min(32, 1 << (w_out - 1).bit_length())
+
+
+def launch_shape(w_out: int, first: int, n: int, batch: int,
+                 sms: int = pixels.H100_SMS) -> tuple[int, int, int, int]:
+    """The direct path's grid for output rows [first, first + n) of
+    ``batch`` images: ``(tile_w, col_tiles, grid_y, grid_z)``.  Row groups
+    of ``THREADS // tile_w`` rows are counted from output row 0, so the
+    range spans those from ``first``'s to ``first + n - 1``'s; block (x, y,
+    z) takes column tile x, the range's row groups y, y + grid_y, ... and
+    images z, z + grid_z, ....  ``grid_y`` is cut so that the grid holds
+    about BLOCKS_PER_SM blocks per SM; ``grid_y`` and ``grid_z`` stay below
+    2^16."""
+    tile_w = tile_width(w_out)
+    tile_h = THREADS // tile_w
+    col_tiles = -(-w_out // tile_w)
+    groups = (first + n - 1) // tile_h - first // tile_h + 1
+    grid_z = min(batch, 65535)
+    grid_y = max(1, min(groups, BLOCKS_PER_SM * sms // (col_tiles * grid_z)))
+    return tile_w, col_tiles, grid_y, grid_z
+
+
+def tap_reads(ax: AxisPlan, vertical: bool) -> tuple[np.ndarray, np.ndarray]:
+    """For each output of an axis, the inputs [lo, hi) that its filter
+    reads: input rows of the V filter, or input columns of the H filter."""
+    kind, n = axis_kind(ax), ax.dim_out
+    if kind == COPY:
+        return np.arange(n), np.arange(1, n + 1)
+    if kind == ONE:
+        return np.zeros(n, dtype=np.int64), np.ones(n, dtype=np.int64)
+    if kind == BILINEAR:
+        ofs = ax.offsets.reshape(n, -1).astype(np.int64)
+        return ofs.min(1), ofs.max(1) + 2
+    if vertical:
+        t = box_v_arrays(ax)
+        return _span_reads(t["first_idx"], t["last_idx"], t["mid_start"], t["mid_len"])
+    return box_reads(ax)
+
+
+def _windows_of(ax: AxisPlan, vertical: bool, size: int) -> np.ndarray:
+    lo, hi = tap_reads(ax, vertical)
+    starts = np.arange(0, ax.dim_out, size)
+    return np.stack([np.minimum.reduceat(lo, starts),
+                     np.maximum.reduceat(hi, starts)]).astype(np.int32)
+
+
+def row_windows(plan: ScalePlan) -> np.ndarray:
+    """The input rows [r_lo, r_hi) that each row group of the direct path
+    reads, as int32 (2, groups): r_lo row, then r_hi row."""
+    return _windows_of(plan.y, True, THREADS // tile_width(plan.width_out))
+
+
+def column_windows(plan: ScalePlan) -> np.ndarray:
+    """The input columns [c_lo, c_hi) that each column tile of the direct
+    path reads, as int32 (2, col_tiles)."""
+    return _windows_of(plan.x, False, tile_width(plan.width_out))
+
+
+def stage_shape(plan: ScalePlan) -> tuple[int, int]:
+    """STAGED_ROWS' ``(chunk_rows, pitch)``: ``pitch`` 16-byte units hold
+    the aligned words that cover any column tile's stretch of a row at any
+    alignment, and a stage of SLOT_BYTES holds ``chunk_rows`` such rows,
+    never more than a row group reads (0 where no row fits)."""
+    cols, rows = column_windows(plan), row_windows(plan)
+    span = int((cols[1] - cols[0]).max()) * plan.meta_in.n_bytes
+    pitch = -(-span // 16) + 1
+    return min(int((rows[1] - rows[0]).max()), SLOT_BYTES // (16 * pitch)), pitch
+
+
+def h_words(plan: ScalePlan) -> int:
+    """The h tile's words: the widest row group's tap rows at the tile's
+    width, rounded up to a multiple of 4 (the stages after them are
+    16-byte aligned)."""
+    rows = row_windows(plan)
+    return -(-int((rows[1] - rows[0]).max()) * tile_width(plan.width_out) // 4) * 4
+
+
+def h_tile_fits(plan: ScalePlan) -> bool:
+    """Whether a row group's tap rows at the tile's width fit the h tile."""
+    return h_words(plan) <= H_WORDS
+
+
+def direct_forms(plan: ScalePlan) -> list[int]:
+    """The direct path's forms that can run the plan: LOOP always, the h
+    tile forms where the tap rows fit (STAGED_ROWS: and a row fits a
+    stage)."""
+    if not h_tile_fits(plan):
+        return [LOOP]
+    return [LOOP, H_TILE] + ([STAGED_ROWS] if stage_shape(plan)[0] >= 1 else [])
+
+
+def h_reuse(plan: ScalePlan) -> float:
+    """The H filters LOOP computes per tile column over those of the h
+    tile: the tap rows of every output row, over the rows of every row
+    group's window (1: no tap row is shared)."""
+    lo, hi = tap_reads(plan.y, True)
+    kind = axis_kind(plan.y)
+    if kind == BILINEAR:
+        taps = 2 << plan.y.halvings
+    elif kind == BOX:
+        taps = 2 + box_v_arrays(plan.y)["mid_len"]
+    else:
+        taps = 1
+    rows = row_windows(plan)
+    return float(np.sum(np.broadcast_to(taps, lo.shape))) / float((rows[1] - rows[0]).sum())
+
+
+def direct_form(plan: ScalePlan) -> int:
+    """The direct path's form by class, where the h tile fits: H_TILE where
+    each output row reads three tap rows or more (a V ladder of 1 or 2
+    halvings, a V box) or the tap rows are shared two-fold or more
+    (upscales, ONE); LOOP otherwise (COPY, 0h downscales) and where the h
+    tile does not fit."""
+    if H_TILE not in direct_forms(plan):
+        return LOOP
+    y = plan.y
+    deep_v = axis_kind(y) == BOX or (axis_kind(y) == BILINEAR and y.halvings >= 1)
+    return H_TILE if deep_v or h_reuse(plan) >= 2 else LOOP
+
+
+@plan_cache
+def _direct(plan: ScalePlan) -> tuple[list[int], int, tuple[int, int]]:
+    return direct_forms(plan), direct_form(plan), stage_shape(plan)
+
+
+@plan_cache
+def _windows(plan: ScalePlan, device: torch.device) -> torch.Tensor:
+    """The direct path's windows as the kernel reads them: every row
+    group's [r_lo, r_hi), then every column tile's [c_lo, c_hi)."""
+    return torch.as_tensor(
+        np.concatenate([row_windows(plan).reshape(-1), column_windows(plan).reshape(-1)]),
+        device=device)
 
 
 # ----------------------------------------------------------------------------
@@ -331,7 +493,10 @@ class _BilinearParams(ctypes.Structure):
             "span_mul_x", "span_mul_y", "lanes_x",
             "nb_in", "nb_out", "alpha_ch", "unassoc_in", "unassoc_out",
         )
-    ] + [("src", ctypes.c_int64 * 4)]
+    ] + [("src", ctypes.c_int64 * 4)] + [
+        (name, ctypes.c_int64)
+        for name in ("tile_w", "grid_y", "grid_z", "form", "chunk_rows", "pitch", "h_words")
+    ]
 
 
 def table_len(ax: AxisPlan) -> int:
@@ -339,17 +504,39 @@ def table_len(ax: AxisPlan) -> int:
     return ax.dim_bilin if kind == BILINEAR else ax.dim_out if kind == BOX else 0
 
 
-def _params(plan: ScalePlan, batch: int, first: int, n: int, lanes: int) -> _BilinearParams:
+@plan_cache
+def _plan_params(plan: ScalePlan) -> _BilinearParams:
+    """The parameters that follow from the plan alone (the direct path's
+    routed form among them); :func:`_params` copies them per call."""
     f = pixels.kernel_fields(plan)
     f["src"] = (ctypes.c_int64 * 4)(*f["src"])
+    _, form, (chunk_rows, pitch) = _direct(plan)
     return _BilinearParams(
-        batch=batch, h_in=plan.height_in, w_in=plan.width_in,
-        h_out=plan.height_out, w_out=plan.width_out, row0=first, n_rows=n,
+        h_in=plan.height_in, w_in=plan.width_in, h_out=plan.height_out, w_out=plan.width_out,
         kind_x=axis_kind(plan.x), kind_y=axis_kind(plan.y),
         halvings_x=plan.x.halvings, halvings_y=plan.y.halvings,
         len_x=table_len(plan.x), len_y=table_len(plan.y),
-        span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul), lanes_x=lanes, **f,
+        span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul),
+        tile_w=tile_width(plan.width_out), form=form, chunk_rows=chunk_rows, pitch=pitch,
+        h_words=h_words(plan), **f,
     )
+
+
+def _params(plan: ScalePlan, batch: int, first: int, n: int, lanes: int,
+            form: int | None = None, sms: int = pixels.H100_SMS) -> _BilinearParams:
+    """The kernel's parameters for output rows [first, first + n) of
+    ``batch`` images; ``form`` is the direct path's (by default
+    :func:`direct_form`'s; unused when ``lanes`` stages a box X axis)."""
+    p = _BilinearParams.from_buffer_copy(_plan_params(plan))
+    p.batch, p.row0, p.n_rows, p.lanes_x = batch, first, n, lanes
+    _, _, p.grid_y, p.grid_z = launch_shape(plan.width_out, first, n, batch, sms)
+    if form is not None:
+        forms = _direct(plan)[0]
+        if not lanes and form not in forms:
+            raise ValueError(f"plan {plan.key}: the direct path's {FORMS.get(form, form)} "
+                             f"form does not fit (forms {[FORMS[k] for k in forms]})")
+        p.form = form
+    return p
 
 
 @functools.cache
@@ -362,7 +549,8 @@ def _entry():
     return fn
 
 
-def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> torch.Tensor:
+def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int,
+            form: int | None) -> torch.Tensor:
     global launches
     if not imgs.is_contiguous():
         raise ValueError("the bilinear kernel takes contiguous input")
@@ -374,11 +562,14 @@ def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> torch.Te
     with torch.cuda.device(imgs.device):
         inv_div = pixels.inv_div_table(imgs.device)
         tx, ty = _tables(plan, imgs.device)
-        lanes, stages = _stage_tables(plan, imgs.device)
-        params = _params(plan, batch.shape[0], first, n, lanes)
+        lanes, windows = _stage_tables(plan, imgs.device)
+        if not lanes:
+            windows = _windows(plan, imgs.device)
+        params = _params(plan, batch.shape[0], first, n, lanes, form,
+                         pixels.sm_count(imgs.device))
         err = _entry()(
             batch.data_ptr(), out.data_ptr(), inv_div.data_ptr(),
-            tx.data_ptr(), ty.data_ptr(), stages.data_ptr(),
+            tx.data_ptr(), ty.data_ptr(), windows.data_ptr(),
             ctypes.byref(params), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -387,20 +578,23 @@ def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> torch.Te
     return out if imgs.dim() == 4 else out[0]
 
 
-def scale_rows_fn(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> torch.Tensor:
+def scale_rows_fn(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int,
+                  form: int | None = None) -> torch.Tensor:
     """Output rows [first, first+n): (B, H, W, nb_in) or (H, W, nb_in) uint8
     -> (B, n, w, nb_out) or (n, w, nb_out) uint8, on the device where
-    ``imgs`` lies.  Only those rows are computed."""
+    ``imgs`` lies.  Only those rows are computed.  ``form`` runs the direct
+    path in that form (one of :func:`direct_forms`) instead of the one
+    :func:`direct_form` picks; the bytes are the same."""
     first, n = int(first), int(n)
     _check(plan, imgs, first, n)
     if imgs.device.type == "cpu":
         return bilinear_scale_ref(plan, imgs, first, n)
     if imgs.device.type == "cuda":
-        return _launch(plan, imgs, first, n)
+        return _launch(plan, imgs, first, n, form)
     raise ValueError(f"no bilinear kernel for device {imgs.device}")
 
 
-def scale_fn(plan: ScalePlan, imgs: torch.Tensor) -> torch.Tensor:
+def scale_fn(plan: ScalePlan, imgs: torch.Tensor, form: int | None = None) -> torch.Tensor:
     """(B, H, W, nb_in) or (H, W, nb_in) uint8 -> (B, h, w, nb_out) or
     (h, w, nb_out) uint8, on the device where ``imgs`` lies."""
-    return scale_rows_fn(plan, imgs, 0, plan.height_out)
+    return scale_rows_fn(plan, imgs, 0, plan.height_out, form)

@@ -131,6 +131,45 @@ STAGED_ROWS = [
     ((4224, 20, 33, 10, 4, 1), 3, 4),
     ((16400, 8, 1025, 4, 0, 0), 1, 2),
 ]
+# the direct path's tiles (ops/bilinear.launch_shape: tile_w output columns
+# by 256 / tile_w rows) on their edges -- w_out 1, 7, 31, 32, 33, 257 and
+# 4096 by h_out 1, 7, 8, 9 and 257 -- over each V kind beside each X kind
+# that loads directly, rows 3a and 3b's classes at a small size and row 5b's
+# 384^2 levels
+DIRECT = [
+    (3, 9, 1, 8, 0, 0),            # 1h x 0h, one column
+    (7, 1, 7, 7, 0, 1),            # COPY x ONE
+    (62, 14, 31, 7, 8, 8),         # 0h x 0h, RGB24
+    (128, 72, 32, 9, 0, 0),        # 1h x 2h
+    (33, 257, 33, 257, 5, 2),      # COPY x COPY
+    (257, 100, 257, 1, 0, 0),      # COPY x 100:1 box, one row
+    (4096, 40, 4096, 8, 0, 0),     # COPY x 2h
+    (4096, 9, 4096, 9, 8, 8),      # COPY x COPY, RGB24
+    (66, 18, 33, 9, 1, 6),         # 0h x 0h, reorders
+    (100, 257, 31, 257, 4, 0),     # 1h x COPY, unassociated in
+    (14, 7, 7, 14, 0, 4),          # 0h x 0h upscale, unassociated out
+    (20, 80, 257, 8, 9, 9),        # 0h upscale x 10:1 box, BGR24
+    (700, 90, 257, 9, 0, 0),       # 1h x 10:1 box
+    (310, 1500, 31, 100, 2, 3),    # 10:1 box x 15:1 box
+    (10, 1, 1, 1, 0, 0),           # 10:1 box x ONE
+    (1, 300, 7, 8, 0, 0),          # ONE x 37.5:1 box
+    (448, 8, 32, 8, 0, 0),         # 14:1 box x COPY
+    (300, 200, 290, 190, 8, 9),    # 0h x 0h, RGB24 -> BGR24
+    (512, 512, 171, 171, 8, 8),    # row 3a's 1h ladder, RGB24
+    (512, 512, 375, 375, 8, 8),    # row 3b's 0h, RGB24
+    (384, 384, 64, 64, 0, 0),      # row 5b's 384^2 levels: 2h, 1h, 0h
+    (384, 384, 128, 128, 0, 0),
+    (384, 384, 256, 256, 0, 0),
+]
+# row ranges that start and end inside a row group
+DIRECT_ROWS = [
+    ((300, 200, 290, 190, 0, 0), 13, 100),
+    ((128, 72, 32, 9, 0, 0), 3, 5),
+    ((33, 257, 33, 257, 5, 2), 100, 157),
+    ((100, 257, 31, 257, 4, 0), 250, 7),
+    ((4096, 40, 4096, 8, 0, 0), 5, 1),
+    ((512, 512, 171, 171, 8, 8), 9, 150),
+]
 # (key, first, n) of test_pallas_rows_exact
 ROWS = [
     ((1024, 512, 128, 64, 0, 0), 16, 8),
@@ -421,10 +460,16 @@ def test_other_axes_load_directly(key):
 
 
 def test_stage_constants_match_kernel():
-    """The staging constants of ops/bilinear.py are the kernel's."""
+    """The staging constants of ops/bilinear.py are the kernel's, those of
+    the direct path's forms included."""
     src = (Path(bilinear.__file__).resolve().parent.parent / "csrc" / "bilinear.cu").read_text()
     assert f"constexpr int kThreads = {bilinear.THREADS};" in src
     assert f"constexpr int kStageBytes = {bilinear.STAGE_BYTES};" in src
+    assert f"constexpr int kHWords = {bilinear.H_WORDS};" in src
+    assert f"constexpr int kSlotBytes = {bilinear.SLOT_BYTES};" in src
+    assert f"constexpr int kSlots = {bilinear.SLOTS};" in src
+    assert (f"enum Form {{ kLoop = {bilinear.LOOP}, kHTile = {bilinear.H_TILE}, "
+            f"kStagedRows = {bilinear.STAGED_ROWS} }};") in src
 
 
 def test_axis_tables_layout():
@@ -447,6 +492,21 @@ def test_kernel_params_follow_plan():
     assert (p.batch, p.row0, p.n_rows, p.kind_x, p.kind_y) == (32, 0, 256, bilinear.BILINEAR,
                                                                bilinear.BILINEAR)
     assert (p.halvings_x, p.halvings_y, p.len_x, p.len_y, p.lanes_x) == (2, 2, 1024, 1024, 0)
+    # the direct path's tiles, grid and form: 32 x 8 tiles, 32 row groups,
+    # cut to 16 blocks per SM of 132 over 8 column tiles and 32 images
+    assert (p.tile_w, p.grid_y, p.grid_z) == (32, 8, 32)
+    assert p.form == bilinear.direct_form(plan)
+    assert (p.chunk_rows, p.pitch) == bilinear.stage_shape(plan)
+    # a row range inside row groups, on 100 SMs, in the STAGED_ROWS form
+    up = ScalePlan(512, 512, 1024, 1024, 5, 0)
+    r = bilinear._params(up, 8, 100, 200, 0, bilinear.STAGED_ROWS, 100)
+    assert (r.row0, r.n_rows, r.form) == (100, 200, bilinear.STAGED_ROWS)
+    # 26 row groups, cut to 1600 // (32 column tiles * 8 images)
+    assert (r.tile_w, r.grid_y, r.grid_z) == (32, 6, 8)
+    assert (r.chunk_rows, r.pitch) == bilinear.stage_shape(up) == (6, 6)
+    # a form that does not fit the plan raises
+    with pytest.raises(ValueError, match="form"):
+        bilinear._params(ScalePlan(4096, 4096, 4096, 32, 0, 0), 8, 0, 32, 0, bilinear.H_TILE)
     q = bilinear._params(ScalePlan(4096, 1, 300, 7, 9, 5), 2, 3, 4, 0)  # box x ONE
     assert (q.kind_x, q.kind_y, q.len_x, q.len_y, q.row0, q.n_rows) == (
         bilinear.BOX, bilinear.ONE, 300, 0, 3, 4)
@@ -522,21 +582,183 @@ def test_single_image_shape():
     assert np.array_equal(got.numpy(), _spec(key, imgs)[0])
 
 
-def _smoke_check_plans():
+def _smoke():
     path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.BILINEAR_CHECK_PLANS, mod.BILINEAR_CHECK_ROWS
+    return mod
 
 
 def test_chip_smoke_plans_are_held_here():
     """chip_smoke.py holds the kernel against the plain version on the card;
     every plan it checks is held against numpy_ref and the Pallas kernel
-    by a test of this file."""
-    plans, rows = _smoke_check_plans()
+    or the JAX package by a test of this file."""
+    smoke = _smoke()
+    plans = smoke.BILINEAR_CHECK_PLANS + smoke.DIRECT_CHECK_PLANS + smoke.BILINEAR_UNALIGNED
+    rows = smoke.BILINEAR_CHECK_ROWS + smoke.DIRECT_CHECK_ROWS
     assert set(plans) <= set(EXACT + UNASSOC_OUT + GENERAL_BOX + BOX_X_BOX + RGB24 + PAST_64
-                             + STAGED)
-    assert set(rows) <= set(ROWS + PAST_64_ROWS + STAGED_ROWS)
+                             + STAGED + DIRECT)
+    assert set(rows) <= set(ROWS + PAST_64_ROWS + STAGED_ROWS + DIRECT_ROWS)
     assert set(STAGED) <= set(plans) and set(STAGED_ROWS) <= set(rows)
+    assert smoke.DIRECT_CHECK_PLANS == DIRECT and smoke.DIRECT_CHECK_ROWS == DIRECT_ROWS
     assert all(bilinear.applicable(ScalePlan(*k)) for k in plans)
+
+
+@pytest.mark.parametrize("key", DIRECT, ids=_id)
+def test_direct_tile_edges_match_jax_and_spec(key):
+    """The plans that put the direct path's tiles on their edges: the plain
+    version against numpy_ref and the JAX package's public API; none is a
+    staged X box."""
+    plan = ScalePlan(*key)
+    assert bilinear.applicable(plan)
+    assert bilinear.stage_table(plan.x, plan.meta_in.n_bytes)[0] == 0
+    imgs = _images(key, sum(key))
+    got = _port(key, imgs)
+    assert np.array_equal(got, _spec(key, imgs))
+    assert np.array_equal(got, smolscale_tpu.scale(smolscale_tpu.ScalePlan(*key), imgs,
+                                                   backend="jax"))
+
+
+@pytest.mark.parametrize("key,first,n", DIRECT_ROWS,
+                         ids=lambda v: _id(v) if isinstance(v, tuple) else str(v))
+def test_direct_rows_match_spec(key, first, n):
+    imgs = _images(key, sum(key) + first)
+    assert np.array_equal(_port(key, imgs, first, n), _spec(key, imgs)[:, first : first + n])
+
+
+def _loop(starts, step, end):
+    """Every value of ``for (v = start; v < end; v += step)`` over each
+    start, as the kernel's loops run them."""
+    return np.concatenate([np.arange(s, end, step) for s in starts] + [np.zeros(0, int)])
+
+
+def _walk(w_out, first, n, batch, sms=132):
+    """How many times csrc/bilinear.cu's direct loops, laid out by
+    launch_shape, compute each image, output row and output column.  The
+    loops nest independently: blocks z over images (b = z, z + grid_z, ...),
+    blocks y over the range's row groups (g = first's group + y, + grid_y,
+    ...) with thread row tr of each (i = g * tile_h + tr, kept in [first,
+    first + n)), blocks x over column tiles with thread column c (j = x *
+    tile_w + c, kept below w_out)."""
+    tile_w, col_tiles, grid_y, grid_z = bilinear.launch_shape(w_out, first, n, batch, sms)
+    shift = tile_w.bit_length() - 1
+    tile_h = bilinear.THREADS >> shift
+    assert tile_w == 1 << shift and tile_w <= 32 and tile_w * tile_h == bilinear.THREADS
+    images = np.bincount(_loop(range(grid_z), grid_z, batch), minlength=batch)
+    g_end = (first + n - 1) // tile_h + 1
+    groups = _loop(range(first // tile_h, first // tile_h + grid_y), grid_y, g_end)
+    rows = (groups[:, None] * tile_h + np.arange(tile_h)[None, :]).reshape(-1)
+    rows = np.bincount(rows[(rows >= first) & (rows < first + n)] - first, minlength=n)
+    cols = (np.arange(col_tiles)[:, None] * tile_w + np.arange(tile_w)[None, :]).reshape(-1)
+    cols = np.bincount(cols[cols < w_out], minlength=w_out)
+    return (tile_w, col_tiles, grid_y, grid_z), images, rows, cols
+
+
+@pytest.mark.parametrize("w_out", [1, 7, 31, 32, 33, 257, 4096])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 257])
+@pytest.mark.parametrize("first", [0, 5, 300])
+def test_launch_shape_covers_every_pixel_once(w_out, n, first):
+    """Every output pixel of every image is computed exactly once, for row
+    ranges from a row group's start and from inside one; grid y and z stay
+    below 2^16, grid y holds no block without a row group, and the grid is
+    cut to about 16 blocks per SM."""
+    for batch in (1, 3):
+        (tile_w, col_tiles, grid_y, grid_z), images, rows, cols = _walk(w_out, first, n, batch)
+        assert (images == 1).all() and (rows == 1).all() and (cols == 1).all()
+        tile_h = bilinear.THREADS // tile_w
+        groups = (first + n - 1) // tile_h - first // tile_h + 1
+        assert 1 <= grid_y <= min(groups, 65535) and 1 <= grid_z <= 65535
+        assert grid_y == groups or col_tiles * grid_y * grid_z <= bilinear.BLOCKS_PER_SM * 132
+
+
+@pytest.mark.parametrize("w_out,first,n,batch", [(8, 0, 8200, 8), (4, 0, 2, 70000),
+                                                 (1, 3, 9, 8000), (4096, 0, 9, 7300)])
+def test_launch_shape_covers_tall_batches(w_out, first, n, batch):
+    """Batch x rows past 65,535, and batches past 65,535 images: grid z
+    loops over images, and every pixel is still computed once."""
+    assert batch * n > 65535
+    (_, _, grid_y, grid_z), images, rows, cols = _walk(w_out, first, n, batch)
+    assert (images == 1).all() and (rows == 1).all() and (cols == 1).all()
+    assert grid_y <= 65535 and grid_z == min(batch, 65535)
+
+
+def _reads(ax, tab, vertical, j):
+    """The inputs the kernel reads for output ``j`` of an axis from its
+    table, as csrc/bilinear.cu's filters walk it."""
+    kind = bilinear.axis_kind(ax)
+    if kind == bilinear.COPY:
+        return [j]
+    if kind == bilinear.ONE:
+        return [0]
+    if kind == bilinear.BILINEAR:
+        k = 1 << ax.halvings
+        ofs = tab[: len(tab) // 2]
+        return [r for s in range(j * k, (j + 1) * k) for r in (ofs[s], ofs[s] + 1)]
+    first, _, mid, n_mid, last, _ = tab.reshape(6, -1)[:, j]
+    return [first, last, *range(mid, mid + n_mid)]
+
+
+# every plan of the direct path's tests, the rows chip_smoke.py times on
+# it, and the test_api_strides plan
+WINDOW_PLANS = DIRECT + [
+    (80, 96, 37, 41, 0, 4), (2048, 2048, 256, 256, 0, 0), (512, 512, 1024, 1024, 5, 0),
+    (4096, 4096, 1371, 1371, 8, 8), (4096, 4096, 3000, 3000, 8, 8), (4096, 4096, 700, 700, 0, 0),
+    (4096, 4096, 300, 300, 0, 0), (8192, 8192, 1024, 1024, 0, 0), (1024, 1024, 1024, 1024, 0, 0),
+    (4096, 4096, 4096, 32, 0, 0), (1100, 300, 80, 100, 0, 0), (300, 1100, 100, 80, 4, 1),
+    (16, 9000, 8, 8200, 0, 0), (8, 4, 4, 2, 8, 8),
+]
+
+
+@pytest.mark.parametrize("key", WINDOW_PLANS, ids=_id)
+def test_direct_windows_hold_every_read(key):
+    """Each row group's window [r_lo, r_hi) holds every V tap row of each of
+    its output rows, and each column tile's [c_lo, c_hi) every input column
+    that the H filter of its outputs reads, inside the image; LOOP reads
+    neither, the h tile forms both."""
+    plan = ScalePlan(*key)
+    tile_w = bilinear.tile_width(plan.width_out)
+    tile_h = bilinear.THREADS // tile_w
+    for ax, vertical, size, win in ((plan.y, True, tile_h, bilinear.row_windows(plan)),
+                                    (plan.x, False, tile_w, bilinear.column_windows(plan))):
+        tab = bilinear.axis_table(ax, vertical)
+        assert win.dtype == np.int32 and win.shape == (2, -(-ax.dim_out // size))
+        assert (0 <= win[0]).all() and (win[0] < win[1]).all() and (win[1] <= ax.dim_in).all()
+        for j in range(ax.dim_out):
+            reads = _reads(ax, tab, vertical, j)
+            lo, hi = win[:, j // size]
+            assert lo <= min(reads) and max(reads) < hi, (vertical, j)
+    windows = bilinear._windows(plan, torch.device("cpu"))
+    assert torch.equal(windows, torch.from_numpy(np.concatenate(
+        [bilinear.row_windows(plan).reshape(-1), bilinear.column_windows(plan).reshape(-1)])))
+
+
+@pytest.mark.parametrize("key", WINDOW_PLANS, ids=_id)
+def test_direct_forms_fit_shared_memory(key):
+    """The h tile forms run a plan only where its widest row group's taps
+    fit kHWords words at the tile's width; STAGED_ROWS only where a stage
+    of SLOT_BYTES holds at least one row at a pitch that covers any column
+    tile's stretch at any alignment, and at most a row group's taps.  The
+    routed form is one that fits."""
+    plan = ScalePlan(*key)
+    forms, form = bilinear.direct_forms(plan), bilinear.direct_form(plan)
+    rows = bilinear.row_windows(plan)
+    taps = int((rows[1] - rows[0]).max())
+    tile_w = bilinear.tile_width(plan.width_out)
+    assert forms[0] == bilinear.LOOP and form in forms
+    assert (bilinear.H_TILE in forms) == (taps * tile_w <= bilinear.H_WORDS)
+    chunk, pitch = bilinear.stage_shape(plan)
+    cols = bilinear.column_windows(plan)
+    span = int((cols[1] - cols[0]).max()) * plan.meta_in.n_bytes
+    assert all(-(-(head + span) // 16) <= pitch for head in range(16))
+    if bilinear.STAGED_ROWS in forms:
+        assert 1 <= chunk <= taps and chunk * pitch * 16 <= bilinear.SLOT_BYTES
+    else:
+        assert chunk == 0 or bilinear.H_TILE not in forms
+
+
+def test_a_deep_v_box_stays_on_loop():
+    """a1-strip-rows (COPY x 128:1 box): a row group reads 1,025 rows, past
+    the h tile, so only LOOP takes it."""
+    plan = ScalePlan(4096, 4096, 4096, 32, 0, 0)
+    assert bilinear.direct_forms(plan) == [bilinear.LOOP] == [bilinear.direct_form(plan)]

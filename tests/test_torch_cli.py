@@ -171,8 +171,10 @@ def test_check_fails_on_one_flipped_byte(short_sweep, capsys):
 
 
 # the ops layer's per-plan caches
-PLAN_CACHES = (bilinear._tables, bilinear._stage_tables, bilinear128._tables, deep._tables,
-               deep.span_words, deep.span_rows, pyramid._applicable)
+PLAN_CACHES = (bilinear._tables, bilinear._stage_tables, bilinear._direct, bilinear._windows,
+               bilinear._plan_params,
+               bilinear128._tables, deep._tables, deep.span_words, deep.span_rows,
+               pyramid._applicable)
 
 
 def test_check_keeps_the_table_caches_bounded(short_sweep):

@@ -78,6 +78,14 @@ def _smoke():
 BILINEAR_PLANS += [k for k in _smoke().BILINEAR_CHECK_PLANS if k not in BILINEAR_PLANS]
 BILINEAR_ROWS = _smoke().BILINEAR_CHECK_ROWS
 BILINEAR_UNALIGNED = _smoke().BILINEAR_UNALIGNED
+# chip_smoke.py's plans on the direct path's tile edges, its row ranges
+# inside row groups, its 3-byte inputs at byte offsets 1-3 and its batches
+# past 65,535 output rows (and images), run in every form that fits
+DIRECT_PLANS = _smoke().DIRECT_CHECK_PLANS
+DIRECT_ROWS = _smoke().DIRECT_CHECK_ROWS
+DIRECT_UNALIGNED = [k for k in BILINEAR_UNALIGNED if stt.get_meta(k[4]).n_bytes == 3
+                    and not bilinear.stage_table(stt.ScalePlan(*k).x, 3)[0]]
+BILINEAR_TALL = _smoke().BILINEAR_TALL
 DEEP_PLANS = _smoke().DEEP_CHECK_PLANS
 # chip_smoke.py's deep box kernel inputs at byte offsets 1-4 and 8, and its
 # batch of more than 65535 images
@@ -242,6 +250,79 @@ def test_bilinear_unaligned_input(cuda_device, key, offset):
     h = plan.height_out
     assert torch.equal(bilinear.scale_rows_fn(plan, shifted, h // 2, h - h // 2),
                        want[:, h // 2 :])
+
+
+def _forms(plan):
+    return bilinear.direct_forms(plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", DIRECT_PLANS, ids=_id)
+def test_direct_forms_match_plain(cuda_device, key):
+    """Each form of the direct path that fits, whole and on a row range that
+    starts inside a row group, against the plain version; the routed form is
+    the one ``scale_fn`` takes."""
+    plan = stt.ScalePlan(*key)
+    x = torch.randint(0, 256, (3, key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8,
+                      device=cuda_device)
+    want = bilinear.bilinear_scale_ref(plan, x)
+    h = plan.height_out
+    first, n = min(5, h - 1), max(1, h - min(5, h - 1) - 1)
+    assert torch.equal(bilinear.scale_fn(plan, x), want)
+    for form in _forms(plan):
+        before = bilinear.launches
+        assert torch.equal(bilinear.scale_fn(plan, x, form), want), bilinear.FORMS[form]
+        assert torch.equal(bilinear.scale_rows_fn(plan, x, first, n, form),
+                           want[:, first : first + n]), bilinear.FORMS[form]
+        assert bilinear.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key,first,n", DIRECT_ROWS,
+                         ids=lambda v: _id(v) if isinstance(v, tuple) else str(v))
+def test_direct_rows_match_plain(cuda_device, key, first, n):
+    plan = stt.ScalePlan(*key)
+    x = torch.randint(0, 256, (2, key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8,
+                      device=cuda_device)
+    want = bilinear.bilinear_scale_ref(plan, x, first, n)
+    for form in _forms(plan):
+        assert torch.equal(bilinear.scale_rows_fn(plan, x, first, n, form), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", DIRECT_UNALIGNED, ids=_id)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_direct_unaligned_3_byte_input(cuda_device, key, offset):
+    """3-byte rows at byte offsets 1-3 in every form, whole and by rows:
+    STAGED_ROWS copies the aligned words that cover each stretch."""
+    plan = stt.ScalePlan(*key)
+    x = torch.randint(0, 256, (2, key[1], key[0], 3), dtype=torch.uint8, device=cuda_device)
+    want = bilinear.bilinear_scale_ref(plan, x)
+    flat = torch.empty(x.numel() + offset, dtype=torch.uint8, device=cuda_device)
+    shifted = flat[offset:].view(x.shape)
+    shifted.copy_(x)
+    h = plan.height_out
+    for form in _forms(plan):
+        assert torch.equal(bilinear.scale_fn(plan, shifted, form), want)
+        assert torch.equal(bilinear.scale_rows_fn(plan, shifted, h // 3, h - 1 - h // 3, form),
+                           want[:, h // 3 : h - 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key,batch", BILINEAR_TALL,
+                         ids=lambda v: _id(v) if isinstance(v, tuple) else str(v))
+def test_direct_tall_batch(cuda_device, key, batch):
+    """More than 65,535 output rows in the batch (grid z at the batch), and
+    more than 65,535 images (grid z loops), in every form."""
+    plan = stt.ScalePlan(*key)
+    assert batch * plan.height_out > 65535
+    few = torch.randint(0, 256, (7, key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8,
+                        device=cuda_device)
+    reps = -(-batch // 7)
+    x = few.repeat(reps, 1, 1, 1)[:batch]
+    want = bilinear.bilinear_scale_ref(plan, few).repeat(reps, 1, 1, 1)[:batch]
+    for form in _forms(plan):
+        assert torch.equal(bilinear.scale_fn(plan, x, form), want)
 
 
 @pytest.mark.cuda

@@ -108,6 +108,27 @@ def test_draws_reach_every_launch_shape():
     assert [c.keys[0] for c in _draws("band", n=8)] == _DEEP_CASES
 
 
+def test_direct_draws_reach_every_form():
+    """The modes that reach ``bilinear.cu``'s direct path draw plans that
+    route to each of its forms, and plans that fit each form; the fuzz runs
+    a direct plan in every form that fits (``_other_forms`` beside the
+    routed one), and nothing else for a staged X box."""
+    routed, fitting = set(), set()
+    with torch_ops.transient_plans():
+        for mode in ("uniform", "edges", "mixed", "up", "tall"):
+            for case in _draws(mode):
+                plan = case.plans()[0]
+                if not bilinear.applicable(plan) or fuzz._stage_lanes(plan) != 0:
+                    continue
+                forms = bilinear.direct_forms(plan)
+                assert sorted([bilinear.direct_form(plan)] + fuzz._other_forms(plan)) == forms
+                routed.add(bilinear.direct_form(plan))
+                fitting.update(forms)
+        staged = _draws("staged")[0].plans()[0]
+        assert fuzz._other_forms(staged) == []
+    assert routed == fitting == {bilinear.LOOP, bilinear.H_TILE, bilinear.STAGED_ROWS}
+
+
 def test_draw_is_a_function_of_the_generator():
     a, b = _draws("deep", seed=3, n=20), _draws("deep", seed=3, n=20)
     assert a == b and a != _draws("deep", seed=4, n=20)
