@@ -14,9 +14,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    build time, ptxas's report and each kernel's count of template
    instances, and for each instance of the box kernel
    (``box_kernel<FORM, W, PX>``), the general kernel
-   (``bilinear_kernel<KX, KY, PACKED, FORM>``: FORM 0 LOOP, 1 H TILE, 2
-   STAGED ROWS; KY 4 for the h tile forms, which read the V kind at run
-   time), the 128bpp kernel (``bilinear128_kernel<KX, KY, MODE, PACKED>``)
+   (``bilinear_kernel<KX, KY, PACKED, FORM>``: FORM 0 LOOP, 1 H TILE; KY 4
+   for H TILE, which reads the V kind at run time), the 128bpp kernel (``bilinear128_kernel<KX, KY, MODE, PACKED>``)
    and the deep box kernel (``deep_kernel<MODE, FORM, W>``) its registers,
    stack frame, spills and shared memory per block; it raises if a deep box
    or general kernel instance has a stack frame or spills.

@@ -42,27 +42,39 @@
 // y, y + grid_y, ... of the range and images z, z + grid_z, ...
 // (ops/bilinear.launch_shape: about 16 blocks per SM, grid y and z below
 // 2^16).  Indices are 32-bit within an image; only an image's and a row's
-// base offsets are 64-bit; nothing is divided per output pixel.  Each thread
-// loads its column's X table words once.  Three forms, chosen on the host
-// by class (ops/bilinear.direct_form; the rule and its numbers: PERF.md §6):
+// base offsets are 64-bit; nothing is divided per output pixel (the
+// earlier flat loop paid three 64-bit divisions per output).  Two forms,
+// chosen on the host by class (ops/bilinear.direct_form):
 //
 //   LOOP: each thread walks the V taps of its output pixel and H-filters
-//     each tap row from global memory (L1 serves the neighbours' overlaps).
-//     Every tap row is H-filtered again for every output row that reads it.
+//     each tap row from global memory (L1 serves the neighbours' overlaps),
+//     so a tap row is H-filtered again for every output row that reads it.
+//     It takes a COPY V axis (one tap row per output row), 0h downscales,
+//     and V boxes whose row groups read more rows than the h tile holds
+//     (a1-strip-rows' 128:1).
 //   H TILE: a row group's output rows read a contiguous range of tap rows,
 //     [r_lo, r_hi) (a host table per row group, `windows`); the block
 //     H-filters each (tap row, column) of its tile once, all of them at
 //     once, so many loads are in flight, and keeps each result in shared
 //     memory as one word (8 bits per channel, rounded per row as the
-//     reference does); then each thread runs the V filter over those words.
-//     At most kHWords words a tile (the host keeps plans over it on LOOP).
-//   STAGED ROWS: as H TILE, but the tile's stretch of each tap row, input
-//     columns [c_lo, c_hi) (a host table per column tile), is first copied
-//     into shared memory with 16-byte cp.async of the aligned words that
-//     cover it, `chunk_rows` rows per stage, in a ring of kSlots stages: the
-//     next two chunks' copies are in flight while this one is H-filtered
-//     from shared memory.  3-byte and unaligned pixels are then read as two
-//     shared words and a funnel shift, not as byte loads.
+//     reference does); then each thread runs the V filter, of a kind read
+//     at run time, over those words.  The tile's shared memory is sized per
+//     plan (h_words, at most kHWords: 16 KB), which leaves the rest of the
+//     SM's 256 KB to L1.  It takes V ladders of 1 or 2 halvings, V boxes,
+//     upscales and ONE: there each output row reads three tap rows or more,
+//     or shares them two-fold or more.
+//
+// What bounds the direct path: not bytes (PERF.md §6: the timed rows run at
+// 12-76% of their byte bound) but the loads and instructions per output
+// pixel.  An H value costs 1-16 pixel loads, each unpacked (and
+// premultiplied for unassociated input), and a 3-byte pixel is three byte
+// loads; LOOP repeats those for every output row that reads a tap row, H
+// TILE once per tile, at the price of a pass through shared memory and two
+// barriers per row group.  Measured and dropped (PERF.md §6): a third form
+// that staged each tile's stretch of the tap rows in shared memory with
+// 16-byte cp.async in a ring of three stages, to replace the byte loads of
+// 3-byte pixels with two shared words and a funnel shift, was slower than H
+// TILE on every timed row, 3-byte rows included.
 //
 // The staged box path: a box X axis whose columns read 16 pixels or more,
 // edges included (about 15:1 and past), is staged: a thread walking such a
@@ -108,8 +120,7 @@ struct BilinearParams {
   int64_t tile_w;                  // direct path: output columns per block, a power of two <= 32
   int64_t grid_y, grid_z;          // direct path: blocks over the row groups, over the batch
   int64_t form;                    // direct path: Form
-  int64_t chunk_rows, pitch;       // STAGED ROWS: tap rows per stage, 16-byte units per row
-  int64_t h_words;                 // h tile forms: words of the h tile, a multiple of 4
+  int64_t h_words;                 // H TILE: words of the h tile, a multiple of 4
 };
 
 enum AxisKind { kCopy = 0, kOne = 1, kBilinear = 2, kBox = 3 };
@@ -119,18 +130,14 @@ namespace {
 // The X axis's template kinds: kCopy serves COPY and ONE (ONE reads column
 // 0), kBilinear and kBox load directly, kStaged is a staged BOX axis.
 constexpr int kStaged = 4;
-// The direct path's forms (ops/bilinear.LOOP, H_TILE, STAGED_ROWS); the two
-// h tile forms read the V kind at run time, their template KY is kAnyY.
-enum Form { kLoop = 0, kHTile = 1, kStagedRows = 2 };
+// The direct path's forms (ops/bilinear.LOOP, H_TILE); H TILE reads the V
+// kind at run time, its template KY is kAnyY.
+enum Form { kLoop = 0, kHTile = 1 };
 constexpr int kAnyY = 4;
 
 constexpr int kThreads = 256;
-// The h tile's words: ops/bilinear.H_WORDS.
+// The h tile's largest size in words: ops/bilinear.H_WORDS.
 constexpr int kHWords = 4096;
-// One stage of STAGED ROWS, in bytes, and the stages of its ring:
-// ops/bilinear.SLOT_BYTES and SLOTS.
-constexpr int kSlotBytes = 8192;
-constexpr int kSlots = 3;
 // Largest input stretch of the staged box path at once, in bytes:
 // ops/bilinear.STAGE_BYTES.
 constexpr int kStageBytes = 24576;
@@ -278,18 +285,6 @@ __device__ __forceinline__ void store(int o[4], const BilinearParams& p, bool al
 // Direct path: output tiles over row groups, three forms
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // The pixels of one input row in global memory, by input column.
 template <bool PACKED>
 struct GlobalRow {
@@ -300,29 +295,7 @@ struct GlobalRow {
   }
 };
 
-// The pixels of one input row staged in shared memory: input column x at
-// byte base + x * nb of the words `s`.  PACKED: 4-byte pixels on word
-// boundaries, one read; else two words and a funnel shift (24bpp: alpha
-// 255).
-template <bool PACKED>
-struct SharedRow {
-  const uint32_t* s;
-  int base;
-  Unpack u;
-  __device__ __forceinline__ void operator()(int x, int v[4]) const {
-    const int o = base + x * u.nb, w = o >> 2;
-    uint32_t px;
-    if (PACKED) {
-      px = s[w];
-    } else {
-      px = __funnelshift_r(s[w], s[w + 1], 8 * (o & 3));
-      if (u.nb == 3) px |= 0xff000000u;
-    }
-    unpack(px, u, v);
-  }
-};
-
-// The X filter of output column j for the h tile forms: the H-filtered
+// The X filter of output column j for H TILE: the H-filtered
 // value of a row whose pixels `px` gives.  A BILINEAR column's samples are
 // loaded once (at most 2 halvings at 64bpp, a ratio past 8:1 being a box, so
 // 4 samples); a BOX column reads its six table words per row (L1 serves
@@ -383,7 +356,7 @@ struct RowsH {
   }
 };
 
-// H TILE, STAGED ROWS: the h words of one column of the tile, by input row
+// H TILE: the h words of one column of the tile, by input row
 // (row r_lo is the tile's first; a column's words are `shift` apart).
 struct TileH {
   const uint32_t* s;
@@ -483,10 +456,9 @@ __device__ __forceinline__ void direct_loop(const uint8_t* __restrict__ in,
   }
 }
 
-// H TILE (STAGED false) and STAGED ROWS (true).  `windows` holds [r_lo,
-// r_hi) of every row group of the plan (groups counted from output row 0:
-// r_lo row, then r_hi row), then [c_lo, c_hi) of every column tile.
-template <int KX, bool PACKED, bool STAGED>
+// H TILE.  `windows` holds [r_lo, r_hi) of every row group of the plan
+// (groups counted from output row 0): the r_lo row, then the r_hi row.
+template <int KX, bool PACKED>
 __device__ __forceinline__ void direct_tile(const uint8_t* __restrict__ in,
                                             uint8_t* __restrict__ out,
                                             const int32_t* __restrict__ inv_div_p8,
@@ -494,11 +466,8 @@ __device__ __forceinline__ void direct_tile(const uint8_t* __restrict__ in,
                                             const int32_t* __restrict__ tab_y,
                                             const int32_t* __restrict__ windows,
                                             const BilinearParams& p) {
-  // dynamic shared memory, sized per plan: the h tile's h_words words,
-  // then STAGED ROWS' kSlots stages of chunk_rows * pitch 16-byte units
-  extern __shared__ uint4 s_dyn[];
-  uint32_t* s_h = reinterpret_cast<uint32_t*>(s_dyn);
-  uint4* s_stage = s_dyn + p.h_words / 4;
+  // the h tile, h_words words sized per plan (dynamic shared memory)
+  extern __shared__ uint32_t s_h[];
   const Tiles T = tiles(p);
   if (T.g_first >= T.g_end) return;  // the whole block: no row group
   const bool active = T.j < T.w_out;
@@ -508,118 +477,26 @@ __device__ __forceinline__ void direct_tile(const uint8_t* __restrict__ in,
   const int ky = static_cast<int>(p.kind_y);
   const unsigned perm = swizzle(p);
   const int groups = (static_cast<int>(p.h_out) + T.tile_h - 1) >> T.hshift;
-  const int32_t* r_lo_of = windows;
-  const int32_t* r_hi_of = windows + groups;
   uint32_t* h_col = s_h + T.c;
-
-  if constexpr (!STAGED) {
-    for (int64_t b = blockIdx.z; b < p.batch; b += gridDim.z) {
-      const uint8_t* img = in + b * p.h_in * T.row_bytes;
-      for (int g = T.g_first; g < T.g_end; g += static_cast<int>(gridDim.y)) {
-        const int r_lo = __ldg(r_lo_of + g), n_taps = __ldg(r_hi_of + g) - r_lo;
-        if (active) {
-          for (int t = T.tr; t < n_taps; t += T.tile_h) {
-            int v[4];
-            col(GlobalRow<PACKED>{img + static_cast<int64_t>(r_lo + t) * T.row_bytes, u}, v);
-            h_col[t << T.shift] = pack_h(v);
-          }
-        }
-        __syncthreads();
-        const int i = T.row(g);
-        if (i >= 0)
-          tile_store(ky, TileH{h_col, T.shift, r_lo}, ay, i, p, u.alpha_first, perm, inv_div_p8,
-                     T.dst(out, p, b, i));
-        __syncthreads();
-      }
-    }
-  } else {
-    const int col_tiles = (T.w_out + T.tile_w - 1) >> T.shift;
-    const int c_lo = __ldg(windows + 2 * groups + blockIdx.x);
-    const int c_hi = __ldg(windows + 2 * groups + col_tiles + blockIdx.x);
-    const int nb = u.nb, span = (c_hi - c_lo) * nb, skip = c_lo * nb;
-    const int pitch = static_cast<int>(p.pitch), chunk = static_cast<int>(p.chunk_rows);
-    const int slot_units = chunk * pitch;
-    const int warp = static_cast<int>(threadIdx.x) >> 5, lane = static_cast<int>(threadIdx.x) & 31;
-    // (image, row group, first tap row of a chunk) and the group's taps
-    struct Cursor {
-      int64_t b;
-      int g, t0, r_lo, n_taps;
-    };
-    const auto open = [&](Cursor& k) {
-      k.r_lo = __ldg(r_lo_of + k.g);
-      k.n_taps = __ldg(r_hi_of + k.g) - k.r_lo;
-    };
-    const auto advance = [&](Cursor& k) {
-      k.t0 += chunk;
-      if (k.t0 < k.n_taps) return;
-      k.t0 = 0;
-      k.g += static_cast<int>(gridDim.y);
-      if (k.g >= T.g_end) {
-        k.g = T.g_first;
-        k.b += gridDim.z;
-      }
-      if (k.b < p.batch) open(k);
-    };
-    // chunk k's rows into stage `slot`: warp w copies rows w, w + 8, ...,
-    // each as the aligned 16-byte words that cover its stretch
-    const auto issue = [&](const Cursor& k, int slot) {
-      const uint8_t* img = in + k.b * p.h_in * T.row_bytes;
-      const int rows = min(chunk, k.n_taps - k.t0);
-      uint4* dst = s_stage + slot * slot_units;
-      for (int t = warp; t < rows; t += kThreads / 32) {
-        const uintptr_t s = reinterpret_cast<uintptr_t>(
-            img + static_cast<int64_t>(k.r_lo + k.t0 + t) * T.row_bytes + skip);
-        const uint4* a0 = reinterpret_cast<const uint4*>(s & ~uintptr_t{15});
-        const int units = (static_cast<int>(s & 15) + span + 15) >> 4;
-        for (int q = lane; q < units; q += 32) cp_async16(dst + t * pitch + q, a0 + q);
-      }
-    };
-    Cursor cur{static_cast<int64_t>(blockIdx.z), T.g_first, 0, 0, 0};
-    open(cur);
-    Cursor ld = cur;
-#pragma unroll
-    for (int s = 0; s < kSlots - 1; ++s) {
-      if (ld.b < p.batch) {
-        issue(ld, s);
-        advance(ld);
-      }
-      cp_async_commit();
-    }
-    for (int slot = 0, slot_ld = kSlots - 1; cur.b < p.batch;) {
-      cp_async_wait<kSlots - 2>();  // this thread's copies of chunk `cur`
-      __syncthreads();              // everyone's, and the slot refilled next is read
-      if (ld.b < p.batch) {
-        issue(ld, slot_ld);
-        advance(ld);
-      }
-      cp_async_commit();
-      const int rows = min(chunk, cur.n_taps - cur.t0);
+  for (int64_t b = blockIdx.z; b < p.batch; b += gridDim.z) {
+    const uint8_t* img = in + b * p.h_in * T.row_bytes;
+    for (int g = T.g_first; g < T.g_end; g += static_cast<int>(gridDim.y)) {
+      const int r_lo = __ldg(windows + g), n_taps = __ldg(windows + groups + g) - r_lo;
+      // each (tap row, column) of the tile once, all of them at once
       if (active) {
-        const uint32_t base = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(in)) +
-                              static_cast<uint32_t>(cur.b * p.h_in * T.row_bytes) +
-                              static_cast<uint32_t>(skip);
-        const uint32_t* rows_s = reinterpret_cast<const uint32_t*>(s_stage + slot * slot_units);
-        for (int t = T.tr; t < rows; t += T.tile_h) {
-          const int r = cur.r_lo + cur.t0 + t;
-          const int head = static_cast<int>((base + static_cast<uint32_t>(r) *
-                                             static_cast<uint32_t>(T.row_bytes)) & 15);
+        for (int t = T.tr; t < n_taps; t += T.tile_h) {
           int v[4];
-          col(SharedRow<PACKED>{rows_s + 4 * t * pitch, head - skip, u}, v);
-          h_col[(cur.t0 + t) << T.shift] = pack_h(v);
+          col(GlobalRow<PACKED>{img + static_cast<int64_t>(r_lo + t) * T.row_bytes, u}, v);
+          h_col[t << T.shift] = pack_h(v);
         }
       }
-      if (cur.t0 + chunk >= cur.n_taps) {  // the group's last chunk
-        __syncthreads();
-        const int i = T.row(cur.g);
-        if (i >= 0)
-          tile_store(ky, TileH{h_col, T.shift, cur.r_lo}, ay, i, p, u.alpha_first, perm,
-                     inv_div_p8, T.dst(out, p, cur.b, i));
-      }
-      advance(cur);
-      slot = slot + 1 == kSlots ? 0 : slot + 1;
-      slot_ld = slot_ld + 1 == kSlots ? 0 : slot_ld + 1;
+      __syncthreads();
+      const int i = T.row(g);
+      if (i >= 0)
+        tile_store(ky, TileH{h_col, T.shift, r_lo}, ay, i, p, u.alpha_first, perm, inv_div_p8,
+                   T.dst(out, p, b, i));
+      __syncthreads();
     }
-    cp_async_wait<0>();
   }
 }
 
@@ -808,7 +685,7 @@ bilinear_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   else if constexpr (FORM == kLoop)
     direct_loop<KX, KY, PACKED>(in, out, inv_div_p8, tab_x, tab_y, p);
   else
-    direct_tile<KX, PACKED, FORM == kStagedRows>(in, out, inv_div_p8, tab_x, tab_y, windows, p);
+    direct_tile<KX, PACKED>(in, out, inv_div_p8, tab_x, tab_y, windows, p);
 }
 
 typedef void (*Launcher)(const uint8_t*, uint8_t*, const int32_t*, const int32_t*,
@@ -829,8 +706,7 @@ void launch(const uint8_t* in, uint8_t* out, const int32_t* inv_div_p8,
   } else {
     grid = dim3(static_cast<unsigned>((p.w_out + p.tile_w - 1) / p.tile_w),
                 static_cast<unsigned>(p.grid_y), static_cast<unsigned>(p.grid_z));
-    if (FORM != kLoop) smem = 4 * p.h_words;
-    if (FORM == kStagedRows) smem += 16 * kSlots * p.chunk_rows * p.pitch;
+    if (FORM == kHTile) smem = 4 * p.h_words;
   }
   bilinear_kernel<KX, KY, PACKED, FORM><<<grid, kThreads, smem, s>>>(
       in, out, inv_div_p8, tab_x, tab_y, windows, p);
@@ -860,7 +736,6 @@ Launcher pick_form(int64_t ky, int64_t form, bool packed) {
   switch (form) {
     case kLoop: return pick_y<KX>(ky, packed);
     case kHTile: return pick<KX, kAnyY, kHTile>(packed);
-    case kStagedRows: return pick<KX, kAnyY, kStagedRows>(packed);
   }
   return nullptr;
 }
@@ -881,17 +756,17 @@ Launcher pick(int64_t kx, bool staged, int64_t ky, int64_t form, bool packed) {
 // `out` is (batch, n_rows, w_out, nb_out) uint8 and 4-byte aligned,
 // `inv_div_p8` holds 256 int32 (read only for unassociated output), `tab_x`
 // and `tab_y` the axes' tables (unused for COPY and ONE), `windows` the
-// host's windows (ops/bilinear.windows): for a staged BOX X axis (lanes_x >
-// 0) [lo, hi) of each tile of 256 / lanes_x output columns, at most
-// kStageBytes of input; for the direct path's H TILE and STAGED ROWS forms
-// [r_lo, r_hi) of each row group of 256 / tile_w output rows, at most
-// kHWords / tile_w rows, then [c_lo, c_hi) of each column tile (unused by
-// LOOP).  The direct path's grid is (ceil(w_out / tile_w), grid_y, grid_z)
-// (ops/bilinear.launch_shape).  The kernel runs on `stream` and is not
-// waited for.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for an unknown axis kind or form, a lane count that
-// is not 0 or a power of two up to 32 or is set for another kind than BOX,
-// or a tile, grid or stage outside the limits.
+// host's windows: for a staged BOX X axis (lanes_x > 0, ops/bilinear.
+// stage_table) [lo, hi) of each tile of 256 / lanes_x output columns, at
+// most kStageBytes of input; for the direct path (ops/bilinear.row_windows;
+// read by H TILE only) [r_lo, r_hi) of each row group of 256 / tile_w output
+// rows, whose widest is h_words / tile_w rows or fewer.  The direct path's
+// grid is (ceil(w_out / tile_w), grid_y, grid_z) (ops/bilinear.
+// launch_shape).  The kernel runs on `stream` and is not waited for.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// an unknown axis kind or form, a lane count that is not 0 or a power of
+// two up to 32 or is set for another kind than BOX, or a tile, grid or h
+// tile outside the limits.
 extern "C" int smolscale_bilinear_scale(const uint8_t* in, uint8_t* out,
                                         const int32_t* inv_div_p8,
                                         const int32_t* tab_x,
@@ -907,9 +782,7 @@ extern "C" int smolscale_bilinear_scale(const uint8_t* in, uint8_t* out,
   if (p.lanes_x == 0 &&
       (p.tile_w < 1 || p.tile_w > 32 || (p.tile_w & (p.tile_w - 1)) != 0 || p.grid_y < 1 ||
        p.grid_y > 65535 || p.grid_z < 1 || p.grid_z > 65535 ||
-       (p.form != kLoop && (p.h_words < 4 || p.h_words > kHWords || p.h_words % 4 != 0)) ||
-       (p.form == kStagedRows &&
-        (p.chunk_rows < 1 || p.pitch < 1 || p.chunk_rows * p.pitch * 16 > kSlotBytes))))
+       (p.form == kHTile && (p.h_words < 4 || p.h_words > kHWords || p.h_words % 4 != 0))))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool packed =
       p.nb_in == 4 && (reinterpret_cast<uintptr_t>(in) & 3) == 0;

@@ -19,12 +19,10 @@ The kernel has two paths.  A box X axis of about 15:1 and past is staged
 in shared memory tile by tile of output columns: :func:`stage_table` gives
 each tile's stretch of an input row and the threads per output column.
 Every other plan takes the direct path: blocks over tiles of output columns
-by row groups (:func:`launch_shape`), in one of three forms that
+by row groups (:func:`launch_shape`), in one of two forms that
 :func:`direct_form` picks by class -- LOOP (each thread H-filters its own
-tap rows from global memory), H_TILE (each tap row of a row group
-H-filtered once per tile into shared memory, :func:`row_windows`) and
-STAGED_ROWS (as H_TILE, over tap rows copied into shared memory with
-``cp.async``, :func:`column_windows`).
+tap rows from global memory) and H_TILE (each tap row of a row group
+H-filtered once per tile into shared memory, :func:`row_windows`).
 
 ``scale_fn`` and ``scale_rows_fn`` take ``(B, H, W, nb_in)`` or
 ``(H, W, nb_in)`` uint8 tensors.  A tensor on the CPU goes to
@@ -251,15 +249,12 @@ def _stage_tables(plan: ScalePlan, device: torch.device) -> tuple[int, torch.Ten
 # the direct path (csrc/bilinear.cu): blocks of THREADS threads over tiles of
 # tile_w output columns (a power of two up to 32) by THREADS // tile_w output
 # rows, a row group, counted from output row 0; the grid aims at
-# BLOCKS_PER_SM blocks per SM.  The h tile forms keep at most H_WORDS words
-# of H-filtered values per tile; STAGED_ROWS copies chunks of the tap rows
-# into a ring of SLOTS stages of SLOT_BYTES (kHWords, kSlots, kSlotBytes)
+# BLOCKS_PER_SM blocks per SM.  H_TILE keeps at most H_WORDS words of
+# H-filtered values per tile (kHWords there)
 BLOCKS_PER_SM = 16
 H_WORDS = 4096
-SLOT_BYTES = 8192
-SLOTS = 3
-LOOP, H_TILE, STAGED_ROWS = range(3)
-FORMS = {LOOP: "loop", H_TILE: "h tile", STAGED_ROWS: "staged rows"}
+LOOP, H_TILE = range(2)
+FORMS = {LOOP: "loop", H_TILE: "h tile"}
 
 
 def tile_width(w_out: int) -> int:
@@ -304,40 +299,18 @@ def tap_reads(ax: AxisPlan, vertical: bool) -> tuple[np.ndarray, np.ndarray]:
     return box_reads(ax)
 
 
-def _windows_of(ax: AxisPlan, vertical: bool, size: int) -> np.ndarray:
-    lo, hi = tap_reads(ax, vertical)
-    starts = np.arange(0, ax.dim_out, size)
+def row_windows(plan: ScalePlan) -> np.ndarray:
+    """The input rows [r_lo, r_hi) that each row group of the direct path
+    reads, as int32 (2, groups): r_lo row, then r_hi row."""
+    lo, hi = tap_reads(plan.y, vertical=True)
+    starts = np.arange(0, plan.height_out, THREADS // tile_width(plan.width_out))
     return np.stack([np.minimum.reduceat(lo, starts),
                      np.maximum.reduceat(hi, starts)]).astype(np.int32)
 
 
-def row_windows(plan: ScalePlan) -> np.ndarray:
-    """The input rows [r_lo, r_hi) that each row group of the direct path
-    reads, as int32 (2, groups): r_lo row, then r_hi row."""
-    return _windows_of(plan.y, True, THREADS // tile_width(plan.width_out))
-
-
-def column_windows(plan: ScalePlan) -> np.ndarray:
-    """The input columns [c_lo, c_hi) that each column tile of the direct
-    path reads, as int32 (2, col_tiles)."""
-    return _windows_of(plan.x, False, tile_width(plan.width_out))
-
-
-def stage_shape(plan: ScalePlan) -> tuple[int, int]:
-    """STAGED_ROWS' ``(chunk_rows, pitch)``: ``pitch`` 16-byte units hold
-    the aligned words that cover any column tile's stretch of a row at any
-    alignment, and a stage of SLOT_BYTES holds ``chunk_rows`` such rows,
-    never more than a row group reads (0 where no row fits)."""
-    cols, rows = column_windows(plan), row_windows(plan)
-    span = int((cols[1] - cols[0]).max()) * plan.meta_in.n_bytes
-    pitch = -(-span // 16) + 1
-    return min(int((rows[1] - rows[0]).max()), SLOT_BYTES // (16 * pitch)), pitch
-
-
 def h_words(plan: ScalePlan) -> int:
     """The h tile's words: the widest row group's tap rows at the tile's
-    width, rounded up to a multiple of 4 (the stages after them are
-    16-byte aligned)."""
+    width, rounded up to a multiple of 4."""
     rows = row_windows(plan)
     return -(-int((rows[1] - rows[0]).max()) * tile_width(plan.width_out) // 4) * 4
 
@@ -348,12 +321,9 @@ def h_tile_fits(plan: ScalePlan) -> bool:
 
 
 def direct_forms(plan: ScalePlan) -> list[int]:
-    """The direct path's forms that can run the plan: LOOP always, the h
-    tile forms where the tap rows fit (STAGED_ROWS: and a row fits a
-    stage)."""
-    if not h_tile_fits(plan):
-        return [LOOP]
-    return [LOOP, H_TILE] + ([STAGED_ROWS] if stage_shape(plan)[0] >= 1 else [])
+    """The direct path's forms that can run the plan: LOOP always, H_TILE
+    where the tap rows fit the h tile."""
+    return [LOOP, H_TILE] if h_tile_fits(plan) else [LOOP]
 
 
 def h_reuse(plan: ScalePlan) -> float:
@@ -377,8 +347,9 @@ def direct_form(plan: ScalePlan) -> int:
     each output row reads three tap rows or more (a V ladder of 1 or 2
     halvings, a V box) or the tap rows are shared two-fold or more
     (upscales, ONE); LOOP otherwise (COPY, 0h downscales) and where the h
-    tile does not fit."""
-    if H_TILE not in direct_forms(plan):
+    tile does not fit.  On each timed row this is the faster of the two
+    (PERF.md §6)."""
+    if not h_tile_fits(plan):
         return LOOP
     y = plan.y
     deep_v = axis_kind(y) == BOX or (axis_kind(y) == BILINEAR and y.halvings >= 1)
@@ -386,17 +357,15 @@ def direct_form(plan: ScalePlan) -> int:
 
 
 @plan_cache
-def _direct(plan: ScalePlan) -> tuple[list[int], int, tuple[int, int]]:
-    return direct_forms(plan), direct_form(plan), stage_shape(plan)
+def _direct(plan: ScalePlan) -> tuple[list[int], int]:
+    return direct_forms(plan), direct_form(plan)
 
 
 @plan_cache
 def _windows(plan: ScalePlan, device: torch.device) -> torch.Tensor:
     """The direct path's windows as the kernel reads them: every row
-    group's [r_lo, r_hi), then every column tile's [c_lo, c_hi)."""
-    return torch.as_tensor(
-        np.concatenate([row_windows(plan).reshape(-1), column_windows(plan).reshape(-1)]),
-        device=device)
+    group's r_lo, then every row group's r_hi."""
+    return torch.as_tensor(row_windows(plan).reshape(-1), device=device)
 
 
 # ----------------------------------------------------------------------------
@@ -494,8 +463,7 @@ class _BilinearParams(ctypes.Structure):
             "nb_in", "nb_out", "alpha_ch", "unassoc_in", "unassoc_out",
         )
     ] + [("src", ctypes.c_int64 * 4)] + [
-        (name, ctypes.c_int64)
-        for name in ("tile_w", "grid_y", "grid_z", "form", "chunk_rows", "pitch", "h_words")
+        (name, ctypes.c_int64) for name in ("tile_w", "grid_y", "grid_z", "form", "h_words")
     ]
 
 
@@ -510,15 +478,14 @@ def _plan_params(plan: ScalePlan) -> _BilinearParams:
     routed form among them); :func:`_params` copies them per call."""
     f = pixels.kernel_fields(plan)
     f["src"] = (ctypes.c_int64 * 4)(*f["src"])
-    _, form, (chunk_rows, pitch) = _direct(plan)
+    form = _direct(plan)[1]
     return _BilinearParams(
         h_in=plan.height_in, w_in=plan.width_in, h_out=plan.height_out, w_out=plan.width_out,
         kind_x=axis_kind(plan.x), kind_y=axis_kind(plan.y),
         halvings_x=plan.x.halvings, halvings_y=plan.y.halvings,
         len_x=table_len(plan.x), len_y=table_len(plan.y),
         span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul),
-        tile_w=tile_width(plan.width_out), form=form, chunk_rows=chunk_rows, pitch=pitch,
-        h_words=h_words(plan), **f,
+        tile_w=tile_width(plan.width_out), form=form, h_words=h_words(plan), **f,
     )
 
 

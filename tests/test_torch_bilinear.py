@@ -466,10 +466,7 @@ def test_stage_constants_match_kernel():
     assert f"constexpr int kThreads = {bilinear.THREADS};" in src
     assert f"constexpr int kStageBytes = {bilinear.STAGE_BYTES};" in src
     assert f"constexpr int kHWords = {bilinear.H_WORDS};" in src
-    assert f"constexpr int kSlotBytes = {bilinear.SLOT_BYTES};" in src
-    assert f"constexpr int kSlots = {bilinear.SLOTS};" in src
-    assert (f"enum Form {{ kLoop = {bilinear.LOOP}, kHTile = {bilinear.H_TILE}, "
-            f"kStagedRows = {bilinear.STAGED_ROWS} }};") in src
+    assert f"enum Form {{ kLoop = {bilinear.LOOP}, kHTile = {bilinear.H_TILE} }};" in src
 
 
 def test_axis_tables_layout():
@@ -495,15 +492,16 @@ def test_kernel_params_follow_plan():
     # the direct path's tiles, grid and form: 32 x 8 tiles, 32 row groups,
     # cut to 16 blocks per SM of 132 over 8 column tiles and 32 images
     assert (p.tile_w, p.grid_y, p.grid_z) == (32, 8, 32)
-    assert p.form == bilinear.direct_form(plan)
-    assert (p.chunk_rows, p.pitch) == bilinear.stage_shape(plan)
-    # a row range inside row groups, on 100 SMs, in the STAGED_ROWS form
+    # a 2h ladder's row group of 8 rows reads 64 rows: 64 x 32 words
+    assert (p.form, p.h_words) == (bilinear.H_TILE, 2048) == (bilinear.direct_form(plan),
+                                                               bilinear.h_words(plan))
+    # a row range inside row groups, on 100 SMs, in the LOOP form: 26 row
+    # groups, cut to 1600 // (32 column tiles * 8 images)
     up = ScalePlan(512, 512, 1024, 1024, 5, 0)
-    r = bilinear._params(up, 8, 100, 200, 0, bilinear.STAGED_ROWS, 100)
-    assert (r.row0, r.n_rows, r.form) == (100, 200, bilinear.STAGED_ROWS)
-    # 26 row groups, cut to 1600 // (32 column tiles * 8 images)
+    r = bilinear._params(up, 8, 100, 200, 0, bilinear.LOOP, 100)
+    assert (r.row0, r.n_rows, r.form) == (100, 200, bilinear.LOOP)
     assert (r.tile_w, r.grid_y, r.grid_z) == (32, 6, 8)
-    assert (r.chunk_rows, r.pitch) == bilinear.stage_shape(up) == (6, 6)
+    assert bilinear._params(up, 8, 100, 200, 0).form == bilinear.H_TILE
     # a form that does not fit the plan raises
     with pytest.raises(ValueError, match="form"):
         bilinear._params(ScalePlan(4096, 4096, 4096, 32, 0, 0), 8, 0, 32, 0, bilinear.H_TILE)
@@ -683,7 +681,7 @@ def test_launch_shape_covers_tall_batches(w_out, first, n, batch):
     assert grid_y <= 65535 and grid_z == min(batch, 65535)
 
 
-def _reads(ax, tab, vertical, j):
+def _reads(ax, tab, j):
     """The inputs the kernel reads for output ``j`` of an axis from its
     table, as csrc/bilinear.cu's filters walk it."""
     kind = bilinear.axis_kind(ax)
@@ -712,49 +710,40 @@ WINDOW_PLANS = DIRECT + [
 
 @pytest.mark.parametrize("key", WINDOW_PLANS, ids=_id)
 def test_direct_windows_hold_every_read(key):
-    """Each row group's window [r_lo, r_hi) holds every V tap row of each of
-    its output rows, and each column tile's [c_lo, c_hi) every input column
-    that the H filter of its outputs reads, inside the image; LOOP reads
-    neither, the h tile forms both."""
+    """Each row group's window [r_lo, r_hi) lies in the image and holds every
+    V tap row of each of its output rows, as the kernel's V filter walks the
+    plan's V table (H_TILE reads the windows; LOOP does not)."""
     plan = ScalePlan(*key)
-    tile_w = bilinear.tile_width(plan.width_out)
-    tile_h = bilinear.THREADS // tile_w
-    for ax, vertical, size, win in ((plan.y, True, tile_h, bilinear.row_windows(plan)),
-                                    (plan.x, False, tile_w, bilinear.column_windows(plan))):
-        tab = bilinear.axis_table(ax, vertical)
-        assert win.dtype == np.int32 and win.shape == (2, -(-ax.dim_out // size))
-        assert (0 <= win[0]).all() and (win[0] < win[1]).all() and (win[1] <= ax.dim_in).all()
-        for j in range(ax.dim_out):
-            reads = _reads(ax, tab, vertical, j)
-            lo, hi = win[:, j // size]
-            assert lo <= min(reads) and max(reads) < hi, (vertical, j)
-    windows = bilinear._windows(plan, torch.device("cpu"))
-    assert torch.equal(windows, torch.from_numpy(np.concatenate(
-        [bilinear.row_windows(plan).reshape(-1), bilinear.column_windows(plan).reshape(-1)])))
+    tile_h = bilinear.THREADS // bilinear.tile_width(plan.width_out)
+    win = bilinear.row_windows(plan)
+    tab = bilinear.axis_table(plan.y, vertical=True)
+    assert win.dtype == np.int32 and win.shape == (2, -(-plan.height_out // tile_h))
+    assert (0 <= win[0]).all() and (win[0] < win[1]).all() and (win[1] <= plan.height_in).all()
+    for i in range(plan.height_out):
+        reads = _reads(plan.y, tab, i)
+        lo, hi = win[:, i // tile_h]
+        assert lo <= min(reads) and max(reads) < hi, i
+    assert torch.equal(bilinear._windows(plan, torch.device("cpu")),
+                       torch.from_numpy(win.reshape(-1)))
 
 
 @pytest.mark.parametrize("key", WINDOW_PLANS, ids=_id)
 def test_direct_forms_fit_shared_memory(key):
-    """The h tile forms run a plan only where its widest row group's taps
-    fit kHWords words at the tile's width; STAGED_ROWS only where a stage
-    of SLOT_BYTES holds at least one row at a pitch that covers any column
-    tile's stretch at any alignment, and at most a row group's taps.  The
-    routed form is one that fits."""
+    """H_TILE runs a plan only where its widest row group's taps fit
+    kHWords words at the tile's width; its shared memory (h_words, a
+    multiple of 4) holds every row group's taps.  The routed form is one
+    that fits."""
     plan = ScalePlan(*key)
     forms, form = bilinear.direct_forms(plan), bilinear.direct_form(plan)
     rows = bilinear.row_windows(plan)
     taps = int((rows[1] - rows[0]).max())
     tile_w = bilinear.tile_width(plan.width_out)
+    words = bilinear.h_words(plan)
     assert forms[0] == bilinear.LOOP and form in forms
     assert (bilinear.H_TILE in forms) == (taps * tile_w <= bilinear.H_WORDS)
-    chunk, pitch = bilinear.stage_shape(plan)
-    cols = bilinear.column_windows(plan)
-    span = int((cols[1] - cols[0]).max()) * plan.meta_in.n_bytes
-    assert all(-(-(head + span) // 16) <= pitch for head in range(16))
-    if bilinear.STAGED_ROWS in forms:
-        assert 1 <= chunk <= taps and chunk * pitch * 16 <= bilinear.SLOT_BYTES
-    else:
-        assert chunk == 0 or bilinear.H_TILE not in forms
+    assert words % 4 == 0 and taps * tile_w <= words < taps * tile_w + 4
+    if bilinear.H_TILE in forms:
+        assert words <= bilinear.H_WORDS
 
 
 def test_a_deep_v_box_stays_on_loop():

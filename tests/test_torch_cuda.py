@@ -293,8 +293,7 @@ def test_direct_rows_match_plain(cuda_device, key, first, n):
 @pytest.mark.parametrize("key", DIRECT_UNALIGNED, ids=_id)
 @pytest.mark.parametrize("offset", [1, 2, 3])
 def test_direct_unaligned_3_byte_input(cuda_device, key, offset):
-    """3-byte rows at byte offsets 1-3 in every form, whole and by rows:
-    STAGED_ROWS copies the aligned words that cover each stretch."""
+    """3-byte rows at byte offsets 1-3 in every form, whole and by rows."""
     plan = stt.ScalePlan(*key)
     x = torch.randint(0, 256, (2, key[1], key[0], 3), dtype=torch.uint8, device=cuda_device)
     want = bilinear.bilinear_scale_ref(plan, x)

@@ -126,7 +126,7 @@ def test_direct_draws_reach_every_form():
                 fitting.update(forms)
         staged = _draws("staged")[0].plans()[0]
         assert fuzz._other_forms(staged) == []
-    assert routed == fitting == {bilinear.LOOP, bilinear.H_TILE, bilinear.STAGED_ROWS}
+    assert routed == fitting == {bilinear.LOOP, bilinear.H_TILE}
 
 
 def test_draw_is_a_function_of_the_generator():
