@@ -15,10 +15,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    instances, and for each instance of the box kernel
    (``box_kernel<FORM, W, PX>``), the general kernel
    (``bilinear_kernel<KX, KY, PACKED, FORM>``: FORM 0 LOOP, 1 H TILE; KY 4
-   for H TILE, which reads the V kind at run time), the 128bpp kernel (``bilinear128_kernel<KX, KY, MODE, PACKED>``)
-   and the deep box kernel (``deep_kernel<MODE, FORM, W>``) its registers,
-   stack frame, spills and shared memory per block; it raises if a deep box
-   or general kernel instance has a stack frame or spills.
+   for H TILE, which reads the V kind at run time), the 128bpp kernel
+   (``bilinear128_kernel<KX, KY, MODE, PACKED>``) and the deep box kernel
+   (``deep_kernel<MODE, FORM, W>``) its registers, stack frame, spills and
+   shared memory per block; it raises if a deep box or general kernel
+   instance has a stack frame or spills.
 3. Kernels against their plain versions, on the card for a batch of 2: the
    box kernel on each plan of ``CHECK_PLANS`` (plain version
    ``ops.box.box_scale_ref``; its tile edges, 255:1 axes and deep ratios

@@ -282,7 +282,7 @@ __device__ __forceinline__ void store(int o[4], const BilinearParams& p, bool al
 }
 
 // ---------------------------------------------------------------------------
-// Direct path: output tiles over row groups, three forms
+// Direct path: output tiles over row groups, two forms
 // ---------------------------------------------------------------------------
 
 // The pixels of one input row in global memory, by input column.
@@ -390,7 +390,7 @@ __device__ __forceinline__ uint32_t pack_h(const int v[4]) {
          (static_cast<uint32_t>(v[2]) << 16) | (static_cast<uint32_t>(v[3]) << 24);
 }
 
-// The tile and loop geometry shared by the three forms.
+// The tile and loop geometry of both forms.
 struct Tiles {
   int tile_w, shift, hshift, tile_h;  // tile_w columns by tile_h = 2^hshift rows
   int c, tr;                          // this thread's column and row in the tile

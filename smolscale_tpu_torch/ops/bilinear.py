@@ -282,27 +282,25 @@ def launch_shape(w_out: int, first: int, n: int, batch: int,
     return tile_w, col_tiles, grid_y, grid_z
 
 
-def tap_reads(ax: AxisPlan, vertical: bool) -> tuple[np.ndarray, np.ndarray]:
-    """For each output of an axis, the inputs [lo, hi) that its filter
-    reads: input rows of the V filter, or input columns of the H filter."""
-    kind, n = axis_kind(ax), ax.dim_out
+def tap_rows(ay: AxisPlan) -> tuple[np.ndarray, np.ndarray]:
+    """For each output row, the input rows [lo, hi) that the V filter of
+    axis ``ay`` reads."""
+    kind, n = axis_kind(ay), ay.dim_out
     if kind == COPY:
         return np.arange(n), np.arange(1, n + 1)
     if kind == ONE:
         return np.zeros(n, dtype=np.int64), np.ones(n, dtype=np.int64)
     if kind == BILINEAR:
-        ofs = ax.offsets.reshape(n, -1).astype(np.int64)
+        ofs = ay.offsets.reshape(n, -1).astype(np.int64)
         return ofs.min(1), ofs.max(1) + 2
-    if vertical:
-        t = box_v_arrays(ax)
-        return _span_reads(t["first_idx"], t["last_idx"], t["mid_start"], t["mid_len"])
-    return box_reads(ax)
+    t = box_v_arrays(ay)
+    return _span_reads(t["first_idx"], t["last_idx"], t["mid_start"], t["mid_len"])
 
 
 def row_windows(plan: ScalePlan) -> np.ndarray:
     """The input rows [r_lo, r_hi) that each row group of the direct path
     reads, as int32 (2, groups): r_lo row, then r_hi row."""
-    lo, hi = tap_reads(plan.y, vertical=True)
+    lo, hi = tap_rows(plan.y)
     starts = np.arange(0, plan.height_out, THREADS // tile_width(plan.width_out))
     return np.stack([np.minimum.reduceat(lo, starts),
                      np.maximum.reduceat(hi, starts)]).astype(np.int32)
@@ -330,16 +328,15 @@ def h_reuse(plan: ScalePlan) -> float:
     """The H filters LOOP computes per tile column over those of the h
     tile: the tap rows of every output row, over the rows of every row
     group's window (1: no tap row is shared)."""
-    lo, hi = tap_reads(plan.y, True)
-    kind = axis_kind(plan.y)
+    kind, n = axis_kind(plan.y), plan.height_out
     if kind == BILINEAR:
-        taps = 2 << plan.y.halvings
+        taps = n << (plan.y.halvings + 1)
     elif kind == BOX:
-        taps = 2 + box_v_arrays(plan.y)["mid_len"]
+        taps = 2 * n + int(box_v_arrays(plan.y)["mid_len"].sum())
     else:
-        taps = 1
+        taps = n
     rows = row_windows(plan)
-    return float(np.sum(np.broadcast_to(taps, lo.shape))) / float((rows[1] - rows[0]).sum())
+    return taps / int((rows[1] - rows[0]).sum())
 
 
 def direct_form(plan: ScalePlan) -> int:
@@ -354,11 +351,6 @@ def direct_form(plan: ScalePlan) -> int:
     y = plan.y
     deep_v = axis_kind(y) == BOX or (axis_kind(y) == BILINEAR and y.halvings >= 1)
     return H_TILE if deep_v or h_reuse(plan) >= 2 else LOOP
-
-
-@plan_cache
-def _direct(plan: ScalePlan) -> tuple[list[int], int]:
-    return direct_forms(plan), direct_form(plan)
 
 
 @plan_cache
@@ -475,17 +467,17 @@ def table_len(ax: AxisPlan) -> int:
 @plan_cache
 def _plan_params(plan: ScalePlan) -> _BilinearParams:
     """The parameters that follow from the plan alone (the direct path's
-    routed form among them); :func:`_params` copies them per call."""
+    routed form and h tile among them); :func:`_params` copies them per
+    call."""
     f = pixels.kernel_fields(plan)
     f["src"] = (ctypes.c_int64 * 4)(*f["src"])
-    form = _direct(plan)[1]
     return _BilinearParams(
         h_in=plan.height_in, w_in=plan.width_in, h_out=plan.height_out, w_out=plan.width_out,
         kind_x=axis_kind(plan.x), kind_y=axis_kind(plan.y),
         halvings_x=plan.x.halvings, halvings_y=plan.y.halvings,
         len_x=table_len(plan.x), len_y=table_len(plan.y),
         span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul),
-        tile_w=tile_width(plan.width_out), form=form, h_words=h_words(plan), **f,
+        tile_w=tile_width(plan.width_out), form=direct_form(plan), h_words=h_words(plan), **f,
     )
 
 
@@ -498,7 +490,7 @@ def _params(plan: ScalePlan, batch: int, first: int, n: int, lanes: int,
     p.batch, p.row0, p.n_rows, p.lanes_x = batch, first, n, lanes
     _, _, p.grid_y, p.grid_z = launch_shape(plan.width_out, first, n, batch, sms)
     if form is not None:
-        forms = _direct(plan)[0]
+        forms = [LOOP, H_TILE] if p.h_words <= H_WORDS else [LOOP]
         if not lanes and form not in forms:
             raise ValueError(f"plan {plan.key}: the direct path's {FORMS.get(form, form)} "
                              f"form does not fit (forms {[FORMS[k] for k in forms]})")

@@ -171,8 +171,7 @@ def test_check_fails_on_one_flipped_byte(short_sweep, capsys):
 
 
 # the ops layer's per-plan caches
-PLAN_CACHES = (bilinear._tables, bilinear._stage_tables, bilinear._direct, bilinear._windows,
-               bilinear._plan_params,
+PLAN_CACHES = (bilinear._tables, bilinear._stage_tables, bilinear._windows, bilinear._plan_params,
                bilinear128._tables, deep._tables, deep.span_words, deep.span_rows,
                pyramid._applicable)
 
