@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --parent CHECKOUT [CHECKOUT ...]
-        # also time each CHECKOUT's box, deep and general kernels
+        # also time each CHECKOUT's box, deep, general and 128bpp kernels
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -16,7 +16,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (``box_kernel<FORM, W, PX>``), the general kernel
    (``bilinear_kernel<KX, KY, PACKED, FORM>``: FORM 0 LOOP, 1 H TILE; KY 4
    for H TILE, which reads the V kind at run time), the 128bpp kernel
-   (``bilinear128_kernel<KX, KY, MODE, PACKED>``) and the deep box kernel
+   (``bilinear128_kernel<KX, KY, MODE, PX, FORM>``: PX 0 word, 1 bytes, 2
+   3-byte through the folded table; FORM 0 LOOP, 1 H TILE, KY 4 for H
+   TILE) and the deep box kernel
    (``deep_kernel<MODE, FORM, W>``) its registers, stack frame, spills and
    shared memory per block; it raises if a deep box or general kernel
    instance has a stack frame or spills.
@@ -40,12 +42,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``DEEP_UNALIGNED`` at the byte offsets of ``DEEP_OFFSETS``, whole and by
    rows, ``DEEP_TALL`` (more than 65535 images) and each row range of
    ``DEEP_CHECK_ROWS`` (``ops.deep.deep_scale_ref``), the
-   128bpp kernel on each plan of ``WIDE_CHECK_PLANS`` (COPY and ONE axes
-   among them; two of them, box beside bilinear and box beside COPY, also
-   on a constant-255 batch) and each row range of ``WIDE_CHECK_ROWS``
-   (``ops.bilinear128.bilinear128_scale_ref``; its tile edges among them),
-   each plan of ``WIDE_UNALIGNED`` at byte offsets 1, 2 and 3, whole and by
-   rows, and ``WIDE_TALL`` (more than 65535 output rows in the batch), all
+   128bpp kernel, in each of its forms that fits (``ops.bilinear128.forms``),
+   on each plan of ``WIDE_CHECK_PLANS`` (COPY and ONE axes among them; two
+   of them, box beside bilinear and box beside COPY, and the 3-byte
+   ``WIDE_CONST24_PLANS`` also on a constant-255 batch) and each row range
+   of ``WIDE_CHECK_ROWS`` (``ops.bilinear128.bilinear128_scale_ref``; its
+   tile edges among them), each plan of ``WIDE_UNALIGNED`` (3-byte ones
+   among them) at byte offsets 1, 2 and 3, whole and by rows, and
+   ``WIDE_TALL`` (more than 65535 output rows in the batch), all
    four on an input that is not 4-byte aligned (and the widened classes: a
    box past 64:1, COPY, ONE), the pyramid kernel on each set of ``PYRAMID_CHECK_SETS`` and the
    unaligned inputs of ``PYRAMID_UNALIGNED`` (``ops.pyramid.pyramid_scale_ref``,
@@ -65,9 +69,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    3a, 3b, 3c and 3d, and ``scale_streamed`` on row 4 in 16 chunks
    (general kernel); then on rows 7b, 9, 9b, 9c and 9d, and
    ``scale_streamed`` on row 9 in 4 chunks (deep box kernel); then on rows
-   6, 6b and 7, and ``scale_streamed`` on row 7 in 4 chunks (128bpp
-   kernel); then the rows of ``A1_ROWS``, the classes that every plan
-   reaching a kernel added: ``scale`` on a1-p16-copy and a1-srgb-field
+   6, 6b and 7 and the 3-byte video rows 6b-4k (3840x2160 -> 1920x1080)
+   and 6b-up (1280x720 -> 1920x1080), and ``scale_streamed`` on row 7 in 4
+   chunks (128bpp kernel); then the rows of ``A1_ROWS``, the classes that
+   every plan reaching a kernel added: ``scale`` on a1-p16-copy and a1-srgb-field
    (128bpp kernel, COPY axes) and on a1-strip (general kernel, a 128:1 box
    beside a bilinear axis), ``scale_streamed`` on a1-strip-rows in 4
    chunks (general kernel by rows, COPY x a 128:1 box), and ``scale`` on
@@ -81,9 +86,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 5. Times: kernel and plain version by CUDA events, in turns plain, five
    kernel turns, plain, with the kernel's median and min-max (row 9 is also
    timed as its 4 chunks through the row form; with ``--parent``, each
-   other checkout's box, deep box and general kernels in turns with this
-   one's on every box, deep and general row; a general row on the direct
-   path also in each other form that fits it, in the same turns);
+   other checkout's box, deep box, general and 128bpp kernels in turns with
+   this one's on every box, deep, general and 128bpp row; a general row on
+   the direct path, and a 3-byte 128bpp row, also in each other form that
+   fits it, in the same turns);
    Mpix/s and GB/s of input (and of output) with the share of HBM peak, and each row's bound (its input and
    output bytes at the HBM peak) with the kernel's share of it.  Also the
    rows of ``A1_ROWS`` and of ``EXTRA_ROWS``, on no suite row and checked against
@@ -134,7 +140,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    it and the public ``scale``, held against the plain versions on the card
    (poisoned outputs, two runs each); it raises on any failure, and unless
    all five kernels launched, all three forms of the box kernel were
-   reached and the deep box kernel took more than one lane count.
+   reached, the deep box kernel took more than one lane count and the
+   128bpp kernel ran in every one of its forms.
 
 All inputs but row 5b's are views of one random 512 MiB tensor made from a
 seed; the row 5b fleet is made on the host from seed 0 as the suite makes
@@ -545,6 +552,9 @@ WIDE_CHECK_PLANS = [
 # on a box axis beside a bilinear one and beside a COPY one
 WIDE_CONST_PLAN = (1100, 300, 80, 100, 4, 4, True)
 WIDE_CONST_COPY_PLAN = (256, 1100, 256, 80, 4, 4, True)
+# 3-byte input on a constant-255 batch, in each form: boxes in linear light
+# (cut to 16 bits, kept in the h tile's cells) and at PREMUL8 past 255:1
+WIDE_CONST24_PLANS = [(333, 200, 111, 40, 8, 8, True), (520, 300, 2, 40, 8, 9, False)]
 # (plan, first output row, rows) through the row form
 WIDE_CHECK_ROWS = [
     ((512, 256, 96, 56, 4, 4, True), 10, 20),
@@ -561,9 +571,11 @@ WIDE_CHECK_ROWS = [
 ]
 # the 128bpp kernel on inputs at byte offsets 1-3, whole and by rows: a 2h
 # ladder in PREMUL16-linear, COPY x COPY at PREMUL16, a 260:1 box at
-# PREMUL8, COPY x bilinear in PREMUL8-linear
+# PREMUL8, COPY x bilinear in PREMUL8-linear; 3-byte pixels (each form): a
+# 2h ladder in linear light and a 260:1 box at PREMUL8
 WIDE_UNALIGNED = [(512, 256, 96, 56, 4, 4, True), (96, 54, 96, 54, 4, 4, False),
-                  (520, 300, 2, 40, 0, 0, False), (96, 54, 96, 27, 0, 0, True)]
+                  (520, 300, 2, 40, 0, 0, False), (96, 54, 96, 27, 0, 0, True),
+                  (512, 256, 96, 56, 8, 8, True), (520, 300, 2, 40, 8, 9, False)]
 # more than 65535 output rows in the batch: (plan, batch)
 WIDE_TALL = ((8, 30000, 8, 30000, 4, 4, False), 3)
 
@@ -601,6 +613,10 @@ WIDE_ROWS = [
     ("row 6", (2048, 2048, 256, 256, 4, 4, True), 8),
     ("row 6b", (1920, 1080, 400, 225, 8, 8, True), 8),
     ("row 7", (2048, 2048, 256, 256, 4, 4, False), 8),
+    # gamma-correct video frames, on no suite row: 4K -> 1080p downscaling
+    # (0h 2:1) and 720p -> 1080p upscaling (0h, tap rows shared 2.4-fold)
+    ("6b-4k", (3840, 2160, 1920, 1080, 8, 8, True), 4),
+    ("6b-up", (1280, 720, 1920, 1080, 8, 8, True), 8),
 ]
 WIDE_STREAM_ROW, WIDE_STREAM_CHUNKS = "row 7", 4
 # the plans that no kernel took before every plan reached one, at full
@@ -792,8 +808,9 @@ def fleet_batches(images, types):
 def load_parent(root: str, name: str):
     """The ``smolscale_tpu_torch`` package of another checkout at ``root``
     (for example the parent commit, unpacked with ``git archive``), loaded
-    as ``name``, and its ``ops.box``, ``ops.deep`` and ``ops.bilinear``
-    modules.  Its kernels build into ``root/build/kernels``."""
+    as ``name``, and its ``ops.box``, ``ops.deep``, ``ops.bilinear`` and
+    ``ops.bilinear128`` modules.  Its kernels build into
+    ``root/build/kernels``."""
     import importlib
     import importlib.util
 
@@ -804,7 +821,7 @@ def load_parent(root: str, name: str):
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     return (mod, *(importlib.import_module(f"{spec.name}.ops.{op}")
-                   for op in ("box", "deep", "bilinear")))
+                   for op in ("box", "deep", "bilinear", "bilinear128")))
 
 
 def main(argv: list) -> int:
@@ -813,8 +830,8 @@ def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    # with --parent: (label, package, ops.box, ops.deep, ops.bilinear) of
-    # each checkout
+    # with --parent: (label, package, ops.box, ops.deep, ops.bilinear,
+    # ops.bilinear128) of each checkout
     parents = []
     if argv[:1] == ["--parent"] and len(argv) >= 2:
         parents = [(Path(root).resolve().name,
@@ -1019,33 +1036,36 @@ def main(argv: list) -> int:
         x = random_images(key, 5000 + i)
         check("deep", f"{key} rows [{first}, {first + n})",
               deep.scale_rows_fn(plan, x, first, n), deep.deep_scale_ref(plan, x, first, n))
+    def wide_forms(plan):
+        """The 128bpp kernel's forms for a plan: (label, form), its routed
+        form first, then every other form that fits."""
+        chosen = bilinear128.form(plan)
+        return [(f"{bilinear128.FORMS[f]}{' (routed)' if f == chosen else ''}", f)
+                for f in sorted(bilinear128.forms(plan), key=lambda f: f != chosen)]
+
+    def check_wide(label, plan, x, first, n, want):
+        for route, form in wide_forms(plan):
+            check("bilinear128", f"{label} ({route})",
+                  bilinear128.scale_rows_fn(plan, x, first, n, form), want)
+
     for i, key in enumerate(WIDE_CHECK_PLANS):
         plan = stt.ScalePlan(*key)
         if not bilinear128.applicable(plan):
             raise AssertionError(f"{key}: outside the 128bpp class")
         x = random_images(key, 6000 + i)
-        check("bilinear128", key, bilinear128.scale_fn(plan, x),
-              bilinear128.bilinear128_scale_ref(plan, x))
-    plan = stt.ScalePlan(*WIDE_CONST_PLAN)
-    x = torch.full((2, plan.height_in, plan.width_in, 4), 255, dtype=torch.uint8, device=dev)
-    got = bilinear128.scale_fn(plan, x)
-    check("bilinear128", f"{WIDE_CONST_PLAN} constant 255", got,
-          bilinear128.bilinear128_scale_ref(plan, x))
-    log(f"[check] bilinear128 {WIDE_CONST_PLAN} constant 255: pixel (0, 0) "
-        f"{got[0, 0, 0].tolist()}")
-    plan = stt.ScalePlan(*WIDE_CONST_COPY_PLAN)
-    x = torch.full((2, plan.height_in, plan.width_in, 4), 255, dtype=torch.uint8, device=dev)
-    got = bilinear128.scale_fn(plan, x)
-    check("bilinear128", f"{WIDE_CONST_COPY_PLAN} constant 255", got,
-          bilinear128.bilinear128_scale_ref(plan, x))
-    log(f"[check] bilinear128 {WIDE_CONST_COPY_PLAN} constant 255 (COPY x box): pixel "
-        f"(0, 0) {got[0, 0, 0].tolist()}")
+        check_wide(key, plan, x, 0, plan.height_out, bilinear128.bilinear128_scale_ref(plan, x))
+    for key in [WIDE_CONST_PLAN, WIDE_CONST_COPY_PLAN] + WIDE_CONST24_PLANS:
+        plan = stt.ScalePlan(*key)
+        x = torch.full((2, plan.height_in, plan.width_in, plan.meta_in.n_bytes), 255,
+                       dtype=torch.uint8, device=dev)
+        want = bilinear128.bilinear128_scale_ref(plan, x)
+        check_wide(f"{key} constant 255", plan, x, 0, plan.height_out, want)
+        log(f"[check] bilinear128 {key} constant 255: pixel (0, 0) {want[0, 0, 0].tolist()}")
     for i, (key, first, n) in enumerate(WIDE_CHECK_ROWS):
         plan = stt.ScalePlan(*key)
         x = random_images(key, 6500 + i)
-        check("bilinear128", f"{key} rows [{first}, {first + n})",
-              bilinear128.scale_rows_fn(plan, x, first, n),
-              bilinear128.bilinear128_scale_ref(plan, x, first, n))
+        check_wide(f"{key} rows [{first}, {first + n})", plan, x, first, n,
+                   bilinear128.bilinear128_scale_ref(plan, x, first, n))
     # a 4-byte input that is not 4-byte aligned takes the byte-load paths
     for kind, mod, plain, key in (
         ("box", box, box.box_scale_ref, CHECK_PLANS[0]),
@@ -1078,15 +1098,10 @@ def main(argv: list) -> int:
                 shifted = flat[offset:].view(imgs.shape)
                 shifted.copy_(imgs)
                 h = plan.height_out
-                if kind == "bilinear":
-                    check_bilinear(f"{key} at byte offset {offset}", plan, shifted, 0, h, want)
-                    check_bilinear(f"{key} at byte offset {offset} rows [{h // 3}, {h - 1})",
-                                   plan, shifted, h // 3, h - 1 - h // 3, want[:, h // 3 : h - 1])
-                    continue
-                check(kind, f"{key} at byte offset {offset}", mod.scale_fn(plan, shifted), want)
-                check(kind, f"{key} at byte offset {offset} rows [{h // 3}, {h - 1})",
-                      mod.scale_rows_fn(plan, shifted, h // 3, h - 1 - h // 3),
-                      want[:, h // 3 : h - 1])
+                each_form = check_bilinear if kind == "bilinear" else check_wide
+                each_form(f"{key} at byte offset {offset}", plan, shifted, 0, h, want)
+                each_form(f"{key} at byte offset {offset} rows [{h // 3}, {h - 1})",
+                          plan, shifted, h // 3, h - 1 - h // 3, want[:, h // 3 : h - 1])
     key, batch = WIDE_TALL
     plan = plan_of(key)
     imgs = torch.from_numpy(np.random.default_rng(10).integers(
@@ -1373,17 +1388,19 @@ def main(argv: list) -> int:
     # form
     bilinear_rows = {r[0] for r in BILINEAR_ROWS + A1_ROWS + EXTRA_ROWS
                      if len(r) == 3 or r[3] == "bilinear"} | {stream_name}
+    wide_rows = {r[0] for r in WIDE_ROWS} | {r[0] for r in A1_ROWS if r[3] == "bilinear128"}
     chunks_of = {stream_name: STREAM_CHUNKS} | {r[0]: r[4] for r in A1_ROWS if r[4]}
     # beside this tree's kernel, in turns with it: each other checkout's box,
-    # deep box and general kernels on their rows (with --parent), and this
-    # tree's general kernel in each other form of its direct path that fits
-    # the row: name -> [(label, kind, fn), ...]
+    # deep box, general and 128bpp kernels on their rows (with --parent), and
+    # this tree's general kernel in each other form of its direct path that
+    # fits the row, and its 128bpp kernel in each other form that fits the
+    # row: name -> [(label, kind, fn), ...]
     parent_fns = {}
 
     def as_rows(mod, plan, n_chunks, form=()):
         """``mod``'s kernel on a row: whole, or in ``n_chunks`` chunks
-        through the row form; ``form``: (form,) for this tree's direct
-        path, else ()."""
+        through the row form; ``form``: (form,) for one of this tree's
+        forms, else ()."""
         if n_chunks:
             step = -(-plan.height_out // n_chunks)
             return lambda xin: [
@@ -1391,10 +1408,12 @@ def main(argv: list) -> int:
                 for first in range(0, plan.height_out, step)]
         return lambda xin: mod.scale_fn(plan, xin, *form)
 
-    for label, parent, parent_box, parent_deep, parent_bil in parents:
-        for name in sorted(box_rows | deep_rows | bilinear_rows):
+    for label, parent, parent_box, parent_deep, parent_bil, parent_wide in parents:
+        for name in sorted(box_rows | deep_rows | bilinear_rows | wide_rows):
             kind, pmod = (("box", parent_box) if name in box_rows else
-                          ("deep", parent_deep) if name in deep_rows else ("bilinear", parent_bil))
+                          ("deep", parent_deep) if name in deep_rows else
+                          ("bilinear128", parent_wide) if name in wide_rows else
+                          ("bilinear", parent_bil))
             pplan = parent.ScalePlan(*plans[name].key)
             if name == deep_chunks:
                 fn = partial(streamed(DEEP_STREAM_CHUNKS, parent_deep), pplan)
@@ -1410,6 +1429,13 @@ def main(argv: list) -> int:
                 parent_fns.setdefault(name, []).append(
                     (f"this tree's {bilinear.FORMS[form]} form", "bilinear",
                      as_rows(bilinear, plan, chunks_of.get(name, 0), (form,))))
+    for name in sorted(wide_rows):
+        plan = plans[name]
+        for form in bilinear128.forms(plan):
+            if form != bilinear128.form(plan):
+                parent_fns.setdefault(name, []).append(
+                    (f"this tree's {bilinear128.FORMS[form]} form", "bilinear128",
+                     as_rows(bilinear128, plan, chunks_of.get(name, 0), (form,))))
     for name, fns_ in parent_fns.items():
         for label, kind, fn in fns_:
             got = fn(inputs[name])
@@ -1432,9 +1458,11 @@ def main(argv: list) -> int:
         in_bytes = pix * plan.meta_in.n_bytes
         out_bytes = batch * plan.height_out * plan.width_out * plan.meta_out.n_bytes
         bounds[name] = bound_ms(in_bytes, out_bytes)
+        routed = (f" ({bilinear128.FORMS[bilinear128.form(plan)]} routed)"
+                  if name in wide_rows else "")
         log(f"[bound] {name}: {bounds[name]:.4f} ms ({in_bytes} + {out_bytes} bytes at "
-            f"{HBM_PEAK_GBS:.0f} GB/s); kernel at {100 * bounds[name] / k_ms:.1f}% of it, "
-            f"on {card}")
+            f"{HBM_PEAK_GBS:.0f} GB/s); kernel{routed} at {100 * bounds[name] / k_ms:.1f}% of "
+            f"it, on {card}")
         for label, ms, turns in (("kernel", k_ms, ks), ("plain", p_ms, (p1, p2))):
             sec = ms / 1e3
             in_gbs, out_gbs = in_bytes / 1e9 / sec, out_bytes / 1e9 / sec
@@ -1563,7 +1591,7 @@ def main(argv: list) -> int:
         if kernel_of(p_) != "bilinear":
             raise AssertionError(f"5b's 384^2 level {p_.key} is not on the general kernel")
         runs = [("this tree", partial(lambda p_: [bilinear.scale_fn(p_, xb) for xb in xbs], p_))]
-        for label, parent, *_, parent_bil in parents:
+        for label, parent, _, _, parent_bil, _ in parents:
             runs.append((f"{label}'s general kernel", partial(
                 lambda pp: [parent_bil.scale_fn(pp, xb) for xb in xbs],
                 parent.ScalePlan(*p_.key))))
@@ -1809,7 +1837,7 @@ def main(argv: list) -> int:
 
     t_phase = time.perf_counter()
     fuzz_launches = dict.fromkeys(fuzz.KERNELS, 0)
-    box_forms, deep_lanes = set(), set()
+    box_forms, deep_lanes, wide_forms = set(), set(), set()
     for k, mode in enumerate(fuzz.MODES):
         report = fuzz.run(mode, FUZZ_CASES, FUZZ_SEED + k, dev, log=fuzz_log)
         for line in report.lines():
@@ -1821,13 +1849,14 @@ def main(argv: list) -> int:
             fuzz_launches[name] += n
         box_forms |= report.cover["box forms"]
         deep_lanes |= report.cover["deep lanes"]
+        wide_forms |= report.cover["bilinear128 forms"]
     log(f"[fuzz] {len(fuzz.MODES)} modes x {FUZZ_CASES} cases: launches {fuzz_launches}, box "
-        f"forms {sorted(box_forms)}, deep lanes {sorted(deep_lanes)}, phase in "
-        f"{time.perf_counter() - t_phase:.1f} s, on {card}")
+        f"forms {sorted(box_forms)}, deep lanes {sorted(deep_lanes)}, 128bpp forms "
+        f"{sorted(wide_forms)}, phase in {time.perf_counter() - t_phase:.1f} s, on {card}")
     if (not all(fuzz_launches.values()) or box_forms != set(box.FORMS.values())
-            or len(deep_lanes) < 2):
-        raise AssertionError("the fuzz did not reach every kernel, every box form and more "
-                             "than one deep lane count")
+            or len(deep_lanes) < 2 or wide_forms != set(bilinear128.FORMS.values())):
+        raise AssertionError("the fuzz did not reach every kernel, every box form, more "
+                             "than one deep lane count and every 128bpp form")
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

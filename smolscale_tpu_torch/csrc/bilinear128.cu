@@ -39,48 +39,75 @@
 // their unpacked value on, which is below M, and normalise nothing).  The V
 // box table weights its last row by max(frac - 1, 0) (scale_outrow_box_128bpp,
 // generic.c:2198-2260; ops/bilinear.axis_table at S128).  Pixels are
-// unpacked where they are loaded: 24bpp input gets a constant alpha of 255
-// (this replaces #12's planes feed), the PREMUL16 alpha (a << 8) | 0x80 is
-// filtered like a colour, and linear light reads FROM_SRGB and INV_DIV_P8
-// from a per-block shared-memory copy.  `row0` is the first output row
-// computed (the row API).
+// unpacked where they are loaded, by one of three readers (Px): a 4-byte
+// pixel as one word (4-byte aligned input) or as four bytes, unpacked at the
+// plan's (alpha, gamma) with linear light's FROM_SRGB and INV_DIV_P8 in a
+// per-block shared-memory copy; and a 3-byte pixel at internal PREMUL8 (the
+// only alpha 3-byte pixels are planned at) as three bytes, each unpacked by
+// one entry of a 256-entry table that folds the unpremultiply at alpha 255,
+// FROM_SRGB and the 11-bit premultiply (ops/pixels.unpack24_table, also in
+// shared memory; at compressed gamma the byte itself), with the constant
+// alpha 255 -- this replaces #12's planes feed and its folded table row.  A
+// 3-byte bilinear column's samples (at most 4) are loaded once into
+// registers, so that a pass's pixel loads are all in flight, and a sample's
+// two pixels (six bytes) come from the two or three aligned words that hold
+// them (pixels.cuh unpack24_pair), in place of six byte loads.  The PREMUL16
+// alpha (a << 8) | 0x80 is filtered like a colour.  `row0` is the first
+// output row computed (the row API).
 //
-// What bounds it.  Not arithmetic per output pixel any more: the design
-// spends none that the filter does not need --
-//   - no division: a block of 256 threads covers a tile of 32 output
-//     columns by 8 rows (tile_w = 1-16 columns by 256-16 rows where w_out is
-//     narrower, so no thread idles on a 1-7 or 64 pixel wide output); block
-//     (x, y, z) takes column tile x, row groups y, y + grid_y, ... of images
-//     z, z + grid_z, ....  The host (ops/bilinear128.launch_shape) cuts
-//     grid_y to about 16 blocks per SM, so each block copies the LUTs once
-//     for several row groups, and keeps grid_y and grid_z below 2^16;
-//   - 32-bit indices: columns, rows, table entries and offsets within a row;
-//     only an image's and a row's base offset are 64-bit;
-//   - no register array indexed at run time (nvcc would put it in local
-//     memory): pixels.cuh's pack picks alpha with a select and swizzles the
-//     output bytes with one __byte_perm; a 4-byte pixel is one word store;
-//   - each X table word is loaded once per output pixel: a box column's six
-//     words once per thread, and a V sample's two rows (r, r + 1) -- a V
-//     box's edge rows, and its mid rows two by two -- go through one pass
-//     of the H samples, which also keeps two rows' loads in flight;
-//   - COPY x COPY, which has one load per output, takes two row groups per
-//     turn with both loads first.
-// Neighbouring threads take neighbouring output columns, so a warp's loads
-// of one tap row fall into one contiguous stretch that L1 serves, and its
-// stores into one 128-byte line.  What is left (PERF.md §6): the latency
-// of each bilinear sample's table load before its pixel loads (rows 6, 7);
-// linear light's table lookups, TO_SRGB gathered from global memory in the
-// pack and FROM_SRGB from bank-conflicted shared memory in the unpack
-// (a1-srgb-field); and on 3-byte pixels three byte loads and about 2.8
-// unpacks per input pixel where bilinear pairs overlap (row 6b).
-// Left out, measured: tiles up to 256 columns wide, a bilinear axis's
-// samples held in registers with all loads of a sample pair issued first,
-// and the pack's tables in shared memory made rows 6 and 7 faster but the
-// COPY rows and row 6b slower.  Not built: staging a block's input rows in
-// shared memory with 16-byte loads, unpacked once (PR 9 found one staged
-// stretch per block slower than direct loads on ladders), and a split of
-// one box span over several threads (a box axis of thousands to one beside
-// a bilinear axis walks its span in one thread).
+// Tiles.  A block of 256 threads covers a tile of 32 output columns by 8
+// rows (tile_w = 1-16 columns by 256-16 rows where w_out is narrower, so no
+// thread idles on a 1-7 or 64 pixel wide output).  Nothing is divided per
+// output pixel; indices are 32-bit within an image (only an image's and a
+// row's base offset are 64-bit); no register array is indexed at run time
+// (nvcc would put it in local memory): pixels.cuh's pack picks alpha with a
+// select and swizzles the output bytes with one __byte_perm.  Neighbouring
+// threads take neighbouring output columns, so a warp's loads of one tap row
+// fall into one contiguous stretch that L1 serves, and its stores into one
+// 128-byte line.  Two forms, chosen on the host (ops/bilinear128.form):
+//
+//   LOOP (every plan): block (x, y, z) takes column tile x, row groups y,
+//     y + grid_y, ... of the range and images z, z + grid_z, ...
+//     (ops/bilinear128.launch_shape: about 16 blocks per SM, so each block
+//     copies its tables once for several row groups; grid y and z below
+//     2^16).  Each thread walks the V taps of its output pixel and H-filters
+//     each tap row from global memory: a V sample's two rows (r, r + 1) -- a
+//     V box's edge rows, and its mid rows two by two -- go through one pass
+//     of the H samples, so each X table word is loaded once per pair and two
+//     rows' loads are in flight; COPY x COPY takes two row groups per turn
+//     with both loads first.  A tap row is H-filtered again for every output
+//     row that reads it.
+//   H TILE (3-byte input where each output row reads three tap rows or
+//     more -- a V ladder of 1 or more halvings, a V box -- and the tile
+//     fits): row groups are counted from output row 0
+//     (ops/bilinear.launch_shape), and a row group's output rows read a
+//     contiguous range of tap rows [r_lo, r_hi) (a host table per row group,
+//     ops/bilinear.row_windows).  The block H-filters each (tap row, column)
+//     of its tile once, all of them at once, two tap rows per pass of a
+//     thread's H samples, and keeps each result in shared memory as a cell
+//     of two words, 16 bits per channel; then each thread runs the V filter,
+//     of a kind read at run time, over its column's cells, packs and stores.
+//     The cells are sized per plan (h_cells, at most kHCells: 32 KB), which
+//     leaves the rest of the SM to L1.  A 0h V axis stays on LOOP, upscales
+//     included: there the two barriers per row group cost more than the
+//     shared H values save.
+//
+// What bounds it (PERF.md §6).  Not bytes: the latency of each bilinear
+// sample's table load before its pixel loads (rows 6, 7); linear light's
+// TO_SRGB gathered from global memory in the pack and FROM_SRGB from
+// bank-conflicted shared memory in the unpack (a1-srgb-field).  On 3-byte
+// pixels: the pixels unpacked per input pixel (on 6b ~1.6 in H TILE, where
+// neighbouring columns' samples overlap, against ~2.7 in LOOP), each a
+// lookup per colour in a bank-conflicted shared table after its share of a
+// pair's word loads, and H TILE's two barriers per row group.  Left out,
+// measured: tiles up to 256 columns wide, a 4-byte bilinear axis's samples
+// held in registers (faster on rows 6 and 7, slower on the COPY rows), the
+// pack's tables in shared memory (TO_SRGB as 2 KB of bytes too: no faster on
+// the 3-byte rows), and a third form that unpacked each tile's stretch of the
+// tap rows once into shared memory for the H pass to read (slower than H
+// TILE or LOOP on every 3-byte row).  Not built: a split of one box span
+// over several threads (a box axis of thousands to one beside a bilinear
+// axis walks its span in one thread).
 //
 // Arithmetic and its bounds:
 //   unpacked values are at most 2047*255 = 521985 (PREMUL16 linear), so
@@ -91,6 +118,11 @@
 //   65408 < 2^32) and of at most 521985 in linear light, which is planned
 //   only up to 8191:1 (smolscale.c:760-770; 8193 * 521985 < 2^32) -- the
 //   bounds deep.cu proves;
+//   H TILE's cells hold 16 bits per channel: its plans are 3-byte PREMUL8,
+//   whose unpacked values are at most 2040 (linear light) or 255 and whose
+//   alpha is 255; a lerp lies between its two values and a halving sum's
+//   mean within its samples' range, so a bilinear, COPY or ONE H value stays
+//   below 2^11, and a box H value is cut to 0xffff (N);
 //   the normalising multiply is 64-bit;
 //   an image's and a row's base offsets are 64-bit (8 x 2048^2 x 4 bytes is
 //   128 MiB, larger inputs pass 2^31); a table index is below 65535 * 2^6 <
@@ -118,6 +150,8 @@ struct Bilinear128Params {
   int64_t unassoc_in, unassoc_out;
   int64_t pack24_direct;           // plan.pack24_linear_direct
   int64_t src[4];                  // output byte k <- work channel src[k]
+  int64_t form;                    // Form
+  int64_t h_cells;                 // H TILE: cells of the h tile
 };
 
 namespace {
@@ -127,6 +161,15 @@ namespace {
 constexpr int kCopy = 0, kOne = 1, kBilinear = 2, kBox = 3;
 constexpr uint32_t kWorkMask = 0xffffff, kNormMask = 0xffff;
 constexpr int kThreads = 256;
+// pixel readers: a 4-byte pixel as one word (4-byte aligned input) or as
+// four bytes; a 3-byte pixel at internal PREMUL8 through unpack24
+enum Px { kWord = 0, kBytes = 1, kRgb = 2 };
+// the forms (ops/bilinear128.LOOP, H_TILE); H TILE reads the V kind at run
+// time, its template KY is kAnyY
+enum Form { kLoop = 0, kHTile = 1 };
+constexpr int kAnyY = 4;
+// the h tile's largest size in cells: ops/bilinear128.H_CELLS
+constexpr int kHCells = 4096;
 
 __device__ __forceinline__ uint32_t lerp(uint32_t p, uint32_t q, int32_t f) {
   // numpy_ref._lerp: (p - q)*f is negative when p < q; >> floors it
@@ -134,18 +177,33 @@ __device__ __forceinline__ uint32_t lerp(uint32_t p, uint32_t q, int32_t f) {
   return static_cast<uint32_t>(((d * f) >> 8) + static_cast<int32_t>(q)) & kWorkMask;
 }
 
+// H TILE keeps an H value in a cell of two words, 16 bits per channel.
+__device__ __forceinline__ uint2 cell(const uint32_t v[4]) {
+  return make_uint2(v[0] | (v[1] << 16), v[2] | (v[3] << 16));
+}
+
+__device__ __forceinline__ void from_cell(uint2 w, uint32_t v[4]) {
+  v[0] = w.x & 0xffff;
+  v[1] = w.x >> 16;
+  v[2] = w.y & 0xffff;
+  v[3] = w.y >> 16;
+}
+
 // The H filter of one output column j, with its X table words loaded once:
 // the H-filtered values of N input rows (1 or 2) in one pass, so that the
 // rows share those loads and their pixel loads are in flight together.
-template <int KX, int MODE, bool PACKED>
+template <int KX, int MODE, int PX>
 struct Columns {
   Fmt f;
-  const int32_t* lut;
+  const int32_t* lut;  // shared: FROM_SRGB and INV_DIV_P8, or unpack24's fold (kRgb)
   const int32_t* tab;  // kBilinear: column j's first table entry, j << n
   int len, n;          // kBilinear: table row length, halvings
   int x;               // kCopy: column j * stride (1 for COPY, 0 for ONE)
   int first, w_first, mid, n_mid, last, w_last;  // kBox: column j's table entries
   int64_t span_mul;
+  // kBilinear, 3-byte pixels: column j's samples, loaded once (at most 4:
+  // the planner's ladders have n <= 2, a ratio past 8:1 being a box)
+  int sample_ofs[4], sample_f[4];
 
   __device__ __forceinline__ Columns(const Fmt& fmt, const int32_t* s_lut,
                                      const int32_t* __restrict__ tab_x,
@@ -154,6 +212,12 @@ struct Columns {
         n(static_cast<int>(p.halvings_x)), x(p.kind_x == kCopy ? j : 0), first(0),
         w_first(0), mid(0), n_mid(0), last(0), w_last(0), span_mul(p.span_mul_x) {
     if (KX == kBilinear) tab = tab_x + (j << n);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const bool on = KX == kBilinear && PX == kRgb && k < (1 << n);
+      sample_ofs[k] = on ? __ldg(tab + k) : 0;
+      sample_f[k] = on ? __ldg(tab + len + k) : 0;
+    }
     if (KX == kBox) {
       const int32_t* t = tab_x + j;
       first = __ldg(t);
@@ -166,7 +230,10 @@ struct Columns {
   }
 
   __device__ __forceinline__ void pixel(const uint8_t* row, int i, uint32_t v[4]) const {
-    unpack<MODE>(load_pixel<PACKED>(row, i, f), f, lut, v);
+    if constexpr (PX == kRgb)
+      unpack24<MODE>(row + i * 3, lut, v);
+    else
+      unpack<MODE>(load_pixel<PX == kWord>(row, i, f), f, lut, v);
   }
 
   template <int N>
@@ -175,6 +242,27 @@ struct Columns {
     if constexpr (KX == kCopy) {
 #pragma unroll
       for (int m = 0; m < N; ++m) pixel(rows[m], x, v[m]);
+    } else if constexpr (KX == kBilinear && PX == kRgb) {
+      // as below, the samples from registers, so that all of a pass's pixel
+      // loads are in flight, and each sample's two 3-byte pixels from one
+      // cover of words
+      uint32_t sum[N][4] = {};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k < (1 << n)) {
+#pragma unroll
+          for (int m = 0; m < N; ++m) {
+            uint32_t a[4], b[4];
+            unpack24_pair<MODE>(rows[m] + sample_ofs[k] * 3, lut, a, b);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) sum[m][c] += lerp(a[c], b[c], sample_f[k]);
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < N; ++m)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[m][c] = (sum[m][c] >> n) & kWorkMask;
     } else if constexpr (KX == kBilinear) {
       // sample k of output j: lerp(px[ofs], px[ofs + 1], F), then the
       // halving sum
@@ -223,16 +311,31 @@ struct Columns {
   }
 };
 
-// Output row i of a V axis of kind KY over the H values of `h` on the rows
-// of `img`: each V sample's pair of rows (r, r + 1) and a box's edge rows
-// and mid rows two by two go through one pass of h.
-template <int KY, class H>
-__device__ __forceinline__ void vfilter(const H& h, const uint8_t* img, int row_bytes,
+// H TILE: the H values of one column of the tile by input row, from its
+// cells (row r_lo is the tile's first; a column's cells are 2^shift apart).
+struct TileCells {
+  const uint2* s;
+  int shift, r_lo;
+
+  template <int N>
+  __device__ __forceinline__ void operator()(const int (&r)[N], uint32_t (&v)[N][4]) const {
+#pragma unroll
+    for (int m = 0; m < N; ++m) from_cell(s[(r[m] - r_lo) << shift], v[m]);
+  }
+};
+
+// Output row i of a V axis of kind KY over the H values that `h` gives by
+// input row: h(rows, v) fills v[m] for rows[m] = row(r) (N of 1 or 2) --
+// LOOP's rows are pointers into the image (Columns), H TILE's their indices
+// (TileCells).  Each V sample's pair of rows (r, r + 1), and a box's edge
+// rows and mid rows two by two, go through one call.
+template <int KY, class H, class Row>
+__device__ __forceinline__ void vfilter(const H& h, const Row& row,
                                         const int32_t* __restrict__ tab,
                                         const Bilinear128Params& p, int i, uint32_t o[4]) {
-  const auto row = [&](int r) { return img + static_cast<int64_t>(r) * row_bytes; };
+  using R = decltype(row(0));
   if constexpr (KY == kCopy) {
-    const uint8_t* rows[1] = {row(p.kind_y == kCopy ? i : 0)};
+    const R rows[1] = {row(p.kind_y == kCopy ? i : 0)};
     uint32_t v[1][4];
     h(rows, v);
 #pragma unroll
@@ -244,7 +347,7 @@ __device__ __forceinline__ void vfilter(const H& h, const uint8_t* img, int row_
     for (int k = 0; k < (1 << n); ++k) {
       const int r = __ldg(t + k);
       const int32_t fy = __ldg(t + len + k);
-      const uint8_t* rows[2] = {row(r), row(r + 1)};
+      const R rows[2] = {row(r), row(r + 1)};
       uint32_t v[2][4];
       h(rows, v);
 #pragma unroll
@@ -259,7 +362,7 @@ __device__ __forceinline__ void vfilter(const H& h, const uint8_t* img, int row_
     const int mid = __ldg(t + 2 * len), mid_end = mid + __ldg(t + 3 * len);
     uint32_t acc[4], v[2][4];
     {
-      const uint8_t* rows[2] = {row(__ldg(t)), row(__ldg(t + 4 * len))};
+      const R rows[2] = {row(__ldg(t)), row(__ldg(t + 4 * len))};
       h(rows, v);
 #pragma unroll
       for (int c = 0; c < 4; ++c)
@@ -267,13 +370,13 @@ __device__ __forceinline__ void vfilter(const H& h, const uint8_t* img, int row_
     }
     int r = mid;
     for (; r + 1 < mid_end; r += 2) {
-      const uint8_t* rows[2] = {row(r), row(r + 1)};
+      const R rows[2] = {row(r), row(r + 1)};
       h(rows, v);
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[c] += v[0][c] + v[1][c];
     }
     if (r < mid_end) {
-      const uint8_t* rows[1] = {row(r)};
+      const R rows[1] = {row(r)};
       uint32_t v1[1][4];
       h(rows, v1);
 #pragma unroll
@@ -284,40 +387,47 @@ __device__ __forceinline__ void vfilter(const H& h, const uint8_t* img, int row_
   }
 }
 
-// A block of kThreads threads covers a tile of tile_w consecutive output
-// columns (thread t: column t % tile_w) by kThreads / tile_w consecutive
-// output rows (row t / tile_w); block (x, y, z) takes column tile x, row
-// groups y, y + grid_y, ... of images z, z + grid_z, ....  No division.
-// COPY x COPY takes two row groups per turn, both loads first.
-template <int KX, int KY, int MODE, bool PACKED>
-__global__ void __launch_bounds__(kThreads)
-bilinear128_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
-                   const int32_t* __restrict__ luts, const int32_t* __restrict__ tab_x,
-                   const int32_t* __restrict__ tab_y, const Bilinear128Params p) {
+// LOOP.  A block of kThreads threads covers a tile of tile_w consecutive
+// output columns (thread t: column t % tile_w) by kThreads / tile_w
+// consecutive output rows (row t / tile_w); block (x, y, z) takes column
+// tile x, row groups y, y + grid_y, ... of the range and images z, z +
+// grid_z, ....  COPY x COPY takes two row groups per turn, both loads first.
+template <int KX, int KY, int MODE, int PX>
+__device__ __forceinline__ void direct_loop(const uint8_t* __restrict__ in,
+                                            uint8_t* __restrict__ out,
+                                            const int32_t* __restrict__ luts,
+                                            const int32_t* __restrict__ fold,
+                                            const int32_t* __restrict__ tab_x,
+                                            const int32_t* __restrict__ tab_y,
+                                            const Bilinear128Params& p) {
   constexpr bool kLinear = MODE == kP8Linear || MODE == kP16Linear;
   constexpr int kTurn = KX == kCopy && KY == kCopy ? 2 : 1;
-  __shared__ int32_t s_lut[kLinear ? 512 : 1];
-  if (kLinear) load_unpack_luts(luts, s_lut);
+  __shared__ int32_t s_lut[!kLinear ? 1 : PX == kRgb ? 256 : 512];
+  if constexpr (kLinear && PX == kRgb)
+    load_unpack24_lut(fold, s_lut);
+  else if constexpr (kLinear)
+    load_unpack_luts(luts, s_lut);
   const int tile_w = static_cast<int>(p.tile_w), shift = __ffs(tile_w) - 1;
   const int j = static_cast<int>(blockIdx.x) * tile_w + (threadIdx.x & (tile_w - 1));
   const int w_out = static_cast<int>(p.w_out), n_rows = static_cast<int>(p.n_rows);
   if (j >= w_out) return;
   const Fmt f{static_cast<int>(p.nb_in), p.alpha_ch == 0, p.unassoc_in != 0};
-  const Columns<KX, MODE, PACKED> h(f, s_lut, tab_x, p, j);
+  const Columns<KX, MODE, PX> h(f, s_lut, tab_x, p, j);
   const unsigned perm = out_perm(p);
   const int nb_out = static_cast<int>(p.nb_out);
   const int row_bytes = static_cast<int>(p.w_in * p.nb_in), out_row = w_out * nb_out;
   const int tile_h = kThreads >> shift, step = static_cast<int>(gridDim.y) * tile_h;
   for (int64_t b = blockIdx.z; b < p.batch; b += gridDim.z) {
     const uint8_t* img = in + b * p.h_in * row_bytes;
+    const auto row = [&](int r) { return img + static_cast<int64_t>(r) * row_bytes; };
     uint8_t* dst = out + b * n_rows * out_row + j * nb_out;
     for (int ir = static_cast<int>(blockIdx.y) * tile_h + (threadIdx.x >> shift);
          ir < n_rows; ir += kTurn * step) {
       uint32_t o[kTurn][4];
 #pragma unroll
       for (int u = 0; u < kTurn; ++u)
-        vfilter<KY>(h, img, row_bytes, tab_y, p, static_cast<int>(p.row0) +
-                    min(ir + u * step, n_rows - 1), o[u]);
+        vfilter<KY>(h, row, tab_y, p, static_cast<int>(p.row0) + min(ir + u * step, n_rows - 1),
+                    o[u]);
 #pragma unroll
       for (int u = 0; u < kTurn; ++u)
         if (ir + u * step < n_rows)
@@ -327,50 +437,157 @@ bilinear128_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   }
 }
 
-typedef void (*Launcher)(const uint8_t*, uint8_t*, const int32_t*, const int32_t*,
-                         const int32_t*, const Bilinear128Params&, dim3, cudaStream_t);
-
-template <int KX, int KY, int MODE, bool PACKED>
-void launch(const uint8_t* in, uint8_t* out, const int32_t* luts, const int32_t* tab_x,
-            const int32_t* tab_y, const Bilinear128Params& p, dim3 grid, cudaStream_t s) {
-  bilinear128_kernel<KX, KY, MODE, PACKED><<<grid, kThreads, 0, s>>>(
-      in, out, luts, tab_x, tab_y, p);
+// H TILE, for 3-byte pixels at internal PREMUL8.  Tiles as LOOP's, but row
+// groups are counted from output row 0: block (x, y, z) takes column tile
+// x, the range's row groups y, y + grid_y, ... and images z, z + grid_z,
+// ....  `windows` holds [r_lo, r_hi) of every row group of the plan: the
+// r_lo row, then the r_hi row.
+template <int KX, int MODE>
+__device__ __forceinline__ void direct_tile(const uint8_t* __restrict__ in,
+                                            uint8_t* __restrict__ out,
+                                            const int32_t* __restrict__ luts,
+                                            const int32_t* __restrict__ fold,
+                                            const int32_t* __restrict__ tab_x,
+                                            const int32_t* __restrict__ tab_y,
+                                            const int32_t* __restrict__ windows,
+                                            const Bilinear128Params& p) {
+  // the h tile, h_cells cells sized per plan (dynamic shared memory)
+  extern __shared__ uint2 s_cells[];
+  __shared__ int32_t s_fold[MODE == kP8Linear ? 256 : 1];
+  if constexpr (MODE == kP8Linear) load_unpack24_lut(fold, s_fold);
+  const int tile_w = static_cast<int>(p.tile_w), shift = __ffs(tile_w) - 1;
+  const int hshift = 8 - shift, tile_h = 1 << hshift;
+  const int c = static_cast<int>(threadIdx.x) & (tile_w - 1);
+  const int tr = static_cast<int>(threadIdx.x) >> shift;
+  const int j = static_cast<int>(blockIdx.x) * tile_w + c;
+  const int w_out = static_cast<int>(p.w_out);
+  const int row0 = static_cast<int>(p.row0), row_end = row0 + static_cast<int>(p.n_rows);
+  const int g_first = (row0 >> hshift) + static_cast<int>(blockIdx.y);
+  const int g_end = ((row_end - 1) >> hshift) + 1;
+  if (g_first >= g_end) return;  // the whole block: no row group
+  const bool active = j < w_out;
+  const Fmt f{3, false, p.unassoc_in != 0};
+  const Columns<KX, MODE, kRgb> h(f, s_fold, tab_x, p, active ? j : w_out - 1);
+  const unsigned perm = out_perm(p);
+  const int nb_out = static_cast<int>(p.nb_out), ky = static_cast<int>(p.kind_y);
+  const int row_bytes = static_cast<int>(p.w_in) * 3, out_row = w_out * nb_out;
+  const int groups = (static_cast<int>(p.h_out) + tile_h - 1) >> hshift;
+  uint2* col = s_cells + c;
+  for (int64_t b = blockIdx.z; b < p.batch; b += gridDim.z) {
+    const uint8_t* img = in + b * p.h_in * row_bytes;
+    const auto row = [&](int r) { return img + static_cast<int64_t>(r) * row_bytes; };
+    for (int g = g_first; g < g_end; g += static_cast<int>(gridDim.y)) {
+      const int r_lo = __ldg(windows + g), n_taps = __ldg(windows + groups + g) - r_lo;
+      // each (tap row, column) of the tile once, all of them at once: two
+      // rows per pass of the column's H samples
+      if (active) {
+        int t = tr;
+        for (; t + tile_h < n_taps; t += 2 * tile_h) {
+          const uint8_t* rows[2] = {row(r_lo + t), row(r_lo + t + tile_h)};
+          uint32_t v[2][4];
+          h(rows, v);
+          col[t << shift] = cell(v[0]);
+          col[(t + tile_h) << shift] = cell(v[1]);
+        }
+        if (t < n_taps) {
+          const uint8_t* rows[1] = {row(r_lo + t)};
+          uint32_t v[1][4];
+          h(rows, v);
+          col[t << shift] = cell(v[0]);
+        }
+      }
+      __syncthreads();
+      const int i = (g << hshift) + tr;
+      if (active && i >= row0 && i < row_end) {
+        const TileCells cells{col, shift, r_lo};
+        const auto index = [](int r) { return r; };
+        uint32_t o[4];
+        switch (ky) {
+          case kBilinear: vfilter<kBilinear>(cells, index, tab_y, p, i, o); break;
+          case kBox: vfilter<kBox>(cells, index, tab_y, p, i, o); break;
+          default: vfilter<kCopy>(cells, index, tab_y, p, i, o); break;  // COPY, ONE
+        }
+        store_pixel(pack_word<MODE>(o, p, luts, perm), nb_out,
+                    out + (b * p.n_rows + (i - row0)) * out_row + j * nb_out);
+      }
+      __syncthreads();
+    }
+  }
 }
 
+template <int KX, int KY, int MODE, int PX, int FORM>
+__global__ void __launch_bounds__(kThreads)
+bilinear128_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+                   const int32_t* __restrict__ luts, const int32_t* __restrict__ fold,
+                   const int32_t* __restrict__ tab_x, const int32_t* __restrict__ tab_y,
+                   const int32_t* __restrict__ windows, const Bilinear128Params p) {
+  if constexpr (FORM == kLoop)
+    direct_loop<KX, KY, MODE, PX>(in, out, luts, fold, tab_x, tab_y, p);
+  else
+    direct_tile<KX, MODE>(in, out, luts, fold, tab_x, tab_y, windows, p);
+}
+
+typedef void (*Launcher)(const uint8_t*, uint8_t*, const int32_t*, const int32_t*,
+                         const int32_t*, const int32_t*, const int32_t*,
+                         const Bilinear128Params&, dim3, cudaStream_t);
+
+template <int KX, int KY, int MODE, int PX, int FORM>
+void launch(const uint8_t* in, uint8_t* out, const int32_t* luts, const int32_t* fold,
+            const int32_t* tab_x, const int32_t* tab_y, const int32_t* windows,
+            const Bilinear128Params& p, dim3 grid, cudaStream_t s) {
+  const size_t smem = FORM == kHTile ? sizeof(uint2) * p.h_cells : 0;
+  bilinear128_kernel<KX, KY, MODE, PX, FORM><<<grid, kThreads, smem, s>>>(
+      in, out, luts, fold, tab_x, tab_y, windows, p);
+}
+
+// LOOP: one instance per (KX, KY, MODE, reader); 3-byte pixels (kRgb) are
+// planned at PREMUL8 only
 template <int KX, int KY, int MODE>
-Launcher pick(bool packed) {
-  if (packed) return &launch<KX, KY, MODE, true>;
-  return &launch<KX, KY, MODE, false>;
+Launcher pick(int px) {
+  if (px == kWord) return &launch<KX, KY, MODE, kWord, kLoop>;
+  if (px == kBytes) return &launch<KX, KY, MODE, kBytes, kLoop>;
+  if constexpr (MODE == kP8Compressed || MODE == kP8Linear)
+    return &launch<KX, KY, MODE, kRgb, kLoop>;
+  return nullptr;
 }
 
 template <int KX, int KY>
-Launcher pick(int64_t mode, bool packed) {
+Launcher pick(int64_t mode, int px) {
   switch (mode) {
-    case kP8Compressed: return pick<KX, KY, kP8Compressed>(packed);
-    case kP8Linear: return pick<KX, KY, kP8Linear>(packed);
-    case kP16Compressed: return pick<KX, KY, kP16Compressed>(packed);
-    case kP16Linear: return pick<KX, KY, kP16Linear>(packed);
+    case kP8Compressed: return pick<KX, KY, kP8Compressed>(px);
+    case kP8Linear: return pick<KX, KY, kP8Linear>(px);
+    case kP16Compressed: return pick<KX, KY, kP16Compressed>(px);
+    case kP16Linear: return pick<KX, KY, kP16Linear>(px);
   }
   return nullptr;
 }
 
 template <int KX>
-Launcher pick(int64_t ky, int64_t mode, bool packed) {
+Launcher pick(int64_t ky, int64_t mode, int px, int64_t form) {
+  if (form == kHTile) {
+    if (ky < kCopy || ky > kBox || px != kRgb) return nullptr;
+    switch (mode) {
+      case kP8Compressed: return &launch<KX, kAnyY, kP8Compressed, kRgb, kHTile>;
+      case kP8Linear: return &launch<KX, kAnyY, kP8Linear, kRgb, kHTile>;
+    }
+    return nullptr;
+  }
+  if (form != kLoop) return nullptr;
   switch (ky) {
     case kCopy:
-    case kOne: return pick<KX, kCopy>(mode, packed);
-    case kBilinear: return pick<KX, kBilinear>(mode, packed);
-    case kBox: return pick<KX, kBox>(mode, packed);
+    case kOne: return pick<KX, kCopy>(mode, px);
+    case kBilinear: return pick<KX, kBilinear>(mode, px);
+    case kBox: return pick<KX, kBox>(mode, px);
   }
   return nullptr;
 }
 
-Launcher pick(int64_t kx, int64_t ky, int64_t mode, bool packed) {
+Launcher pick(int64_t kx, int64_t ky, int64_t mode, int px, int64_t form) {
   switch (kx) {
     case kCopy:
-    case kOne: return pick<kCopy>(ky, mode, packed);
-    case kBilinear: return pick<kBilinear>(ky, mode, packed);
-    case kBox: return pick<kBox>(ky, mode, packed);
+    case kOne: return pick<kCopy>(ky, mode, px, form);
+    case kBilinear: return pick<kBilinear>(ky, mode, px, form);
+    case kBox: return pick<kBox>(ky, mode, px, form);
   }
   return nullptr;
 }
@@ -379,26 +596,36 @@ Launcher pick(int64_t kx, int64_t ky, int64_t mode, bool packed) {
 
 // C entry point for ctypes.  `in` is (batch, h_in, w_in, nb_in) uint8, `out`
 // is (batch, n_rows, w_out, nb_out) uint8 and 4-byte aligned, `luts` the
-// int32 tables of ops/pixels.lut_table, `tab_x` and `tab_y` the axes'
-// tables; the grid is (ceil(w_out / tile_w), grid_y, grid_z)
-// (ops/bilinear128.launch_shape).  The kernel runs on `stream` and is not
-// waited for.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for an axis kind or mode outside the class, or a
-// tile width or grid outside the limits.
+// int32 tables of ops/pixels.lut_table, `fold` the 256 int32 entries of
+// ops/pixels.unpack24_table (read for 3-byte input in linear light),
+// `tab_x` and `tab_y` the axes' tables, `windows` (read by H TILE only)
+// [r_lo, r_hi) of each row group of 256 / tile_w output rows
+// (ops/bilinear.row_windows), whose widest is h_cells / tile_w rows or
+// fewer; the grid is (ceil(w_out / tile_w), grid_y, grid_z)
+// (ops/bilinear128.launch_shape for LOOP, ops/bilinear.launch_shape for H
+// TILE).  The kernel runs on `stream` and is not waited for.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for an axis
+// kind, mode or form outside the class (H TILE: 3-byte input at PREMUL8
+// only), or a tile width, grid or h tile outside the limits.
 extern "C" int smolscale_bilinear128_scale(const uint8_t* in, uint8_t* out,
-                                           const int32_t* luts, const int32_t* tab_x,
-                                           const int32_t* tab_y,
+                                           const int32_t* luts, const int32_t* fold,
+                                           const int32_t* tab_x, const int32_t* tab_y,
+                                           const int32_t* windows,
                                            const Bilinear128Params* params, void* stream) {
   const Bilinear128Params p = *params;
   if (p.batch * p.n_rows * p.w_out <= 0) return static_cast<int>(cudaSuccess);
   if (p.tile_w < 1 || p.tile_w > kThreads || (p.tile_w & (p.tile_w - 1)) != 0 ||
-      p.grid_y < 1 || p.grid_y > 65535 || p.grid_z < 1 || p.grid_z > 65535)
+      p.grid_y < 1 || p.grid_y > 65535 || p.grid_z < 1 || p.grid_z > 65535 ||
+      (p.form == kHTile && (p.tile_w > 32 || p.h_cells < 1 || p.h_cells > kHCells)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool packed = p.nb_in == 4 && (reinterpret_cast<uintptr_t>(in) & 3) == 0;
-  const Launcher fn = pick(p.kind_x, p.kind_y, p.mode, packed);
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int px = p.nb_in == 3                                    ? kRgb
+                 : (reinterpret_cast<uintptr_t>(in) & 3) == 0 ? kWord
+                                                               : kBytes;
+  const Launcher fn = pick(p.kind_x, p.kind_y, p.mode, px, p.form);
+  if (fn == nullptr || (px == kRgb && p.kind_x == kBilinear && p.halvings_x > 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((p.w_out + p.tile_w - 1) / p.tile_w),
                   static_cast<unsigned>(p.grid_y), static_cast<unsigned>(p.grid_z));
-  fn(in, out, luts, tab_x, tab_y, p, grid, static_cast<cudaStream_t>(stream));
+  fn(in, out, luts, fold, tab_x, tab_y, windows, p, grid, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

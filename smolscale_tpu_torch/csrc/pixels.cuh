@@ -86,6 +86,56 @@ __device__ __forceinline__ void unpack(uint32_t px, const Fmt& f,
   }
 }
 
+// The work channels of a 3-byte pixel at internal PREMUL8 (MODE
+// kP8Compressed or kP8Linear; alpha in work channel 3): alpha is the constant
+// 255, so each colour byte's unpack is a fixed function of the byte, one
+// entry of `fold` (ops/pixels.unpack24_table) in linear light and the byte
+// itself at compressed gamma.  Three byte loads, and no load for alpha.
+template <int MODE>
+__device__ __forceinline__ void unpack24(const uint8_t* __restrict__ p, const int32_t* fold,
+                                         uint32_t v[4]) {
+  static_assert(MODE == kP8Compressed || MODE == kP8Linear, "3-byte pixels are PREMUL8");
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const uint32_t b = __ldg(p + c);
+    v[c] = MODE == kP8Linear ? static_cast<uint32_t>(fold[b]) : b;
+  }
+  v[3] = 255;
+}
+
+// Pixels o and o + 1 of a 3-byte row at `p` (pixel o's first byte), as
+// unpack24 gives them, from the aligned words that hold their six bytes: two
+// words, or three where the pair starts at a word's last byte.  Each word
+// loaded holds a byte of the pair, so it lies in the same mapped page as
+// that byte; the bytes outside the pair are dropped.
+template <int MODE>
+__device__ __forceinline__ void unpack24_pair(const uint8_t* __restrict__ p,
+                                              const int32_t* fold, uint32_t a[4],
+                                              uint32_t b[4]) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(addr & ~uintptr_t{3});
+  const unsigned sh = static_cast<unsigned>(addr & 3) * 8;
+  const uint32_t w0 = __ldg(w), w1 = __ldg(w + 1), w2 = sh == 24 ? __ldg(w + 2) : 0;
+  const uint32_t lo = __funnelshift_r(w0, w1, sh);  // the pair's bytes 0-3
+  const uint32_t hi = __funnelshift_r(w1, w2, sh);  // its bytes 4-5 in bits 0-15
+  const uint32_t bytes[6] = {lo & 0xff, (lo >> 8) & 0xff, (lo >> 16) & 0xff, lo >> 24,
+                             hi & 0xff, (hi >> 8) & 0xff};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    a[c] = MODE == kP8Linear ? static_cast<uint32_t>(fold[bytes[c]]) : bytes[c];
+    b[c] = MODE == kP8Linear ? static_cast<uint32_t>(fold[bytes[3 + c]]) : bytes[3 + c];
+  }
+  a[3] = b[3] = 255;
+}
+
+// Copies the 256 entries of unpack24's `fold` into the block's shared
+// `s_fold`.
+__device__ __forceinline__ void load_unpack24_lut(const int32_t* __restrict__ fold,
+                                                  int32_t* s_fold) {
+  for (int k = threadIdx.x; k < 256; k += blockDim.x) s_fold[k] = __ldg(fold + k);
+  __syncthreads();
+}
+
 // Copies FROM_SRGB then INV_DIV_P8 from the LUT block into the block's
 // shared `s_lut` (512 entries), for unpack<MODE> in linear light.
 __device__ __forceinline__ void load_unpack_luts(const int32_t* __restrict__ luts,

@@ -9,9 +9,10 @@ whole through every one of ``box``, ``bilinear``, ``deep`` and
 and ``deep.cu``), its row range through every kernel of
 ``torch_ops.ROW_KERNELS`` whose class holds it, a level set through
 ``ops.pyramid.pyramid_fn``, and the public ``scale`` on each plan; a plan
-on ``bilinear.cu``'s direct path also runs, whole and by rows, in each of
-its forms that fits (``ops.bilinear.direct_forms``) beside the one it is
-routed to.  Every result is held against that module's plain version on
+on ``bilinear.cu``'s direct path, or on ``bilinear128.cu`` with 3-byte
+input, also runs, whole and by rows, in each of its forms that fits
+(``ops.bilinear.direct_forms``, ``ops.bilinear128.forms``) beside the one it
+is routed to.  Every result is held against that module's plain version on
 the same input on the card; rows against those rows of the plain whole
 image.
 
@@ -25,9 +26,10 @@ three forms at the edges of its warps, blocks and row splits), ``--deep``
 (``deep.cu``: covers on both sides of 16, 32, 64 and 128 words, PREMUL16,
 linear light, 3-byte pixels), ``--staged`` (``bilinear.cu``'s staged X box
 at its tile edges), ``--s128`` (``bilinear128.cu``: narrow tiles and tile
-edges, PREMUL16 on 3 of 4 draws), ``--pyramid`` (``pyramid.cu``: 2-3 levels
-at ratios 2, 4 and 8), ``--tall`` (more than 65,535 output rows in a batch,
-and more than 65,535 images on ``deep.cu``: the grid loops) and ``--band``
+edges, PREMUL16 on 2 of 4 draws, 3-byte input on 1 of 4), ``--pyramid``
+(``pyramid.cu``: 2-3 levels at ratios 2, 4 and 8), ``--tall`` (more than
+65,535 output rows in a batch, and more than 65,535 images on ``deep.cu``:
+the grid loops) and ``--band``
 (the deep-ratio overflow band of ``tests/test_fuzz_differential.py``: spans
 of 4,096-65,535 pixels from unassociated input near saturation).
 ``fuzz_tpu.py``'s ``--boxchunk`` and ``--copyaxes`` are ``--box``'s forms
@@ -260,10 +262,13 @@ def _stage_lanes(plan: ScalePlan) -> int:
         return -1
 
 
-def _other_forms(plan: ScalePlan) -> list[int]:
-    """The forms of ``bilinear.cu``'s direct path that fit the plan, beside
-    the one it is routed to (none for a staged X box)."""
-    if _stage_lanes(plan) != 0:
+def _other_forms(plan: ScalePlan, mod=bilinear) -> list[int]:
+    """The forms of ``bilinear.cu``'s direct path (``mod`` ``bilinear``) or
+    of ``bilinear128.cu`` that fit the plan, beside the one it is routed to;
+    none for a staged X box and for the kernels with one form."""
+    if mod is bilinear128:
+        return [f for f in bilinear128.forms(plan) if f != bilinear128.form(plan)]
+    if mod is not bilinear or _stage_lanes(plan) != 0:
         return []
     return [f for f in bilinear.direct_forms(plan) if f != bilinear.direct_form(plan)]
 
@@ -300,8 +305,11 @@ def _draw_s128(rng, index):
             wo = 32 * _int(rng, 1, 21) + _int(rng, -1, 2)
         wo = min(wo, 2 * wi)
         ho = _int(rng, 1, max(2, 2 * hi))
-        if rng.integers(0, 4):  # internal PREMUL16
+        share = _int(rng, 0, 4)
+        if share < 2:  # internal PREMUL16
             ti, to, srgb = _int(rng, 4, 8), _int(rng, 4, 8), bool(rng.integers(0, 2))
+        elif share == 2:  # 3-byte input: the folded unpack and the h tile
+            ti, to, srgb = _int(rng, 8, 10), _int(rng, 0, 10), bool(rng.integers(0, 2))
         else:
             ti, to, srgb = _types(rng)
         key = (wi, hi, wo, ho, ti, to, srgb)
@@ -545,6 +553,9 @@ def kernel_runs(case: Case, x: torch.Tensor, distinct: torch.Tensor, cover: dict
             cover["bilinear128 tile_w"].add(tile_w)
             cover["bilinear128 row loops"].add(
                 grid_y * (bilinear128.THREADS // tile_w) < n_rows)
+            cover["bilinear128 forms"].update(
+                bilinear128.FORMS[f] for f in [bilinear128.form(plan)]
+                + _other_forms(plan, bilinear128))
 
     plans = case.plans()
     runs = []
@@ -554,9 +565,9 @@ def kernel_runs(case: Case, x: torch.Tensor, distinct: torch.Tensor, cover: dict
                 note(name, plan, plan.height_out)
                 runs.append((f"{name} {plan.key}", partial(mod.scale_fn, plan, x),
                              partial(plain, i, name, plan)))
-                for f in _other_forms(plan) if mod is bilinear else ():
-                    runs.append((f"{name} {bilinear.FORMS[f]} {plan.key}",
-                                 partial(bilinear.scale_fn, plan, x, f),
+                for f in _other_forms(plan, mod):
+                    runs.append((f"{name} {mod.FORMS[f]} {plan.key}",
+                                 partial(mod.scale_fn, plan, x, f),
                                  partial(plain, i, name, plan)))
         runs.append((f"scale {plan.key}", partial(stt.scale, plan, x),
                      lambda i=i, plan=plan: plain(i, _name(torch_ops.whole_kernel(plan)), plan)))
@@ -566,8 +577,8 @@ def kernel_runs(case: Case, x: torch.Tensor, distinct: torch.Tensor, cover: dict
         name = _name(mod)
         if mod.applicable(plan):
             note(name, plan, n)
-            for f in [None] + (_other_forms(plan) if mod is bilinear else []):
-                runs.append((f"{name}{'' if f is None else ' ' + bilinear.FORMS[f]} rows "
+            for f in [None] + _other_forms(plan, mod):
+                runs.append((f"{name}{'' if f is None else ' ' + mod.FORMS[f]} rows "
                              f"[{first}, {first + n}) {plan.key}",
                              partial(mod.scale_rows_fn, plan, x, first, n,
                                      *(() if f is None else (f,))),
@@ -592,7 +603,7 @@ class Report:
     cover: dict = dataclasses.field(default_factory=lambda: {
         k: set() for k in ("box forms", "deep lanes", "deep chunks", "deep readers",
                            "bilinear staged lanes", "bilinear forms", "bilinear128 tile_w",
-                           "bilinear128 row loops")})
+                           "bilinear128 row loops", "bilinear128 forms")})
     poisoned: int = 0
     runs: int = 0
     cases: int = 0

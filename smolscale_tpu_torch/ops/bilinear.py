@@ -339,18 +339,26 @@ def h_reuse(plan: ScalePlan) -> float:
     return taps / int((rows[1] - rows[0]).sum())
 
 
-def direct_form(plan: ScalePlan) -> int:
-    """The direct path's form by class, where the h tile fits: H_TILE where
-    each output row reads three tap rows or more (a V ladder of 1 or 2
-    halvings, a V box) or the tap rows are shared two-fold or more
-    (upscales, ONE); LOOP otherwise (COPY, 0h downscales) and where the h
-    tile does not fit.  On each timed row this is the faster of the two
-    (PERF.md §6)."""
-    if not h_tile_fits(plan):
-        return LOOP
+def deep_v(plan: ScalePlan) -> bool:
+    """Whether each output row's V filter reads three tap rows or more: a V
+    ladder of 1 or more halvings, or a V box (``ops.bilinear128`` routes its
+    3-byte plans to its h tile by this alone)."""
     y = plan.y
-    deep_v = axis_kind(y) == BOX or (axis_kind(y) == BILINEAR and y.halvings >= 1)
-    return H_TILE if deep_v or h_reuse(plan) >= 2 else LOOP
+    return axis_kind(y) == BOX or (axis_kind(y) == BILINEAR and y.halvings >= 1)
+
+
+def h_tile_pays(plan: ScalePlan) -> bool:
+    """Whether the h tile pays by class: :func:`deep_v`, or the tap rows are
+    shared two-fold or more (upscales, ONE); not for a COPY V axis or a 0h
+    downscale."""
+    return deep_v(plan) or h_reuse(plan) >= 2
+
+
+def direct_form(plan: ScalePlan) -> int:
+    """The direct path's form by class: H_TILE where the h tile fits and
+    :func:`h_tile_pays`, else LOOP.  On each timed row this is the faster
+    of the two (PERF.md §6)."""
+    return H_TILE if h_tile_fits(plan) and h_tile_pays(plan) else LOOP
 
 
 @plan_cache

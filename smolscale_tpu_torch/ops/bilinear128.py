@@ -18,6 +18,13 @@ with one output column or row runs here.  The numbers are those of
 ``backends/numpy_ref`` at 128bpp masks (see the note at the top of
 ``csrc/bilinear128.cu``).
 
+The kernel has two forms (see ``csrc/bilinear128.cu``), which
+:func:`form` picks per plan: LOOP (every plan: each thread H-filters its own
+tap rows from global memory) and, for 3-byte input, H_TILE (each tap row of
+a row group H-filtered once per tile into shared memory,
+``bilinear.row_windows``) where each output row reads three tap rows or
+more.
+
 ``scale_fn`` and ``scale_rows_fn`` take ``(B, H, W, nb_in)`` or
 ``(H, W, nb_in)`` uint8 tensors.  A tensor on the CPU goes to
 :func:`bilinear128_scale_ref`; a tensor on a CUDA device launches the
@@ -31,11 +38,13 @@ import functools
 
 import torch
 
-from ..formats import StorageType
+from ..formats import GammaType, StorageType
 from ..plan import ScalePlan
 from . import pixels
 from ._plan_cache import plan_cache
-from .bilinear import axis_kind, axis_table, filter_scale, table_len
+from .bilinear import (_windows, axis_kind, axis_table, deep_v, filter_scale, row_windows,
+                       table_len, tile_width)
+from .bilinear import launch_shape as tile_launch_shape
 from .deep import masks, mode
 
 launches = 0
@@ -96,7 +105,9 @@ class _Bilinear128Params(ctypes.Structure):
             "nb_in", "nb_out", "alpha_ch", "unassoc_in", "unassoc_out",
             "pack24_direct",
         )
-    ] + [("src", ctypes.c_int64 * 4)]
+    ] + [("src", ctypes.c_int64 * 4)] + [
+        (name, ctypes.c_int64) for name in ("form", "h_cells")
+    ]
 
 
 # the kernel's blocks (kThreads in csrc/bilinear128.cu) and the blocks per
@@ -123,21 +134,81 @@ def launch_shape(w_out: int, n_rows: int, batch: int,
     return tile_w, col_tiles, grid_y, grid_z
 
 
-def _params(plan: ScalePlan, batch: int, first: int, n: int,
-            sms: int = pixels.H100_SMS) -> _Bilinear128Params:
+# the forms (enum Form in csrc/bilinear128.cu); H_TILE keeps at most
+# H_CELLS cells of two words (kHCells there: 32 KB)
+LOOP, H_TILE = range(2)
+FORMS = {LOOP: "loop", H_TILE: "h tile"}
+H_CELLS = 4096
+
+
+def rgb24(plan: ScalePlan) -> bool:
+    """3-byte input (RGB8, BGR8: premultiplied, so planned at internal
+    PREMUL8 only), the plans whose pixels the kernel unpacks through
+    ``pixels.unpack24_table`` and that H_TILE takes."""
+    return plan.meta_in.n_bytes == 3
+
+
+def h_cells(plan: ScalePlan) -> int:
+    """H_TILE's cells: the widest row group's tap rows at the tile's
+    width."""
+    rows = row_windows(plan)
+    return int((rows[1] - rows[0]).max()) * tile_width(plan.width_out)
+
+
+@plan_cache
+def _forms(plan: ScalePlan) -> tuple:
+    return (LOOP, H_TILE) if rgb24(plan) and h_cells(plan) <= H_CELLS else (LOOP,)
+
+
+def forms(plan: ScalePlan) -> list[int]:
+    """The forms that can run the plan: LOOP always, H_TILE for
+    :func:`rgb24` plans whose tap rows fit the h tile."""
+    return list(_forms(plan))
+
+
+def form(plan: ScalePlan) -> int:
+    """The plan's form: H_TILE where it fits and each output row reads
+    three tap rows or more (``bilinear.deep_v``: a V ladder of 1 or more
+    halvings, a V box), else LOOP (COPY V, 0h V axes, 4-byte input).
+    ``bilinear.cu``'s rule also sends upscales to its h tile; here LOOP was
+    the faster on 6b-up.  On each timed 3-byte row this is the faster of
+    the two (PERF.md §6)."""
+    return H_TILE if H_TILE in _forms(plan) and deep_v(plan) else LOOP
+
+
+@plan_cache
+def _plan_params(plan: ScalePlan) -> _Bilinear128Params:
+    """The parameters that follow from the plan alone (its routed form and
+    h tile among them); :func:`_params` copies them per call."""
     f = pixels.kernel_fields(plan)
     f["src"] = (ctypes.c_int64 * 4)(*f["src"])
-    tile_w, _, grid_y, grid_z = launch_shape(plan.width_out, n, batch, sms)
     return _Bilinear128Params(
-        batch=batch, h_in=plan.height_in, w_in=plan.width_in,
-        h_out=plan.height_out, w_out=plan.width_out, row0=first, n_rows=n,
+        h_in=plan.height_in, w_in=plan.width_in, h_out=plan.height_out, w_out=plan.width_out,
         kind_x=axis_kind(plan.x), kind_y=axis_kind(plan.y),
         halvings_x=plan.x.halvings, halvings_y=plan.y.halvings,
         len_x=table_len(plan.x), len_y=table_len(plan.y),
         span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul),
-        mode=mode(plan), tile_w=tile_w, grid_y=grid_y, grid_z=grid_z,
-        pack24_direct=int(plan.pack24_linear_direct), **f,
+        mode=mode(plan), pack24_direct=int(plan.pack24_linear_direct), form=form(plan),
+        h_cells=h_cells(plan) if rgb24(plan) else 0, **f,
     )
+
+
+def _params(plan: ScalePlan, batch: int, first: int, n: int, sms: int = pixels.H100_SMS,
+            form: int | None = None) -> _Bilinear128Params:
+    """The kernel's parameters for output rows [first, first + n) of
+    ``batch`` images; ``form`` is :func:`form`'s by default, else one of
+    :func:`forms` (raises for one that does not fit)."""
+    p = _Bilinear128Params.from_buffer_copy(_plan_params(plan))
+    p.batch, p.row0, p.n_rows = batch, first, n
+    if form is not None:
+        if form not in _forms(plan):
+            raise ValueError(f"plan {plan.key}: the 128bpp kernel's {FORMS.get(form, form)} "
+                             f"form does not fit (forms {[FORMS[k] for k in _forms(plan)]})")
+        p.form = form
+    shape = launch_shape if p.form == LOOP else tile_launch_shape
+    args = (n,) if p.form == LOOP else (first, n)
+    p.tile_w, _, p.grid_y, p.grid_z = shape(plan.width_out, *args, batch, sms)
+    return p
 
 
 @functools.cache
@@ -145,12 +216,13 @@ def _entry():
     from ._build import library
 
     fn = library().smolscale_bilinear128_scale
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.POINTER(_Bilinear128Params), ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.POINTER(_Bilinear128Params), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> torch.Tensor:
+def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int,
+            form: int | None) -> torch.Tensor:
     global launches
     if not imgs.is_contiguous():
         raise ValueError("the 128bpp kernel takes contiguous input")
@@ -161,10 +233,13 @@ def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> torch.Te
     )
     with torch.cuda.device(imgs.device):
         lut = pixels.lut_table(imgs.device)
+        fold = pixels.unpack24_lut(imgs.device, plan.gamma == GammaType.SRGB_LINEAR)
         tx, ty = _tables(plan, imgs.device)
-        params = _params(plan, batch.shape[0], first, n, pixels.sm_count(imgs.device))
+        params = _params(plan, batch.shape[0], first, n, pixels.sm_count(imgs.device), form)
+        windows = None if params.form == LOOP else _windows(plan, imgs.device).data_ptr()
         err = _entry()(
-            batch.data_ptr(), out.data_ptr(), lut.data_ptr(), tx.data_ptr(), ty.data_ptr(),
+            batch.data_ptr(), out.data_ptr(), lut.data_ptr(), fold.data_ptr(),
+            tx.data_ptr(), ty.data_ptr(), windows,
             ctypes.byref(params), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -173,20 +248,23 @@ def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> torch.Te
     return out if imgs.dim() == 4 else out[0]
 
 
-def scale_rows_fn(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> torch.Tensor:
+def scale_rows_fn(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int,
+                  form: int | None = None) -> torch.Tensor:
     """Output rows [first, first+n): (B, H, W, nb_in) or (H, W, nb_in) uint8
     -> (B, n, w, nb_out) or (n, w, nb_out) uint8, on the device where
-    ``imgs`` lies.  Only those rows are computed."""
+    ``imgs`` lies.  Only those rows are computed.  ``form`` runs the kernel
+    in that form (one of :func:`forms`) instead of the one :func:`form`
+    picks; the bytes are the same."""
     first, n = int(first), int(n)
     _check(plan, imgs, first, n)
     if imgs.device.type == "cpu":
         return bilinear128_scale_ref(plan, imgs, first, n)
     if imgs.device.type == "cuda":
-        return _launch(plan, imgs, first, n)
+        return _launch(plan, imgs, first, n, form)
     raise ValueError(f"no 128bpp kernel for device {imgs.device}")
 
 
-def scale_fn(plan: ScalePlan, imgs: torch.Tensor) -> torch.Tensor:
+def scale_fn(plan: ScalePlan, imgs: torch.Tensor, form: int | None = None) -> torch.Tensor:
     """(B, H, W, nb_in) or (H, W, nb_in) uint8 -> (B, h, w, nb_out) or
     (h, w, nb_out) uint8, on the device where ``imgs`` lies."""
-    return scale_rows_fn(plan, imgs, 0, plan.height_out)
+    return scale_rows_fn(plan, imgs, 0, plan.height_out, form)

@@ -171,3 +171,25 @@ def lut_table(device: torch.device) -> torch.Tensor:
         np.concatenate([getattr(luts, name) for name in LUT_NAMES]).astype(np.int32),
         device=device,
     )
+
+
+def unpack24_table(linear: bool) -> np.ndarray:
+    """The work value of each colour byte of a 3-byte pixel (RGB8 and BGR8,
+    premultiplied) at internal PREMUL8, as int32 (256,).  Alpha is the
+    constant 255, so :func:`unpack` of a colour channel is a fixed function
+    of its byte: at compressed gamma the identity; in linear light
+    unpremul_p8 at 255, from_srgb, then premul_ul_to_p8l at 255
+    (generic.c:227-236, 261-269), all of it one table entry, at most 2040."""
+    v = np.arange(256, dtype=np.int64)
+    if not linear:
+        return v.astype(np.int32)
+    v = ((v * int(luts.INV_DIV_P8[255])) >> luts.INVERTED_DIV_SHIFT_P8) & 0xFF
+    lin = np.asarray(luts.FROM_SRGB, dtype=np.int64)[v]
+    return ((((lin + 1) * ((255 << 3) + 1) - 1) >> 11) & 0x7FF).astype(np.int32)
+
+
+@functools.cache
+def unpack24_lut(device: torch.device, linear: bool) -> torch.Tensor:
+    """:func:`unpack24_table` on ``device``, for the 128bpp kernel's 3-byte
+    pixels."""
+    return torch.as_tensor(unpack24_table(linear), device=device)

@@ -26,7 +26,7 @@ from smolscale_tpu.ops import pallas_128, pallas_srgb
 from smolscale_tpu_torch import luts
 from smolscale_tpu_torch.backends import torch_ops
 from smolscale_tpu_torch.formats import AlphaType, GammaType, StorageType
-from smolscale_tpu_torch.ops import bilinear, bilinear128, box, deep
+from smolscale_tpu_torch.ops import bilinear, bilinear128, box, deep, pixels
 from smolscale_tpu_torch.plan import ScalePlan
 
 _ORIG = pl.pallas_call
@@ -139,11 +139,20 @@ ROWS = [
     ((512, 300, 7, 290, 4, 4, True), 45, 200),   # starts inside a 32-row tile
     ((1028, 200, 257, 50, 4, 4, False), 3, 13),
 ]
-# suite rows 6, 6b and 7 (benchmarks/suite.py:314-324) cut to a small size
+# suite rows 6, 6b and 7 (benchmarks/suite.py:314-324) and chip_smoke.py's
+# 6b-4k and 6b-up cut to a small size
 SUITE = [
     (256, 256, 32, 32, 4, 4, True),     # row 6: sRGB, PREMUL16-linear, 2h
     (480, 270, 100, 56, 8, 8, True),    # row 6b: RGB24 sRGB, PREMUL8-linear, 2h
     (256, 256, 32, 32, 4, 4, False),    # row 7: PREMUL16, 2h
+    (384, 216, 192, 108, 8, 8, True),   # 6b-4k: RGB24 sRGB, 0h 2:1
+    (128, 72, 192, 108, 8, 8, True),    # 6b-up: RGB24 sRGB, 0h upscale
+]
+# chip_smoke.py's timed 3-byte rows at full size: (plan, routed form)
+RGB24_ROWS = [
+    ((1920, 1080, 400, 225, 8, 8, True), bilinear128.H_TILE),    # row 6b: 2h x 2h
+    ((3840, 2160, 1920, 1080, 8, 8, True), bilinear128.LOOP),    # 6b-4k: 0h 2:1
+    ((1280, 720, 1920, 1080, 8, 8, True), bilinear128.LOOP),     # 6b-up: 0h upscale
 ]
 
 
@@ -532,13 +541,214 @@ def _smoke():
 def test_chip_smoke_plans_are_held_here():
     """chip_smoke.py holds the kernel against the plain version on the card;
     every plan and row range it checks is held against numpy_ref by a test
-    of this file, and its suite rows are this class and no other's."""
+    of this file, and its suite rows are this class and no other's; its
+    3-byte rows (6b, 6b-4k, 6b-up) are RGB24_ROWS, with the forms they are
+    routed to, and its 3-byte unaligned and constant-255 plans fit both
+    forms."""
     mod = _smoke()
     assert set(mod.WIDE_CHECK_PLANS) == set(ALL)
     assert set(mod.WIDE_CHECK_ROWS) == set(ROWS)
     assert set(mod.WIDE_UNALIGNED) <= set(ALL) and mod.WIDE_TALL == TALL
     assert mod.WIDE_CONST_PLAN in ALL and mod.WIDE_CONST_COPY_PLAN == CONST_COPY
+    assert set(mod.WIDE_CONST24_PLANS) <= set(ALL)
+    for key in mod.WIDE_CONST24_PLANS + [k for k in mod.WIDE_UNALIGNED if k[4] >= 8]:
+        assert bilinear128.forms(ScalePlan(*key)) == [bilinear128.LOOP, bilinear128.H_TILE]
     for _, key, _ in mod.WIDE_ROWS:
         plan = stt.ScalePlan(*key)
         assert bilinear128.applicable(plan)
         assert not any(k.applicable(plan) for k in (box, bilinear, deep))
+    assert {key for _, key, _ in mod.WIDE_ROWS if key[4] >= 8} == {k for k, _ in RGB24_ROWS}
+    for key, routed in RGB24_ROWS:
+        assert bilinear128.form(ScalePlan(*key)) == routed
+
+
+# ----------------------------------------------------------------------------
+# 3-byte input: the folded unpack table and the H TILE form
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("srgb", [False, True], ids=["compressed", "linear"])
+def test_unpack24_table_matches_unpack(srgb):
+    """The kernel's per-byte table for 3-byte pixels equals ``pixels.unpack``
+    at the constant alpha 255 for all 256 bytes of each channel: the
+    identity at PREMUL8 compressed (mode 0), unpremultiply, from_srgb and
+    premultiply folded into one entry in PREMUL8 linear (mode 1)."""
+    key = (512, 256, 96, 56, 8, 8, True) if srgb else (520, 300, 2, 40, 8, 9, False)
+    plan = ScalePlan(*key)
+    assert deep.mode(plan) == (deep.P8_LINEAR if srgb else deep.P8_COMPRESSED)
+    assert bilinear128.rgb24(plan)
+    img = torch.from_numpy(np.repeat(np.arange(256, dtype=np.uint8)[None, :, None], 3, axis=2))
+    work = pixels.unpack(plan, img)[0].numpy()
+    assert plan.meta_in.alpha == AlphaType.PREMUL8
+    table = pixels.unpack24_table(srgb)
+    assert table.dtype == np.int32 and table.shape == (256,)
+    for c in range(3):
+        assert np.array_equal(work[:, c], table)
+    assert (work[:, 3] == 255).all()
+    assert table.max() == (2040 if srgb else 255)
+    assert np.array_equal(pixels.unpack24_lut(torch.device("cpu"), srgb).numpy(), table)
+
+
+def test_3_byte_input_is_planned_at_premul8():
+    """RGB8 and BGR8 are premultiplied (alpha 255), so every plan with
+    3-byte input has internal PREMUL8: the folded table (modes 0 and 1) and
+    H TILE's 16-bit cells cover all of them; the kernel refuses 3-byte input
+    at PREMUL16."""
+    for ti in (8, 9):
+        for to in range(10):
+            for srgb in (False, True):
+                for key in [(600, 300, 2, 40), (512, 256, 96, 56), (96, 54, 200, 120)]:
+                    plan = ScalePlan(*key, ti, to, srgb)
+                    assert plan.internal_alpha == AlphaType.PREMUL8
+                    assert deep.mode(plan) in (deep.P8_COMPRESSED, deep.P8_LINEAR)
+                    assert bilinear128.rgb24(plan)
+
+
+def test_unpack24_table_is_the_planes_fold():
+    """The linear table equals the two 16-bit halves of row 1 of
+    ``pallas_srgb._lut_tables``, the fold TPU kernel #12 gathers from."""
+    row = pallas_srgb._lut_tables()[1].astype(np.int64)
+    table = pixels.unpack24_table(True)
+    assert np.array_equal(table[:128], row & 0xFFFF)
+    assert np.array_equal(table[128:], row >> 16)
+
+
+@pytest.mark.parametrize("key,routed", RGB24_ROWS, ids=lambda v: _id(v) if isinstance(v, tuple) else str(v))
+def test_rgb24_rows_route_by_class(key, routed):
+    """Row 6b (2h ladders: 4 samples, 1.63 H filters per tap row in LOOP)
+    takes H TILE; 6b-4k (0h 2:1, no tap row shared) and 6b-up (0h upscale,
+    tap rows shared 2.4-fold, where ``bilinear.cu`` would take its h tile)
+    stay on LOOP, the faster form on the card for each."""
+    plan = ScalePlan(*key)
+    assert bilinear128.forms(plan) == [bilinear128.LOOP, bilinear128.H_TILE]
+    assert bilinear128.form(plan) == routed
+    assert (routed == bilinear128.H_TILE) == bilinear.deep_v(plan)
+    assert bilinear.h_tile_pays(plan) == (routed == bilinear128.H_TILE or key[2] > key[0])
+    reuse = bilinear.h_reuse(plan)
+    assert (reuse >= 2) == (key[2] > key[0])
+    if key == RGB24_ROWS[0][0]:
+        # 225 rows in groups of 8 read 40 tap rows at most, 39 on most
+        assert (plan.y.halvings, plan.x.halvings) == (2, 2) and 1.6 < reuse < 1.7
+        assert bilinear128.h_cells(plan) == 40 * 32
+
+
+def test_four_byte_plans_keep_loop():
+    """4-byte plans have one form, LOOP; a form that does not fit raises
+    before any launch."""
+    for key in [(2048, 2048, 256, 256, 4, 4, True), (512, 256, 96, 56, 0, 0, True),
+                (2048, 2048, 256, 256, 4, 4, False), (512, 256, 96, 56, 0, 8, True)]:
+        plan = ScalePlan(*key)
+        assert not bilinear128.rgb24(plan)
+        assert bilinear128.forms(plan) == [bilinear128.LOOP] == [bilinear128.form(plan)]
+    plan = ScalePlan(2048, 2048, 256, 256, 4, 4, True)
+    with pytest.raises(ValueError, match="does not fit"):
+        bilinear128._params(plan, 8, 0, 256, form=bilinear128.H_TILE)
+    p = bilinear128._params(plan, 8, 0, 256, form=bilinear128.LOOP)
+    assert (p.form, p.h_cells) == (bilinear128.LOOP, 0)
+    # a 3-byte plan whose row groups read more tap rows than the h tile holds
+    deep_v = ScalePlan(64, 8000, 64, 30, 8, 8, True)
+    assert bilinear128.rgb24(deep_v) and bilinear128.h_cells(deep_v) > bilinear128.H_CELLS
+    assert bilinear128.forms(deep_v) == [bilinear128.LOOP] == [bilinear128.form(deep_v)]
+
+
+def test_h_tile_params_follow_plan():
+    """H TILE's grid counts row groups from output row 0
+    (``bilinear.launch_shape``), LOOP's from the range's first row; the
+    cells are the plan's widest window at the tile's width."""
+    plan = ScalePlan(*RGB24_ROWS[0][0])
+    p = bilinear128._params(plan, 8, 0, 225, 132)
+    assert (p.form, p.h_cells, p.tile_w, p.grid_y, p.grid_z) == (
+        bilinear128.H_TILE, 1280, 32, 20, 8)
+    assert p.nb_in == 3 and p.mode == deep.P8_LINEAR and p.pack24_direct == 1
+    q = bilinear128._params(plan, 8, 13, 30, 132)
+    assert (q.tile_w, q.grid_y) == bilinear.launch_shape(400, 13, 30, 8, 132)[::2]
+    r = bilinear128._params(plan, 8, 13, 30, 132, bilinear128.LOOP)
+    assert (r.form, r.tile_w, r.grid_y) == (bilinear128.LOOP, 32, 4)
+    assert r.h_cells == p.h_cells   # the template's; LOOP does not read it
+
+
+_V_PLANS = sorted({k for k in ALL + SUITE if k[4] >= 8} | {k for k, _ in RGB24_ROWS}
+                  | set(_smoke().WIDE_CONST24_PLANS), key=str)
+
+
+def _v_reads(ay, tab, i):
+    """The input rows csrc/bilinear128.cu's vfilter reads for output row i."""
+    kind = bilinear.axis_kind(ay)
+    if kind in (bilinear.COPY, bilinear.ONE):
+        return [i if kind == bilinear.COPY else 0]
+    if kind == bilinear.BILINEAR:
+        k = 1 << ay.halvings
+        ofs = tab[: len(tab) // 2]
+        return [r for s in range(i * k, (i + 1) * k) for r in (ofs[s], ofs[s] + 1)]
+    first, _, mid, n_mid, last, _ = tab.reshape(6, -1)[:, i]
+    return [first, last, *range(mid, mid + n_mid)]
+
+
+@pytest.mark.parametrize("key", _V_PLANS, ids=_id)
+def test_h_cells_cover_every_window(key):
+    """Each row group's window lies in the image and holds every tap row its
+    output rows read through the 128bpp V table; H TILE fits a plan exactly
+    when its widest window at the tile's width is at most H_CELLS, and its
+    cells (h_cells) hold every row group's window."""
+    plan = ScalePlan(*key)
+    assert bilinear128.rgb24(plan)
+    tile_w = bilinear.tile_width(plan.width_out)
+    tile_h = bilinear128.THREADS // tile_w
+    win = bilinear.row_windows(plan)
+    assert (0 <= win[0]).all() and (win[0] < win[1]).all() and (win[1] <= plan.height_in).all()
+    tab = bilinear128.tables(plan)[1]
+    for i in range(plan.height_out):
+        reads = _v_reads(plan.y, tab, i)
+        lo, hi = win[:, i // tile_h]
+        assert lo <= min(reads) and max(reads) < hi, i
+    cells = bilinear128.h_cells(plan)
+    assert cells == int((win[1] - win[0]).max()) * tile_w
+    assert (bilinear128.H_TILE in bilinear128.forms(plan)) == (cells <= bilinear128.H_CELLS)
+    assert torch.equal(bilinear._windows(plan, torch.device("cpu")),
+                       torch.from_numpy(win.reshape(-1)))
+
+
+def _tile_visits(plan, first, n, batch, sms):
+    """How often csrc/bilinear128.cu's ``direct_tile`` loops visit each
+    output pixel of rows [first, first + n), and that every cell a V pass
+    reads was written in that row group's H pass, for the grid
+    ``bilinear.launch_shape`` gives."""
+    tile_w, col_tiles, grid_y, grid_z = bilinear.launch_shape(plan.width_out, first, n, batch,
+                                                              sms)
+    tile_h = bilinear128.THREADS // tile_w
+    win = bilinear.row_windows(plan)
+    tab = bilinear128.tables(plan)[1]
+    seen = np.zeros((batch, n, plan.width_out), dtype=np.int64)
+    g_first, g_end = first // tile_h, (first + n - 1) // tile_h + 1
+    for z in range(grid_z):
+        images = np.arange(z, batch, grid_z)
+        for y in range(grid_y):
+            for g in range(g_first + y, g_end, grid_y):
+                r_lo, n_taps = win[0, g], win[1, g] - win[0, g]
+                assert n_taps * tile_w <= bilinear128.h_cells(plan)
+                # each thread row tr writes cells tr, tr + tile_h, ... of its column
+                written = np.zeros(n_taps, dtype=np.int64)
+                for tr in range(tile_h):
+                    written[tr:n_taps:tile_h] += 1
+                assert (written == 1).all()
+                for tr in range(tile_h):
+                    i = g * tile_h + tr
+                    if first <= i < first + n:
+                        assert all(0 <= r - r_lo < n_taps for r in _v_reads(plan.y, tab, i))
+                        seen[images[:, None], i - first, :] += col_tiles * tile_w >= plan.width_out
+    return seen
+
+
+@pytest.mark.parametrize("key,first,n,batch,sms", [
+    ((480, 270, 100, 56, 8, 8, True), 0, 56, 2, 132),
+    ((480, 270, 100, 56, 8, 8, True), 13, 30, 3, 1),
+    ((128, 72, 192, 108, 8, 8, True), 7, 100, 2, 2),
+    ((60, 40, 7, 30, 8, 8, True), 0, 30, 5, 1),      # tile_w 8: 32 rows per group
+    ((520, 300, 2, 40, 8, 9, False), 5, 30, 2, 132),  # tile_w 2: 128 rows per group
+    ((1920, 1080, 400, 225, 8, 8, True), 0, 225, 8, 132),
+])
+def test_h_tile_covers_every_pixel_once(key, first, n, batch, sms):
+    """H TILE's loops visit every output pixel of the range exactly once,
+    whether the range starts or ends inside a row group or a block takes
+    several row groups; each row group's H pass writes each of its window's
+    cells once, and its V pass reads no cell outside the window."""
+    assert (_tile_visits(ScalePlan(*key), first, n, batch, sms) == 1).all()

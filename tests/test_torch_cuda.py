@@ -96,6 +96,7 @@ WIDE_PLANS = _smoke().WIDE_CHECK_PLANS
 WIDE_ROWS = _smoke().WIDE_CHECK_ROWS
 WIDE_UNALIGNED = _smoke().WIDE_UNALIGNED
 WIDE_TALL = _smoke().WIDE_TALL
+WIDE_CONST24 = _smoke().WIDE_CONST24_PLANS
 PYRAMID_SETS = _smoke().PYRAMID_CHECK_SETS
 # chip_smoke.py's box-kernel plans: the tile edges of ops/box.launch_shape,
 # 255:1 axes, spans that are not a multiple of 16 bytes, deep ratios on split
@@ -479,11 +480,14 @@ def test_bilinear128_kernel_matches_plain(cuda_device, key):
     torch.cuda.synchronize()
     assert got.device == cuda_device and torch.equal(got, plain)
     assert np.array_equal(got[1].cpu().numpy(), numpy_ref.scale(RefPlan(*key), imgs[1]))
-    # row ranges: a middle one, the last row
+    # every form that fits (H TILE beside LOOP for 3-byte input), whole and
+    # on row ranges: a middle one, the last row
     h = plan.height_out
-    for first, n in ((h // 3, max(1, h // 2)), (h - 1, 1)):
-        assert torch.equal(bilinear128.scale_rows_fn(plan, x, first, n),
-                           plain[:, first : first + n])
+    for form in bilinear128.forms(plan):
+        assert torch.equal(bilinear128.scale_fn(plan, x, form), plain), bilinear128.FORMS[form]
+        for first, n in ((h // 3, max(1, h // 2)), (h - 1, 1)):
+            assert torch.equal(bilinear128.scale_rows_fn(plan, x, first, n, form),
+                               plain[:, first : first + n]), bilinear128.FORMS[form]
 
 
 @pytest.mark.cuda
@@ -493,16 +497,17 @@ def test_bilinear128_rows_match_plain(cuda_device, key, first, n):
     plan = stt.ScalePlan(*key)
     x = torch.randint(0, 256, (2, key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8,
                       device=cuda_device)
-    assert torch.equal(bilinear128.scale_rows_fn(plan, x, first, n),
-                       bilinear128.bilinear128_scale_ref(plan, x, first, n))
+    want = bilinear128.bilinear128_scale_ref(plan, x, first, n)
+    for form in bilinear128.forms(plan):
+        assert torch.equal(bilinear128.scale_rows_fn(plan, x, first, n, form), want)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("key", WIDE_UNALIGNED, ids=_id)
 @pytest.mark.parametrize("offset", [1, 2, 3])
 def test_bilinear128_unaligned_input(cuda_device, key, offset):
-    """Inputs at byte offsets 1-3 take the byte-load path; whole and by
-    rows."""
+    """Inputs at byte offsets 1-3 take the byte-load paths (3-byte input in
+    every form); whole and by rows."""
     plan = stt.ScalePlan(*key)
     x = torch.randint(0, 256, (2, key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8,
                       device=cuda_device)
@@ -512,8 +517,25 @@ def test_bilinear128_unaligned_input(cuda_device, key, offset):
     shifted.copy_(x)
     assert torch.equal(bilinear128.scale_fn(plan, shifted), want)
     h = plan.height_out
-    assert torch.equal(bilinear128.scale_rows_fn(plan, shifted, h // 2, h - h // 2),
-                       want[:, h // 2 :])
+    for form in bilinear128.forms(plan):
+        assert torch.equal(bilinear128.scale_fn(plan, shifted, form), want)
+        assert torch.equal(bilinear128.scale_rows_fn(plan, shifted, h // 2, h - h // 2, form),
+                           want[:, h // 2 :])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", WIDE_CONST24, ids=_id)
+def test_bilinear128_constant_255_3_byte(cuda_device, key):
+    """A constant-255 3-byte image in every form: box sums of the largest
+    unpacked values, cut to 16 bits in the h tile's cells as in LOOP."""
+    plan = stt.ScalePlan(*key)
+    x = torch.full((2, key[1], key[0], 3), 255, dtype=torch.uint8, device=cuda_device)
+    want = bilinear128.bilinear128_scale_ref(plan, x)
+    assert np.array_equal(want[0].cpu().numpy(),
+                          numpy_ref.scale(RefPlan(*key), x[0].cpu().numpy()))
+    assert bilinear128.H_TILE in bilinear128.forms(plan)
+    for form in bilinear128.forms(plan):
+        assert torch.equal(bilinear128.scale_fn(plan, x, form), want), bilinear128.FORMS[form]
 
 
 @pytest.mark.cuda
@@ -544,6 +566,22 @@ def test_bilinear128_row_api(cuda_device):
     assert torch.equal(stt.scale_rows(plan, shifted, 5, 2), want[:, 5:7])
     with pytest.raises(ValueError, match="contiguous"):
         bilinear128.scale_fn(plan, x.transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_bilinear128_3_byte_row_api(cuda_device):
+    """Row 6b at its size (H TILE routed): whole and in 4 chunks through the
+    public row API, each chunk's row groups counted from output row 0."""
+    plan = stt.ScalePlan(1920, 1080, 400, 225, 8, 8, True)
+    assert bilinear128.form(plan) == bilinear128.H_TILE
+    x = torch.randint(0, 256, (2, 1080, 1920, 3), dtype=torch.uint8, device=cuda_device)
+    want = bilinear128.bilinear128_scale_ref(plan, x)
+    before = bilinear128.launches
+    assert torch.equal(stt.scale(plan, x), want)
+    chunks = list(stt.scale_streamed(plan, x, n_chunks=4))
+    assert bilinear128.launches == before + 5
+    assert torch.equal(torch.cat([r for _, r in chunks], dim=1), want)
+    assert torch.equal(stt.scale_rows(plan, x, 61, 3), want[:, 61:64])
 
 
 def _pyramid_id(case):

@@ -129,6 +129,34 @@ def test_direct_draws_reach_every_form():
     assert routed == fitting == {bilinear.LOOP, bilinear.H_TILE}
 
 
+def test_s128_draws_run_3_byte_input_in_every_form():
+    """``--s128`` draws 3-byte input on a fixed share of its cases, routed
+    to each of ``bilinear128.cu``'s forms; each such case runs, whole and
+    by rows, in every form that fits, and a 4-byte case in LOOP only."""
+    routed, three, runs_by_form = set(), 0, set()
+    with torch_ops.transient_plans():
+        for case in _draws("s128"):
+            plan = case.plans()[0]
+            if plan.meta_in.n_bytes != 3:
+                assert fuzz._other_forms(plan, bilinear128) == []
+                continue
+            three += 1
+            forms = bilinear128.forms(plan)
+            assert sorted([bilinear128.form(plan)] + fuzz._other_forms(plan, bilinear128)) == forms
+            routed.add(bilinear128.form(plan))
+            if len(forms) == 2 and len(runs_by_form) < 4:
+                x = torch.zeros(case.input_shape(), dtype=torch.uint8)
+                cover = dataclasses.asdict(fuzz.Report("s128"))["cover"]
+                labels = [label for label, _, _ in fuzz.kernel_runs(case, x, x[:1], cover)]
+                other = bilinear128.FORMS[fuzz._other_forms(plan, bilinear128)[0]]
+                assert f"bilinear128 {other} {plan.key}" in labels
+                assert any(lb.startswith(f"bilinear128 {other} rows") for lb in labels)
+                assert cover["bilinear128 forms"] == {"loop", "h tile"}
+                runs_by_form.add(len(runs_by_form))
+    assert three >= DRAWS // 8 and routed == {bilinear128.LOOP, bilinear128.H_TILE}
+    assert runs_by_form
+
+
 def test_draw_is_a_function_of_the_generator():
     a, b = _draws("deep", seed=3, n=20), _draws("deep", seed=3, n=20)
     assert a == b and a != _draws("deep", seed=4, n=20)
