@@ -110,12 +110,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    other checkout's and with each other form), and end to end through
    ``scale_pyramid_mixed`` on 2,000 of its images (cold), as
    ``benchmarks/suite.py`` reports them.
-6. Device busy share over 10 back-to-back calls of the public entry point
-   (``scale``; ``make_pyramid_fn``'s function for row 5) per row of
-   ``BUSY_ROWS``, from a ``torch.profiler`` trace (written to
-   ``build/traces/``); then the same calls unprofiled: host enqueue time
-   per call, and the share of an event-pair window that the kernel's
-   phase-5 time fills.
+6. 10 back-to-back calls of the public entry point (``scale``;
+   ``make_pyramid_fn``'s function for row 5) per row of ``BUSY_ROWS``,
+   unprofiled: host enqueue time per call, and the share of an event-pair
+   window that the kernel's phase-5 time fills.
 
 7. Split over a device list (``smolscale_tpu_torch.parallel``): the counts
    set to 0, then row 0 through ``make_batched_scale`` over a mesh of every
@@ -844,7 +842,7 @@ def main(argv: list) -> int:
     import smolscale_tpu_torch as stt
     from smolscale_tpu_torch.backends import torch_ops
     from smolscale_tpu_torch.ops import _build, bilinear, bilinear128, box, deep, pyramid
-    from smolscale_tpu_torch.utils.timing import cuda_time_ms, device_busy
+    from smolscale_tpu_torch.utils.timing import cuda_time_ms
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1624,30 +1622,12 @@ def main(argv: list) -> int:
     log(f"[time] row 5b cold: {len(cold) / cold_s:.1f} pyramids/s end to end on {len(cold)} "
         f"images ({cold_s:.3f} s: stacking, upload, kernels, download), on {card}")
 
-    # 6. device busy share over back-to-back calls of the public entry point
-    trace_dir = Path(__file__).resolve().parent / "build" / "traces"
-    trace_dir.mkdir(parents=True, exist_ok=True)
+    # 6. back-to-back calls of the public entry point: host clock for the
+    # enqueue, an event pair for the device window
     calls = {name: (lambda plan=plans[name], xin=inputs[name]: stt.scale(plan, xin))
              for name in BUSY_ROWS if name in plans}
     calls[name5] = lambda: pyr_fn(x5)
     for name in BUSY_ROWS:
-        trace = str(trace_dir / f"{name.replace(' ', '_')}.json")
-        # a trace now and then comes back without device events, at times
-        # twice in a row: up to five traces, the last one's error raised
-        for attempt in range(5):
-            try:
-                busy = device_busy(calls[name], trace)
-                break
-            except RuntimeError as e:
-                if attempt == 4:
-                    raise
-                log(f"[busy] {name}: {e}; tracing the calls again")
-        kernels = "; ".join(f"{k} x{c} mean {ms:.4f} ms"
-                            for k, (c, ms) in busy["kernels"].items())
-        log(f"[busy] {name}: device busy {100 * busy['busy_share']:.1f}% of a "
-            f"{busy['window_ms']:.4f} ms window of 10 calls ({kernels}), on {card}")
-        # the same 10 calls without the profiler: host clock for the enqueue,
-        # an event pair for the device window
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()

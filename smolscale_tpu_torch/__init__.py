@@ -39,6 +39,9 @@ from .backends import torch_ops
 from .formats import AlphaType, GammaType, PixelType, StorageType, get_meta
 from .plan import FilterType, ScalePlan, plan_from_reference
 from .pyramid import make_pyramid_fn, scale_pyramid_mixed
+from .utils.timing import span as _span
+
+_SCALE, _SCALE_ROWS = _span("smolscale.scale"), _span("smolscale.scale_rows")
 
 __all__ = [
     "AlphaType",
@@ -69,12 +72,13 @@ def scale(plan: ScalePlan, img, post_fn=None, out=None, device=None) -> torch.Te
     returned.  ``out``, if given, is a uint8 tensor that the result is
     copied into and that is returned.
     """
-    x = torch_ops.as_tensor(img, device)
-    res = torch_ops.scale_fn(plan, x, post_fn=post_fn)
-    if out is not None:
-        out.copy_(res)
-        return out
-    return res
+    with _SCALE:
+        x = torch_ops.as_tensor(img, device)
+        res = torch_ops.scale_fn(plan, x, post_fn=post_fn)
+        if out is not None:
+            out.copy_(res)
+            return out
+        return res
 
 
 def scale_rows(plan: ScalePlan, img, first_out_row: int, n_out_rows: int, out=None,
@@ -83,12 +87,13 @@ def scale_rows(plan: ScalePlan, img, first_out_row: int, n_out_rows: int, out=No
     rows: the row-batch API (smol_scale_batch_full analogue,
     smolscale.c:998-1008).  ``out``, if given, is a uint8 tensor that the
     rows are copied into and that is returned."""
-    x = torch_ops.as_tensor(img, device)
-    res = torch_ops.scale_rows_fn(plan, x, int(first_out_row), int(n_out_rows))
-    if out is not None:
-        out.copy_(res)
-        return out
-    return res
+    with _SCALE_ROWS:
+        x = torch_ops.as_tensor(img, device)
+        res = torch_ops.scale_rows_fn(plan, x, int(first_out_row), int(n_out_rows))
+        if out is not None:
+            out.copy_(res)
+            return out
+        return res
 
 
 def scale_streamed(plan: ScalePlan, img, n_chunks: int = 8, post_fn=None, device=None):

@@ -24,9 +24,11 @@ import torch
 
 from ..ops import _plan_cache, bilinear, bilinear128, box, deep
 from ..plan import ScalePlan
+from ..utils.timing import span
 
 WHOLE_KERNELS = (box, bilinear, deep, bilinear128)
 ROW_KERNELS = (bilinear, deep, bilinear128)
+_DISPATCH = span("smolscale.dispatch")
 
 
 def transient_plans():
@@ -102,8 +104,19 @@ def whole_kernel(plan: ScalePlan):
     raise _not_ported(plan)
 
 
+def row_kernel(plan: ScalePlan):
+    """The kernel module that computes row ranges of ``plan``: the first
+    of ``ROW_KERNELS`` whose class holds it."""
+    for kernel in ROW_KERNELS:
+        if kernel.applicable(plan):
+            return kernel
+    raise _not_ported(plan)
+
+
 def _scale_fn_impl(plan: ScalePlan, img: torch.Tensor) -> torch.Tensor:
-    return whole_kernel(plan).scale_fn(plan, img.contiguous())
+    with _DISPATCH:
+        kernel = whole_kernel(plan)
+    return kernel.scale_fn(plan, img.contiguous())
 
 
 def scale_fn(plan: ScalePlan, img: torch.Tensor, post_fn=None) -> torch.Tensor:
@@ -116,7 +129,6 @@ def scale_fn(plan: ScalePlan, img: torch.Tensor, post_fn=None) -> torch.Tensor:
 def scale_rows_fn(plan: ScalePlan, img: torch.Tensor, first: int, n: int) -> torch.Tensor:
     """Output rows [first, first+n) of ``scale_fn``; only those rows are
     computed."""
-    for kernel in ROW_KERNELS:
-        if kernel.applicable(plan):
-            return kernel.scale_rows_fn(plan, img.contiguous(), first, n)
-    raise _not_ported(plan)
+    with _DISPATCH:
+        kernel = row_kernel(plan)
+    return kernel.scale_rows_fn(plan, img.contiguous(), first, n)

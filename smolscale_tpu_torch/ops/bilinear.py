@@ -522,11 +522,12 @@ def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int,
     if not imgs.is_contiguous():
         raise ValueError("the bilinear kernel takes contiguous input")
     batch = imgs if imgs.dim() == 4 else imgs[None]
-    out = torch.empty(
-        (batch.shape[0], n, plan.width_out, plan.meta_out.n_bytes),
-        dtype=torch.uint8, device=imgs.device,
-    )
-    with torch.cuda.device(imgs.device):
+    with pixels.ALLOC_SPAN:
+        out = torch.empty(
+            (batch.shape[0], n, plan.width_out, plan.meta_out.n_bytes),
+            dtype=torch.uint8, device=imgs.device,
+        )
+    with pixels.TABLES_SPAN, torch.cuda.device(imgs.device):
         inv_div = pixels.inv_div_table(imgs.device)
         tx, ty = _tables(plan, imgs.device)
         lanes, windows = _stage_tables(plan, imgs.device)
@@ -534,11 +535,13 @@ def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int,
             windows = _windows(plan, imgs.device)
         params = _params(plan, batch.shape[0], first, n, lanes, form,
                          pixels.sm_count(imgs.device))
-        err = _entry()(
-            batch.data_ptr(), out.data_ptr(), inv_div.data_ptr(),
-            tx.data_ptr(), ty.data_ptr(), windows.data_ptr(),
-            ctypes.byref(params), torch.cuda.current_stream().cuda_stream,
-        )
+        pixels.TABLES_SPAN.end()
+        with pixels.LAUNCH_SPAN:
+            err = _entry()(
+                batch.data_ptr(), out.data_ptr(), inv_div.data_ptr(),
+                tx.data_ptr(), ty.data_ptr(), windows.data_ptr(),
+                ctypes.byref(params), torch.cuda.current_stream().cuda_stream,
+            )
     if err != 0:
         raise RuntimeError(f"bilinear kernel launch failed: CUDA error {err}")
     launches += 1

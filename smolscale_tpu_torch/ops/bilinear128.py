@@ -227,21 +227,24 @@ def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int,
     if not imgs.is_contiguous():
         raise ValueError("the 128bpp kernel takes contiguous input")
     batch = imgs if imgs.dim() == 4 else imgs[None]
-    out = torch.empty(
-        (batch.shape[0], n, plan.width_out, plan.meta_out.n_bytes),
-        dtype=torch.uint8, device=imgs.device,
-    )
-    with torch.cuda.device(imgs.device):
+    with pixels.ALLOC_SPAN:
+        out = torch.empty(
+            (batch.shape[0], n, plan.width_out, plan.meta_out.n_bytes),
+            dtype=torch.uint8, device=imgs.device,
+        )
+    with pixels.TABLES_SPAN, torch.cuda.device(imgs.device):
         lut = pixels.lut_table(imgs.device)
         fold = pixels.unpack24_lut(imgs.device, plan.gamma == GammaType.SRGB_LINEAR)
         tx, ty = _tables(plan, imgs.device)
         params = _params(plan, batch.shape[0], first, n, pixels.sm_count(imgs.device), form)
         windows = None if params.form == LOOP else _windows(plan, imgs.device).data_ptr()
-        err = _entry()(
-            batch.data_ptr(), out.data_ptr(), lut.data_ptr(), fold.data_ptr(),
-            tx.data_ptr(), ty.data_ptr(), windows,
-            ctypes.byref(params), torch.cuda.current_stream().cuda_stream,
-        )
+        pixels.TABLES_SPAN.end()
+        with pixels.LAUNCH_SPAN:
+            err = _entry()(
+                batch.data_ptr(), out.data_ptr(), lut.data_ptr(), fold.data_ptr(),
+                tx.data_ptr(), ty.data_ptr(), windows,
+                ctypes.byref(params), torch.cuda.current_stream().cuda_stream,
+            )
     if err != 0:
         raise RuntimeError(f"128bpp kernel launch failed: CUDA error {err}")
     launches += 1

@@ -29,6 +29,13 @@ import torch
 from .. import luts
 from ..formats import AlphaType, GammaType
 from ..plan import ScalePlan
+from ..utils.timing import span
+
+# the host spans of each kernel wrapper's _launch: the outputs' allocation;
+# the device's entry, the per-plan tables and the parameter block; the launch
+ALLOC_SPAN = span("smolscale.alloc")
+TABLES_SPAN = span("smolscale.tables")
+LAUNCH_SPAN = span("smolscale.launch")
 
 # the tables of lut_table, in order; csrc/deep.cu reads them at these offsets
 LUT_NAMES = ("FROM_SRGB", "TO_SRGB", "INV_DIV_P8", "INV_DIV_P8L", "INV_DIV_P16",

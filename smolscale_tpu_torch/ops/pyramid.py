@@ -175,18 +175,21 @@ def _launch(plans: tuple, imgs: torch.Tensor) -> tuple[torch.Tensor, ...]:
     if not imgs.is_contiguous():
         raise ValueError("the pyramid kernel takes contiguous input")
     batch = imgs if imgs.dim() == 4 else imgs[None]
-    outs = [
-        torch.empty((batch.shape[0], p.height_out, p.width_out, p.meta_out.n_bytes),
-                    dtype=torch.uint8, device=imgs.device)
-        for p in plans
-    ]
-    with torch.cuda.device(imgs.device):
+    with pixels.ALLOC_SPAN:
+        outs = [
+            torch.empty((batch.shape[0], p.height_out, p.width_out, p.meta_out.n_bytes),
+                        dtype=torch.uint8, device=imgs.device)
+            for p in plans
+        ]
+    with pixels.TABLES_SPAN, torch.cuda.device(imgs.device):
         inv_div = pixels.inv_div_table(imgs.device)
         params = _params(plans, batch.shape[0], outs)
-        err = _entry()(
-            batch.data_ptr(), inv_div.data_ptr(), ctypes.byref(params),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        pixels.TABLES_SPAN.end()
+        with pixels.LAUNCH_SPAN:
+            err = _entry()(
+                batch.data_ptr(), inv_div.data_ptr(), ctypes.byref(params),
+                torch.cuda.current_stream().cuda_stream,
+            )
     if err != 0:
         raise RuntimeError(f"pyramid kernel launch failed: CUDA error {err}")
     launches += 1

@@ -26,6 +26,12 @@ from .formats import PixelType
 from .ops import pyramid as pyramid_op
 from .parallel.sharding import split_batch
 from .plan import ScalePlan
+from .utils.timing import span
+
+_PYRAMID = span("smolscale.pyramid")
+# the farm's host feed
+_GROUP, _STACK = span("smolscale.farm.group"), span("smolscale.farm.stack")
+_UPLOAD, _DOWNLOAD = span("smolscale.farm.upload"), span("smolscale.farm.download")
 
 
 def make_pyramid_fn(
@@ -53,13 +59,19 @@ def make_pyramid_fn(
     )
     fused = pyramid_op.applicable(plans)
 
-    def fn(imgs) -> tuple[torch.Tensor, ...]:
+    def levels(imgs) -> tuple[torch.Tensor, ...]:
         x = torch_ops.as_tensor(imgs, device)
         if fused:
             return pyramid_op.pyramid_fn(plans, x.contiguous())
         return tuple(torch_ops.scale_fn(p, x) for p in plans)
 
-    return fn if mesh is None else split_batch(fn, mesh, axis)
+    run = levels if mesh is None else split_batch(levels, mesh, axis)
+
+    def fn(imgs) -> tuple[torch.Tensor, ...]:
+        with _PYRAMID:
+            return run(imgs)
+
+    return fn
 
 
 class _PinnedRing:
@@ -75,20 +87,22 @@ class _PinnedRing:
         self.k = 0
 
     def upload(self, images: list) -> torch.Tensor:
-        slot = self.k % 2
-        self.k += 1
-        if self.copied[slot] is not None:
-            self.copied[slot].synchronize()
-        shape = (len(images), *images[0].shape)
-        host = self.bufs[slot][: int(np.prod(shape))].view(shape)
-        stage = host.numpy()
-        for i, img in enumerate(images):
-            stage[i] = img
-        dev = torch.empty(shape, dtype=torch.uint8, device=self.device)
-        dev.copy_(host, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        self.copied[slot] = event
+        with _STACK:
+            slot = self.k % 2
+            self.k += 1
+            if self.copied[slot] is not None:
+                self.copied[slot].synchronize()
+            shape = (len(images), *images[0].shape)
+            host = self.bufs[slot][: int(np.prod(shape))].view(shape)
+            stage = host.numpy()
+            for i, img in enumerate(images):
+                stage[i] = img
+        with _UPLOAD:
+            dev = torch.empty(shape, dtype=torch.uint8, device=self.device)
+            dev.copy_(host, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            self.copied[slot] = event
         return dev
 
 
@@ -117,35 +131,41 @@ def scale_pyramid_mixed(images, pixel_types, sizes=(64, 128, 256), max_batch_byt
     """
     dev = torch_ops.numpy_device(device) if mesh is None else mesh.first
     n_dev = 1 if mesh is None else mesh.shape[axis]
-    groups: dict = {}
-    for i, (img, pt) in enumerate(zip(images, pixel_types)):
-        groups.setdefault((img.shape, int(pt)), []).append(i)
-    subs = []
-    for (shape, pt), idxs in groups.items():
-        cap = len(idxs)
-        if max_batch_bytes is not None:
-            cap = max(1, min(cap, int(max_batch_bytes) // int(np.prod(shape))))
-        cap = -(-cap // n_dev) * n_dev
-        fn = make_pyramid_fn(shape[1], shape[0], PixelType(pt), sizes=sizes,
-                             pixel_type_out=pixel_type_out, with_srgb=with_srgb,
-                             device=None if mesh is not None else dev, mesh=mesh, axis=axis)
-        for c0 in range(0, len(idxs), cap):
-            sub = idxs[c0 : c0 + cap]
-            stack = [images[i] for i in sub]
-            # pad the remainder sub-batch, and any sub-batch to split evenly
-            size = cap if c0 > 0 else -(-len(sub) // n_dev) * n_dev
-            stack += [stack[-1]] * (size - len(sub))
-            subs.append((fn, sub, stack))
-    ring = None
-    if dev.type == "cuda" and subs:
-        ring = _PinnedRing(max(len(s) * s[0].nbytes for _, _, s in subs), dev)
+    with _GROUP:  # grouping, the pinned ring
+        groups: dict = {}
+        for i, (img, pt) in enumerate(zip(images, pixel_types)):
+            groups.setdefault((img.shape, int(pt)), []).append(i)
+        subs = []
+        for (shape, pt), idxs in groups.items():
+            cap = len(idxs)
+            if max_batch_bytes is not None:
+                cap = max(1, min(cap, int(max_batch_bytes) // int(np.prod(shape))))
+            cap = -(-cap // n_dev) * n_dev
+            fn = make_pyramid_fn(shape[1], shape[0], PixelType(pt), sizes=sizes,
+                                 pixel_type_out=pixel_type_out, with_srgb=with_srgb,
+                                 device=None if mesh is not None else dev, mesh=mesh, axis=axis)
+            for c0 in range(0, len(idxs), cap):
+                sub = idxs[c0 : c0 + cap]
+                stack = [images[i] for i in sub]
+                # pad the remainder sub-batch, and any sub-batch to split evenly
+                size = cap if c0 > 0 else -(-len(sub) // n_dev) * n_dev
+                stack += [stack[-1]] * (size - len(sub))
+                subs.append((fn, sub, stack))
+        ring = None
+        if dev.type == "cuda" and subs:
+            ring = _PinnedRing(max(len(s) * s[0].nbytes for _, _, s in subs), dev)
     pending = []
     for fn, sub, stack in subs:
-        x = ring.upload(stack) if ring is not None else torch.from_numpy(np.stack(stack))
+        if ring is not None:
+            x = ring.upload(stack)
+        else:
+            with _STACK:
+                x = torch.from_numpy(np.stack(stack))
         pending.append((sub, fn(x)))
     results = [None] * len(images)
-    for sub, outs in pending:
-        outs = [o.cpu().numpy() for o in outs]
-        for k, i in enumerate(sub):
-            results[i] = tuple(o[k] for o in outs)
+    with _DOWNLOAD:
+        for sub, outs in pending:
+            outs = [o.cpu().numpy() for o in outs]
+            for k, i in enumerate(sub):
+                results[i] = tuple(o[k] for o in outs)
     return results

@@ -1,17 +1,41 @@
-"""Device timing with CUDA events.
+"""Device timing with CUDA events, and the port's host spans.
 
 Counterpart of ``smolscale_tpu.utils.timing``.  The TPU harness times by
 chain slopes because its remote platform's completion barrier is
 unreliable; on a local CUDA device an event pair around each run measures
 device time directly.
+
+:func:`span` marks a layer of the port's host path under a ``smolscale.``
+name.  A span is on exactly while a torch profiler collects
+(``torch.autograd.profiler._is_profiler_enabled``): it then records a host
+event under its name in the profiler's trace, on the device trace's clock,
+and adds its duration to per-name totals (:func:`span_totals`).  Off, a
+span reads one flag when entered and finds no span open when left: no
+profiler call, no clock, no per-thread state, no allocation.
+
+The spans: ``smolscale.scale``, ``smolscale.scale_rows`` and
+``smolscale.pyramid`` (a function of ``make_pyramid_fn``) around each
+public call, the outermost; inside them ``smolscale.dispatch`` (the choice
+of a kernel in ``backends/torch_ops``) and, in each kernel wrapper's
+``_launch``, ``smolscale.alloc`` (the outputs), ``smolscale.tables`` (the
+device's entry, the per-plan tables, the parameter block) and
+``smolscale.launch`` (the kernel's launch).  ``scale_pyramid_mixed`` adds
+``smolscale.farm.group`` (grouping the fleet into sub-batches),
+``smolscale.farm.stack`` (a sub-batch's stacking into the pinned ring),
+``smolscale.farm.upload`` and ``smolscale.farm.download``.
 """
 
 from __future__ import annotations
 
-import json
 import statistics
+from threading import get_ident
+from time import perf_counter_ns
 
 import torch
+
+# a host cpu_op under the given name, with no device-side annotation
+from torch._C._profiler import _RecordFunctionFast as _record
+from torch.autograd import profiler as _profiler
 
 
 def cuda_time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
@@ -35,56 +59,80 @@ def cuda_time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(start.elapsed_time(end) for start, end in events)
 
 
-_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# By thread ident: the thread's open spans, innermost last (each ``[span,
+# profiler record, child ns, start ns]``), held only while it has one; and
+# the totals of the spans it closed, name -> [count, total ns, self ns].
+# Each thread writes its own entries alone, so no lock is taken.
+_stacks: dict[int, list] = {}
+_totals: dict[int, dict] = {}
 
 
-def device_busy(fn, trace_path: str, iters: int = 10) -> dict:
-    """Device busy share over ``iters`` back-to-back calls of ``fn()``.
+class _Span:
+    __slots__ = ("name",)
 
-    Runs ``fn`` once to warm up, then traces the calls with
-    ``torch.profiler``, writes the Chrome trace to ``trace_path`` and reads
-    the device's work from it: the window runs from the first device event's
-    start to the last one's end, and the busy share is the union of device
-    events over that window.  Returns ``{"busy_share", "window_ms",
-    "kernels": {name: (count, mean_ms)}}``.  Raises without a CUDA device, or
-    when the trace holds no device work."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("device_busy needs a CUDA device")
-    from torch.profiler import ProfilerActivity, profile
+    def __init__(self, name: str):
+        self.name = name
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(trace_path)
-    with open(trace_path) as f:
-        summary = trace_busy(json.load(f)["traceEvents"])
-    if summary is None:
-        raise RuntimeError(f"no device work in the trace {trace_path}")
-    return summary
+    def __enter__(self):
+        if _profiler._is_profiler_enabled:
+            rec = _record(self.name)
+            rec.__enter__()
+            ident = get_ident()
+            stack = _stacks.get(ident)
+            if stack is None:
+                stack = _stacks[ident] = []
+            stack.append([self, rec, 0, perf_counter_ns()])
+        return self
+
+    def __exit__(self, *exc):
+        if not _stacks:
+            return  # no span open on any thread
+        ident = get_ident()
+        stack = _stacks.get(ident)
+        if stack is None or stack[-1][0] is not self:
+            return  # entered with no profiler collecting, or ended already
+        end_ns = perf_counter_ns()
+        _, rec, child_ns, start_ns = stack.pop()
+        rec.__exit__(None, None, None)
+        dur = end_ns - start_ns
+        if stack:
+            stack[-1][2] += dur
+        else:
+            del _stacks[ident]
+        totals = _totals.get(ident)
+        if totals is None:
+            totals = _totals[ident] = {}
+        t = totals.get(self.name)
+        if t is None:
+            t = totals[self.name] = [0, 0, 0]
+        t[0] += 1
+        t[1] += dur
+        t[2] += dur - child_ns
+
+    # close the span before its ``with`` block ends; the block's end then
+    # does nothing
+    end = __exit__
 
 
-def trace_busy(events: list[dict]) -> dict | None:
-    """The summary :func:`device_busy` returns, from a Chrome trace's
-    events; None when they hold no device work."""
-    spans = sorted(
-        (float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
-        for e in events
-        if e.get("ph") == "X" and e.get("cat") in _DEVICE_CATS
-    )
-    if not spans:
-        return None
-    busy, end = 0.0, spans[0][0]
-    kernels: dict[str, list[float]] = {}
-    for s, e, name in spans:
-        busy += max(0.0, e - max(s, end))
-        end = max(end, e)
-        kernels.setdefault(name, []).append((e - s) / 1e3)
-    window = end - spans[0][0]
-    return {
-        "busy_share": busy / window if window > 0 else 1.0,
-        "window_ms": window / 1e3,
-        "kernels": {n: (len(d), statistics.fmean(d)) for n, d in kernels.items()},
-    }
+def span(name: str) -> _Span:
+    """The span ``name`` (``smolscale.<layer>``): a context manager that
+    marks its block while a profiler collects, and does nothing otherwise.
+    Make it once, where the module loads, and enter it on each call (off,
+    entering reads one flag and allocates nothing); ``end()`` closes it
+    before its block ends.  One object may be entered on many threads and
+    inside itself."""
+    return _Span(name)
+
+
+def span_totals() -> dict[str, dict[str, int]]:
+    """A copy of the totals of every span closed while tracing, by name:
+    ``count``, ``total_ns`` and ``self_ns`` (the total less the spans
+    opened inside it on the same thread), since the process started."""
+    out: dict[str, dict[str, int]] = {}
+    for totals in list(_totals.values()):
+        for name, (c, t, s) in list(totals.items()):
+            got = out.setdefault(name, {"count": 0, "total_ns": 0, "self_ns": 0})
+            got["count"] += c
+            got["total_ns"] += t
+            got["self_ns"] += s
+    return out

@@ -691,24 +691,48 @@ def test_cuda_timer_refuses_without_cuda(monkeypatch):
         timing.cuda_time_ms(lambda: None)
 
 
-def test_trace_busy_summary():
-    events = [
-        {"ph": "X", "cat": "kernel", "name": "k", "ts": 0.0, "dur": 400.0},
-        {"ph": "X", "cat": "kernel", "name": "k", "ts": 300.0, "dur": 200.0},
-        {"ph": "X", "cat": "gpu_memcpy", "name": "m", "ts": 800.0, "dur": 200.0},
-        {"ph": "X", "cat": "cpu_op", "name": "aten::empty", "ts": 0.0, "dur": 5000.0},
-    ]
-    got = timing.trace_busy(events)
-    assert got["window_ms"] == 1.0 and got["busy_share"] == 0.7
-    assert got["kernels"] == {"k": (2, pytest.approx(0.3)), "m": (1, pytest.approx(0.2))}
-    assert timing.trace_busy(events[3:]) is None
+# a plan of each kernel class, scaled through ``scale``
+SPAN_PLANS = {
+    box: (256, 128, 16, 8, 0, 0),
+    bilinear: (300, 200, 290, 190, 0, 0),
+    deep: (6550, 650, 100, 10, 0, 0),
+    bilinear128: (256, 256, 32, 32, 4, 4, True),
+}
 
 
 @pytest.mark.cuda
-def test_device_busy(cuda_device, tmp_path):
-    x = torch.zeros(1 << 20, device=cuda_device)
-    got = timing.device_busy(lambda: x.add_(1), str(tmp_path / "t.json"), iters=5)
-    assert 0 < got["busy_share"] <= 1 and got["window_ms"] > 0
+@pytest.mark.parametrize("module", [*SPAN_PLANS, pyramid], ids=lambda m: m.__name__.split(".")[-1])
+def test_wrapper_spans_on_the_card(cuda_device, module):
+    """Under the profiler each kernel wrapper opens its tables, alloc and
+    launch spans once a call, on the host: no device event carries a
+    span's name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if module is pyramid:
+        fn = stt.make_pyramid_fn(512, 512, 0)
+        x = torch.zeros((2, 512, 512, 4), dtype=torch.uint8, device=cuda_device)
+        call = lambda: fn(x)  # noqa: E731
+    else:
+        key = SPAN_PLANS[module]
+        plan = stt.ScalePlan(*key)
+        x = torch.zeros((1, key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8,
+                        device=cuda_device)
+        call = lambda: stt.scale(plan, x)  # noqa: E731
+    call()
+    torch.cuda.synchronize()
+    before, launched = timing.span_totals(), module.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    after = timing.span_totals()
+    assert module.launches == launched + 1
+    for name in ("smolscale.tables", "smolscale.alloc", "smolscale.launch"):
+        got = after[name]["count"] - before.get(name, {"count": 0})["count"]
+        assert got == 1, name
+    events = list(prof.profiler.kineto_results.events())
+    on_device = [e.name() for e in events if "CUDA" in str(e.device_type())]
+    assert on_device and not [n for n in on_device if n.startswith("smolscale.")]
+    assert {"smolscale.tables", "smolscale.launch"} <= {e.name() for e in events}
 
 
 def test_build_digest_follows_headers(monkeypatch, tmp_path):
