@@ -14,8 +14,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    build time, ptxas's report and each kernel's count of template
    instances, and for each instance of the box kernel
    (``box_kernel<FORM, W, PX>``), the general kernel
-   (``bilinear_kernel<KX, KY, PACKED, FORM>``: FORM 0 LOOP, 1 H TILE; KY 4
-   for H TILE, which reads the V kind at run time), the 128bpp kernel
+   (``bilinear_kernel<KX, KY, PACKED, FORM>``: FORM 0 LOOP, 1 H TILE, 2
+   ROLL; KY 4 for H TILE, which reads the V kind at run time), the 128bpp
+   kernel
    (``bilinear128_kernel<KX, KY, MODE, PX, FORM>``: PX 0 word, 1 bytes, 2
    3-byte through the folded table; FORM 0 LOOP, 1 H TILE, KY 4 for H
    TILE) and the deep box kernel
@@ -354,6 +355,21 @@ DIRECT_CHECK_PLANS = [
     (384, 384, 64, 64, 0, 0),      # row 5b's 384^2 levels: 2h, 1h, 0h
     (384, 384, 128, 128, 0, 0),
     (384, 384, 256, 256, 0, 0),
+    # ROLL's edges: f just above 1 and exactly 2, w_out not a multiple of 4,
+    # 2-row input (1-row input is a ONE V axis, outside ROLL), one output
+    # column (ONE and 1h X), 3-byte pixels, unassociated in, unassociated out,
+    # and a 2h X axis
+    (200, 300, 201, 301, 0, 0),
+    (129, 64, 258, 128, 0, 0),
+    (37, 2, 75, 9, 0, 0),
+    (37, 1, 75, 9, 0, 0),
+    (1, 30, 1, 77, 0, 0),
+    (3, 30, 1, 77, 1, 2),
+    (99, 41, 150, 83, 8, 9),
+    (97, 40, 203, 77, 0, 8),
+    (64, 50, 130, 101, 5, 0),
+    (61, 50, 133, 101, 0, 4),
+    (300, 40, 70, 83, 0, 0),
 ]
 # (plan, first output row, rows) through the row form: ranges that start and
 # end inside a row group
@@ -364,6 +380,7 @@ DIRECT_CHECK_ROWS = [
     ((100, 257, 31, 257, 4, 0), 250, 7),
     ((4096, 40, 4096, 8, 0, 0), 5, 1),
     ((512, 512, 171, 171, 8, 8), 9, 150),
+    ((129, 64, 258, 128, 0, 0), 13, 115),
 ]
 # the general kernel on inputs at byte offsets 1-3: a 2h ladder with tails
 # (direct byte loads), and staged boxes (ragged stretch ends staged byte by
@@ -593,6 +610,10 @@ BILINEAR_ROWS = [
     ("row 3b", (4096, 4096, 3000, 3000, 8, 8), 2),
     ("row 3c", (4096, 4096, 700, 700, 0, 0), 4),
     ("row 3d", (4096, 4096, 300, 300, 0, 0), 8),
+    # the proportional sweep's 0h upscales (frames-2160p): at 1.9x, and at
+    # 1.1x, where each output row needs a new tap row
+    ("up-2160", (3840, 2160, 7296, 4104, 0, 0), 8),
+    ("up-1.1", (3840, 2160, 4224, 2376, 0, 0), 8),
 ]
 # row 4 (bench_row_stream, suite.py:353): scale_streamed in 16 chunks
 STREAM_ROW = ("row 4", (8192, 8192, 1024, 1024, 0, 0), 1)
@@ -643,6 +664,8 @@ EXTRA_ROWS = [
     # COPY x COPY at row 2's output size: the general kernel's cost per
     # output pixel without filtering
     ("copy", (1024, 1024, 1024, 1024, 0, 0), 8, "bilinear"),
+    # up-2160 in 3-byte pixels: the route of 3-byte 0h upscales
+    ("up-2160 rgb24", (3840, 2160, 7296, 4104, 8, 8), 8, "bilinear"),
     # the headline on the general kernel, beside the box kernel's row 0
     ("row 0 on bilinear", (4096, 4096, 256, 256, 0, 0), 8, "bilinear"),
     # a 10:1 box whose 40-byte spans take the box kernel's staged form:
@@ -963,10 +986,17 @@ def main(argv: list) -> int:
                 for f in sorted(bilinear.direct_forms(plan), key=lambda f: f != chosen)]
 
     def check_bilinear(label, plan, x, first, n, want):
-        tile_w, _, grid_y, grid_z = bilinear.launch_shape(plan.width_out, first, n, x.shape[0])
         for route, form in bilinear_forms(plan):
-            check("bilinear", f"{label} ({route}, tile {tile_w} x {256 // tile_w}, grid y "
-                  f"{grid_y}, z {grid_z})", bilinear.scale_rows_fn(plan, x, first, n, form), want)
+            if form == bilinear.ROLL:
+                tile_w, _, strip, grid_y, grid_z = bilinear.roll_shape(
+                    plan.width_out, first, n, x.shape[0])
+                tile = f"tile {tile_w} columns, strips of {strip} rows"
+            else:
+                tile_w, _, grid_y, grid_z = bilinear.launch_shape(
+                    plan.width_out, first, n, x.shape[0])
+                tile = f"tile {tile_w} x {256 // tile_w}"
+            check("bilinear", f"{label} ({route}, {tile}, grid y {grid_y}, z {grid_z})",
+                  bilinear.scale_rows_fn(plan, x, first, n, form), want)
 
     for i, key in enumerate(BILINEAR_CHECK_PLANS + DIRECT_CHECK_PLANS):
         plan = stt.ScalePlan(*key, False)

@@ -43,7 +43,7 @@
 // (ops/bilinear.launch_shape: about 16 blocks per SM, grid y and z below
 // 2^16).  Indices are 32-bit within an image; only an image's and a row's
 // base offsets are 64-bit; nothing is divided per output pixel (the
-// earlier flat loop paid three 64-bit divisions per output).  Two forms,
+// earlier flat loop paid three 64-bit divisions per output).  Three forms,
 // chosen on the host by class (ops/bilinear.direct_form):
 //
 //   LOOP: each thread walks the V taps of its output pixel and H-filters
@@ -60,9 +60,26 @@
 //     reference does); then each thread runs the V filter, of a kind read
 //     at run time, over those words.  The tile's shared memory is sized per
 //     plan (h_words, at most kHWords: 16 KB), which leaves the rest of the
-//     SM's 256 KB to L1.  It takes V ladders of 1 or 2 halvings, V boxes,
-//     upscales and ONE: there each output row reads three tap rows or more,
-//     or shares them two-fold or more.
+//     SM's 256 KB to L1.  It takes V ladders of 1 or 2 halvings, V boxes
+//     and ONE: there each output row reads three tap rows or more, or shares
+//     them two-fold or more.
+//   ROLL: 0-halving bilinear V upscales (beside a BILINEAR, COPY or ONE X
+//     axis), which H TILE and LOOP took before.  There the output is 4f^2
+//     times the input, and the V window only slides down, by 0 or 1 tap rows
+//     per output row.  So a thread owns 4 output columns (their X table
+//     entries loaded once, into registers) and walks a strip of strip_rows
+//     output rows (ops/bilinear.roll_shape) top to bottom, holding the H
+//     values of its two tap rows in registers, 8 bits a channel, and
+//     H-filtering one new tap row when the window steps.  Each row is then
+//     one V lerp per pixel, two channels to a 32-bit word (lerp4), and one
+//     16-byte store (3-byte pixels: three 4-byte stores) of 4 pixels at an
+//     aligned address: the lanes pass their words on with one shuffle, as
+//     each row's alignment asks.  Nothing is shared between threads but
+//     those shuffles, so it has no shared memory and no barrier: H TILE
+//     spent two barriers per 8 output rows and left 96 of 256 threads idle
+//     while 160 H-filtered the 5 tap rows of a 2x row group; LOOP H-filtered
+//     both tap rows again for every output pixel.  Its bound is bytes, on an
+//     upscale mostly the store: ~4f^2 output bytes per input byte.
 //
 // What bounds the direct path: not bytes (PERF.md §6: the timed rows run at
 // 12-76% of their byte bound) but the loads and instructions per output
@@ -70,7 +87,7 @@
 // premultiplied for unassociated input), and a 3-byte pixel is three byte
 // loads; LOOP repeats those for every output row that reads a tap row, H
 // TILE once per tile, at the price of a pass through shared memory and two
-// barriers per row group.  Measured and dropped (PERF.md §6): a third form
+// barriers per row group.  Measured and dropped (PERF.md §6): a form
 // that staged each tile's stretch of the tap rows in shared memory with
 // 16-byte cp.async in a ring of three stages, to replace the byte loads of
 // 3-byte pixels with two shared words and a funnel shift, was slower than H
@@ -117,10 +134,12 @@ struct BilinearParams {
   int64_t alpha_ch;                // work channel holding alpha (3 for 24bpp input)
   int64_t unassoc_in, unassoc_out;
   int64_t src[4];                  // output byte k <- work channel src[k]
-  int64_t tile_w;                  // direct path: output columns per block, a power of two <= 32
+  int64_t tile_w;                  // direct path: output columns per block row, a power of
+                                   // two <= 32 (ROLL: 4 to 128)
   int64_t grid_y, grid_z;          // direct path: blocks over the row groups, over the batch
   int64_t form;                    // direct path: Form
   int64_t h_words;                 // H TILE: words of the h tile, a multiple of 4
+  int64_t strip_rows;              // ROLL: output rows a thread walks
 };
 
 enum AxisKind { kCopy = 0, kOne = 1, kBilinear = 2, kBox = 3 };
@@ -130,9 +149,11 @@ namespace {
 // The X axis's template kinds: kCopy serves COPY and ONE (ONE reads column
 // 0), kBilinear and kBox load directly, kStaged is a staged BOX axis.
 constexpr int kStaged = 4;
-// The direct path's forms (ops/bilinear.LOOP, H_TILE); H TILE reads the V
-// kind at run time, its template KY is kAnyY.
-enum Form { kLoop = 0, kHTile = 1 };
+// ROLL's X kind for a BILINEAR axis of 1 or more halvings (kBilinear: none).
+constexpr int kLadder = 5;
+// The direct path's forms (ops/bilinear.LOOP, H_TILE, ROLL); H TILE reads
+// the V kind at run time, its template KY is kAnyY; ROLL's is kBilinear.
+enum Form { kLoop = 0, kHTile = 1, kRoll = 2 };
 constexpr int kAnyY = 4;
 
 constexpr int kThreads = 256;
@@ -179,18 +200,19 @@ __device__ __forceinline__ void unpack(uint32_t px, const Unpack& u, int v[4]) {
   }
 }
 
+// The pixel at `p` as four bytes (24bpp: alpha 255), as stored.
+template <bool PACKED>
+__device__ __forceinline__ uint32_t raw_pixel(const uint8_t* __restrict__ p, int nb) {
+  if (PACKED) return __ldg(reinterpret_cast<const uint32_t*>(p));
+  return static_cast<uint32_t>(__ldg(p)) | (static_cast<uint32_t>(__ldg(p + 1)) << 8) |
+         (static_cast<uint32_t>(__ldg(p + 2)) << 16) |
+         (static_cast<uint32_t>(nb == 4 ? __ldg(p + 3) : 255) << 24);
+}
+
 template <bool PACKED>
 __device__ __forceinline__ void load_pixel(const uint8_t* __restrict__ p,
                                            const Unpack& u, int v[4]) {
-  uint32_t px;
-  if (PACKED) {
-    px = __ldg(reinterpret_cast<const uint32_t*>(p));
-  } else {
-    px = static_cast<uint32_t>(__ldg(p)) | (static_cast<uint32_t>(__ldg(p + 1)) << 8) |
-         (static_cast<uint32_t>(__ldg(p + 2)) << 16) |
-         (static_cast<uint32_t>(u.nb == 4 ? __ldg(p + 3) : 255) << 24);
-  }
-  unpack(px, u, v);
+  unpack(raw_pixel<PACKED>(p, u.nb), u, v);
 }
 
 __device__ __forceinline__ int lerp(int p, int q, int f) {
@@ -250,6 +272,17 @@ __device__ __forceinline__ void filter(Fetch&& fetch, const Axis& ax, I j, int o
   }
 }
 
+// One output pixel's word at `dst`: 4 bytes, or the first 3.
+__device__ __forceinline__ void put_pixel(uint8_t* dst, uint32_t w, int64_t nb) {
+  if (nb == 4) {
+    *reinterpret_cast<uint32_t*>(dst) = w;
+  } else {
+    dst[0] = static_cast<uint8_t>(w);
+    dst[1] = static_cast<uint8_t>(w >> 8);
+    dst[2] = static_cast<uint8_t>(w >> 16);
+  }
+}
+
 // The __byte_perm selector that puts work channel src[k] into output byte k.
 __device__ __forceinline__ unsigned swizzle(const BilinearParams& p) {
   return static_cast<unsigned>(p.src[0] | (p.src[1] << 4) | (p.src[2] << 8) |
@@ -272,13 +305,7 @@ __device__ __forceinline__ void store(int o[4], const BilinearParams& p, bool al
       static_cast<uint32_t>(o[0]) | (static_cast<uint32_t>(o[1]) << 8) |
           (static_cast<uint32_t>(o[2]) << 16) | (static_cast<uint32_t>(o[3]) << 24),
       0, perm);
-  if (p.nb_out == 4) {
-    *reinterpret_cast<uint32_t*>(dst) = w;
-  } else {
-    dst[0] = static_cast<uint8_t>(w);
-    dst[1] = static_cast<uint8_t>(w >> 8);
-    dst[2] = static_cast<uint8_t>(w >> 16);
-  }
+  put_pixel(dst, w, p.nb_out);
 }
 
 // ---------------------------------------------------------------------------
@@ -500,6 +527,205 @@ __device__ __forceinline__ void direct_tile(const uint8_t* __restrict__ in,
   }
 }
 
+// ROLL: a 0-halving bilinear V upscale.  Lane t of a tile row owns output
+// columns j0 = tile_w * blockIdx.x + 4t .. j0 + 3 and walks a strip of
+// strip_rows output rows down, holding the H values of tap rows ofs_y[i] and
+// ofs_y[i] + 1 of its columns in registers.
+
+// The lerp of four 8-bit channels at once: per channel ((p - q)*f >> 8) + q,
+// which is (p*f + q*(256 - f)) >> 8; for f in [0, 256] each such sum is below
+// 2^16, so two channels in the 16-bit halves of a word never carry into each
+// other (tests/test_torch_bilinear.py holds it for every p, q and f).
+__device__ __forceinline__ uint32_t lerp4(uint32_t p, uint32_t q, uint32_t f) {
+  const uint32_t g = 256 - f;
+  const uint32_t lo = (p & 0x00ff00ffu) * f + (q & 0x00ff00ffu) * g;
+  const uint32_t hi = ((p >> 8) & 0x00ff00ffu) * f + ((q >> 8) & 0x00ff00ffu) * g;
+  return ((lo >> 8) & 0x00ff00ffu) | (hi & 0xff00ff00u);
+}
+
+// The work channels of the pixel at `p` as one word, byte k channel k.
+template <bool PACKED>
+__device__ __forceinline__ uint32_t pixel_word(const uint8_t* __restrict__ p, const Unpack& u) {
+  const uint32_t px = raw_pixel<PACKED>(p, u.nb);
+  if (!u.unassoc) return px;
+  int v[4];
+  unpack(px, u, v);
+  return pack_h(v);
+}
+
+// ROLL's X filter of one output column, its table entries in registers:
+// kCopy reads column x (0 for ONE); kBilinear and kLadder keep sample k as
+// offset << 9 | F (offsets below 2^16, F at most 256), and kLadder sums the
+// 2^n samples' lerps two channels to a word (at most 4 x 255 a half).
+template <int KX>
+struct RollCol {
+  int x;
+  uint32_t s[4];
+
+  __device__ __forceinline__ RollCol(const BilinearParams& p,
+                                     const int32_t* __restrict__ tab, int j) {
+    x = p.kind_x == kOne ? 0 : j;
+    const int n = static_cast<int>(p.halvings_x);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const bool on = (KX == kBilinear && k == 0) || (KX == kLadder && k < (1 << n));
+      s[k] = on ? (static_cast<uint32_t>(__ldg(tab + (j << n) + k)) << 9) |
+                      static_cast<uint32_t>(__ldg(tab + p.len_x + (j << n) + k))
+                : 0u;
+    }
+  }
+
+  template <bool PACKED>
+  __device__ __forceinline__ uint32_t operator()(const uint8_t* row, const Unpack& u,
+                                                 int n) const {
+    if constexpr (KX == kBilinear) {
+      return lerp4(pixel_word<PACKED>(row + (s[0] >> 9) * u.nb, u),
+                   pixel_word<PACKED>(row + ((s[0] >> 9) + 1) * u.nb, u), s[0] & 511u);
+    } else if constexpr (KX == kLadder) {
+      uint32_t lo = 0, hi = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k < (1 << n)) {
+          const uint32_t o = s[k] >> 9;
+          const uint32_t w = lerp4(pixel_word<PACKED>(row + o * u.nb, u),
+                                   pixel_word<PACKED>(row + (o + 1) * u.nb, u), s[k] & 511u);
+          lo += w & 0x00ff00ffu;
+          hi += (w >> 8) & 0x00ff00ffu;
+        }
+      }
+      return ((lo >> n) & 0x00ff00ffu) | (((hi >> n) & 0x00ff00ffu) << 8);
+    } else {
+      return pixel_word<PACKED>(row + x * u.nb, u);
+    }
+  }
+};
+
+// An output pixel's word from its normalised work channels: unpremultiplied
+// for unassociated output, as `store` does, and swizzled.
+__device__ __forceinline__ uint32_t out_word(uint32_t w, const BilinearParams& p,
+                                             bool alpha_first, unsigned perm,
+                                             const int32_t* __restrict__ inv_div_p8) {
+  if (p.unassoc_out) {
+    int o[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[c] = (w >> (8 * c)) & 0xff;
+    const int64_t inv = __ldg(inv_div_p8 + (alpha_first ? o[0] : o[3]));
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (!is_alpha(c, alpha_first)) o[c] = static_cast<int>((o[c] * inv) >> 13) & 0xff;
+    w = pack_h(o);
+  }
+  return __byte_perm(w, 0, perm);
+}
+
+template <int KX, bool PACKED>
+__device__ __forceinline__ void direct_roll(const uint8_t* __restrict__ in,
+                                            uint8_t* __restrict__ out,
+                                            const int32_t* __restrict__ inv_div_p8,
+                                            const int32_t* __restrict__ tab_x,
+                                            const int32_t* __restrict__ tab_y,
+                                            const BilinearParams& p) {
+  // lanes: threads of a tile row, 4 columns each; a row of lanes walks one
+  // strip, and shuffles within its lanes only
+  const int lanes = static_cast<int>(p.tile_w) >> 2;
+  const int lshift = __ffs(lanes) - 1;
+  const int t = static_cast<int>(threadIdx.x) & (lanes - 1);
+  const unsigned mask = lanes == 32 ? 0xffffffffu
+                                    : ((1u << lanes) - 1u) << (threadIdx.x & 31 & ~(lanes - 1));
+  const int w_out = static_cast<int>(p.w_out);
+  const int j0 = static_cast<int>(blockIdx.x) * static_cast<int>(p.tile_w) + 4 * t;
+  const int nb = static_cast<int>(p.nb_out);
+  const int n_x = static_cast<int>(p.halvings_x);
+  const Unpack u{static_cast<int>(p.nb_in), p.alpha_ch == 0, p.unassoc_in != 0};
+  const unsigned perm = swizzle(p);
+  // columns past w_out compute column w_out - 1 and store nothing of their own
+  const RollCol<KX> col[4] = {RollCol<KX>(p, tab_x, min(j0, w_out - 1)),
+                              RollCol<KX>(p, tab_x, min(j0 + 1, w_out - 1)),
+                              RollCol<KX>(p, tab_x, min(j0 + 2, w_out - 1)),
+                              RollCol<KX>(p, tab_x, min(j0 + 3, w_out - 1))};
+  const int row_bytes = static_cast<int>(p.w_in * p.nb_in);
+  const int out_row = w_out * nb;
+  const int row0 = static_cast<int>(p.row0), n_rows = static_cast<int>(p.n_rows);
+  const int R = static_cast<int>(p.strip_rows);
+  const int strips = (n_rows + R - 1) / R;
+  const int per_block = kThreads >> lshift;
+  const int s_step = static_cast<int>(gridDim.y) * per_block;
+  const int32_t* fy_tab = tab_y + p.len_y;
+  for (int64_t b = blockIdx.z; b < p.batch; b += gridDim.z) {
+    const uint8_t* img = in + b * p.h_in * row_bytes;
+    uint8_t* out_img = out + b * p.n_rows * out_row;
+    for (int s = static_cast<int>(blockIdx.y) * per_block + (static_cast<int>(threadIdx.x) >> lshift);
+         s < strips; s += s_step) {
+      const int i_lo = row0 + s * R, i_hi = min(i_lo + R, row0 + n_rows);
+      int held = -2;  // the tap row in top; bot holds the next
+      uint32_t top[4], bot[4];
+      for (int i = i_lo; i < i_hi; ++i) {
+        const int oy = __ldg(tab_y + i);
+        if (oy != held) {
+          const uint8_t* r1 = img + static_cast<int64_t>(oy + 1) * row_bytes;
+          if (oy == held + 1) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) top[k] = bot[k];
+          } else {
+            const uint8_t* r0 = img + static_cast<int64_t>(oy) * row_bytes;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) top[k] = col[k].template operator()<PACKED>(r0, u, n_x);
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) bot[k] = col[k].template operator()<PACKED>(r1, u, n_x);
+          held = oy;
+        }
+        const uint32_t fy = __ldg(fy_tab + i);
+        uint32_t o[4], pv[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          o[k] = out_word(lerp4(top[k], bot[k], fy), p, u.alpha_first, perm, inv_div_p8);
+          pv[k] = __shfl_up_sync(mask, o[k], 1, lanes);
+        }
+        // The row's 16-byte (3-byte pixels: 4-byte) aligned words of 4
+        // pixels start `a` columns before each lane's first: a lane stores
+        // the word that starts there, its first `a` pixels from the lane
+        // before; lane 0 stores its first 4 - a pixels alone, the last lane
+        // its last a, so the tiles meet.
+        uint8_t* row = out_img + static_cast<int64_t>(i - row0) * out_row;
+        const uintptr_t base = reinterpret_cast<uintptr_t>(row);
+        const int a = static_cast<int>(nb == 4 ? (base >> 2) & 3 : (3 * base) & 3);
+        const uint32_t c0 = a == 0 ? o[0] : a == 1 ? pv[3] : a == 2 ? pv[2] : pv[1];
+        const uint32_t c1 = a == 0 ? o[1] : a == 1 ? o[0] : a == 2 ? pv[3] : pv[2];
+        const uint32_t c2 = a == 0 ? o[2] : a == 1 ? o[1] : a == 2 ? o[0] : pv[3];
+        const uint32_t c3 = a == 0 ? o[3] : a == 1 ? o[2] : a == 2 ? o[1] : o[0];
+        const int cs = j0 - a;
+        if (t > 0 || a == 0) {
+          uint8_t* d = row + cs * nb;
+          if (cs + 3 < w_out) {
+            if (nb == 4) {
+              *reinterpret_cast<uint4*>(d) = make_uint4(c0, c1, c2, c3);
+            } else {
+              uint32_t* d3 = reinterpret_cast<uint32_t*>(d);
+              d3[0] = __byte_perm(c0, c1, 0x4210);
+              d3[1] = __byte_perm(c1, c2, 0x5421);
+              d3[2] = __byte_perm(c2, c3, 0x6542);
+            }
+          } else {
+            if (cs < w_out) put_pixel(d, c0, nb);
+            if (cs + 1 < w_out) put_pixel(d + nb, c1, nb);
+            if (cs + 2 < w_out) put_pixel(d + 2 * nb, c2, nb);
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            if (k < 4 - a && j0 + k < w_out) put_pixel(row + (j0 + k) * nb, o[k], nb);
+        }
+        if (t == lanes - 1 && a > 0) {
+#pragma unroll
+          for (int k = 1; k < 4; ++k)
+            if (k >= 4 - a && j0 + k < w_out) put_pixel(row + (j0 + k) * nb, o[k], nb);
+        }
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Staged path: a BOX X axis's input stretches in shared memory
 // ---------------------------------------------------------------------------
@@ -688,6 +914,27 @@ bilinear_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
     direct_tile<KX, PACKED>(in, out, inv_div_p8, tab_x, tab_y, windows, p);
 }
 
+// ROLL's six instances (X kinds kCopy, kBilinear and kLadder, PACKED or
+// not), with launch bounds of their own: ROLL keeps no shared memory, so its
+// registers alone set how many threads an SM holds, and BLOCKS blocks per SM
+// cap them at 65536 / (256 BLOCKS), as far as they go without a spill.
+#define ROLL_INSTANCE(KX, PACKED, BLOCKS)                                                    \
+  template <>                                                                              \
+  __global__ void __launch_bounds__(kThreads, BLOCKS)                                      \
+  bilinear_kernel<KX, kBilinear, PACKED, kRoll>(                                           \
+      const uint8_t* __restrict__ in, uint8_t* __restrict__ out,                           \
+      const int32_t* __restrict__ inv_div_p8, const int32_t* __restrict__ tab_x,           \
+      const int32_t* __restrict__ tab_y, const int32_t* __restrict__, const BilinearParams p) { \
+    direct_roll<KX, PACKED>(in, out, inv_div_p8, tab_x, tab_y, p);                         \
+  }
+ROLL_INSTANCE(kCopy, false, 4)
+ROLL_INSTANCE(kCopy, true, 4)
+ROLL_INSTANCE(kBilinear, false, 4)
+ROLL_INSTANCE(kBilinear, true, 4)
+ROLL_INSTANCE(kLadder, false, 2)
+ROLL_INSTANCE(kLadder, true, 2)
+#undef ROLL_INSTANCE
+
 typedef void (*Launcher)(const uint8_t*, uint8_t*, const int32_t*, const int32_t*,
                          const int32_t*, const int32_t*, const BilinearParams&,
                          cudaStream_t);
@@ -740,6 +987,20 @@ Launcher pick_form(int64_t ky, int64_t form, bool packed) {
   return nullptr;
 }
 
+// ROLL: a BILINEAR V axis (of no halvings: checked by the caller) beside a
+// COPY, ONE or BILINEAR X axis
+Launcher pick_roll(int64_t kx, int64_t ky, int64_t halvings_x, bool packed) {
+  if (ky != kBilinear) return nullptr;
+  switch (kx) {
+    case kCopy:
+    case kOne: return pick<kCopy, kBilinear, kRoll>(packed);
+    case kBilinear:
+      return halvings_x > 0 ? pick<kLadder, kBilinear, kRoll>(packed)
+                            : pick<kBilinear, kBilinear, kRoll>(packed);
+  }
+  return nullptr;
+}
+
 Launcher pick(int64_t kx, bool staged, int64_t ky, int64_t form, bool packed) {
   switch (kx) {
     case kCopy:
@@ -762,11 +1023,12 @@ Launcher pick(int64_t kx, bool staged, int64_t ky, int64_t form, bool packed) {
 // read by H TILE only) [r_lo, r_hi) of each row group of 256 / tile_w output
 // rows, whose widest is h_words / tile_w rows or fewer.  The direct path's
 // grid is (ceil(w_out / tile_w), grid_y, grid_z) (ops/bilinear.
-// launch_shape).  The kernel runs on `stream` and is not waited for.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// an unknown axis kind or form, a lane count that is not 0 or a power of
-// two up to 32 or is set for another kind than BOX, or a tile, grid or h
-// tile outside the limits.
+// launch_shape; ROLL's roll_shape).  The kernel runs on `stream` and is not
+// waited for.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for an unknown axis kind or form, a lane count that
+// is not 0 or a power of two up to 32 or is set for another kind than BOX, a
+// tile, grid, h tile or strip outside the limits, or ROLL on a V axis other
+// than a 0-halving BILINEAR one or beside a BOX X axis.
 extern "C" int smolscale_bilinear_scale(const uint8_t* in, uint8_t* out,
                                         const int32_t* inv_div_p8,
                                         const int32_t* tab_x,
@@ -780,13 +1042,17 @@ extern "C" int smolscale_bilinear_scale(const uint8_t* in, uint8_t* out,
       (p.lanes_x > 0 && p.kind_x != kBox))
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.lanes_x == 0 &&
-      (p.tile_w < 1 || p.tile_w > 32 || (p.tile_w & (p.tile_w - 1)) != 0 || p.grid_y < 1 ||
+      (p.tile_w < (p.form == kRoll ? 4 : 1) || p.tile_w > (p.form == kRoll ? 128 : 32) ||
+       (p.tile_w & (p.tile_w - 1)) != 0 || p.grid_y < 1 ||
        p.grid_y > 65535 || p.grid_z < 1 || p.grid_z > 65535 ||
-       (p.form == kHTile && (p.h_words < 4 || p.h_words > kHWords || p.h_words % 4 != 0))))
+       (p.form == kHTile && (p.h_words < 4 || p.h_words > kHWords || p.h_words % 4 != 0)) ||
+       (p.form == kRoll && (p.strip_rows < 1 || p.halvings_y != 0))))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool packed =
       p.nb_in == 4 && (reinterpret_cast<uintptr_t>(in) & 3) == 0;
-  const Launcher fn = pick(p.kind_x, p.lanes_x > 0, p.kind_y, p.form, packed);
+  const Launcher fn = p.lanes_x == 0 && p.form == kRoll
+                         ? pick_roll(p.kind_x, p.kind_y, p.halvings_x, packed)
+                         : pick(p.kind_x, p.lanes_x > 0, p.kind_y, p.form, packed);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   fn(in, out, inv_div_p8, tab_x, tab_y, windows, p, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());

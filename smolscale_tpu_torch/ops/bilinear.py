@@ -18,16 +18,19 @@ of ``backends/numpy_ref`` for the class (see the note at the top of
 The kernel has two paths.  A box X axis of about 15:1 and past is staged
 in shared memory tile by tile of output columns: :func:`stage_table` gives
 each tile's stretch of an input row and the threads per output column.
-Every other plan takes the direct path: blocks over tiles of output columns
-by row groups (:func:`launch_shape`), in one of two forms that
-:func:`direct_form` picks by class -- LOOP (each thread H-filters its own
-tap rows from global memory) and H_TILE (each tap row of a row group
-H-filtered once per tile into shared memory, :func:`row_windows`).
+Every other plan takes the direct path, in one of three forms that
+:func:`direct_form` picks by class: LOOP (each thread H-filters its own tap
+rows from global memory) and H_TILE (each tap row of a row group H-filtered
+once per tile into shared memory, :func:`row_windows`), both on blocks over
+tiles of output columns by row groups (:func:`launch_shape`), and ROLL for
+0-halving V upscales (each thread walks a strip of output rows with its two
+tap rows in registers, :func:`roll_shape`).
 
 ``scale_fn`` and ``scale_rows_fn`` take ``(B, H, W, nb_in)`` or
 ``(H, W, nb_in)`` uint8 tensors.  A tensor on the CPU goes to
 :func:`bilinear_scale_ref`; a tensor on a CUDA device launches the kernel,
-or raises.  ``launches`` counts the kernel launches.
+or raises.  ``launches`` counts the kernel launches, ``form_launches`` the
+direct path's by form.
 """
 
 from __future__ import annotations
@@ -253,8 +256,13 @@ def _stage_tables(plan: ScalePlan, device: torch.device) -> tuple[int, torch.Ten
 # H-filtered values per tile (kHWords there)
 BLOCKS_PER_SM = 16
 H_WORDS = 4096
-LOOP, H_TILE = range(2)
-FORMS = {LOOP: "loop", H_TILE: "h tile"}
+LOOP, H_TILE, ROLL = range(3)
+FORMS = {LOOP: "loop", H_TILE: "h tile", ROLL: "roll"}
+# the direct path's launches by form
+form_launches = dict.fromkeys(FORMS, 0)
+# ROLL's output columns per thread (csrc/bilinear.cu's direct_roll: one
+# 16-byte store of 4-byte pixels)
+ROLL_COLS = 4
 
 
 def tile_width(w_out: int) -> int:
@@ -280,6 +288,29 @@ def launch_shape(w_out: int, first: int, n: int, batch: int,
     grid_z = min(batch, 65535)
     grid_y = max(1, min(groups, BLOCKS_PER_SM * sms // (col_tiles * grid_z)))
     return tile_w, col_tiles, grid_y, grid_z
+
+
+def roll_shape(w_out: int, first: int, n: int, batch: int,
+               sms: int = pixels.H100_SMS) -> tuple[int, int, int, int, int]:
+    """ROLL's grid for output rows [first, first + n) of ``batch`` images:
+    ``(tile_w, col_tiles, strip_rows, grid_y, grid_z)``.  A tile row of
+    ``tile_w // ROLL_COLS`` threads (a power of two up to 32) covers
+    ``tile_w`` output columns, and each walks a strip of ``strip_rows`` rows
+    of the range; a block holds ``THREADS * ROLL_COLS // tile_w`` strips.
+    Block (x, y, z) takes column tile x, the strips of blocks y, y + grid_y,
+    ... and images z, z + grid_z, ....  The strips are as long as they must
+    be for the grid to hold about BLOCKS_PER_SM blocks per SM, so ``grid_y``
+    stays below that many blocks; ``grid_z`` stays below 2^16."""
+    quads = -(-w_out // ROLL_COLS)
+    lanes = min(32, 1 << (quads - 1).bit_length())
+    tile_w = ROLL_COLS * lanes
+    col_tiles = -(-w_out // tile_w)
+    per_block = THREADS // lanes
+    grid_z = min(batch, 65535)
+    target_y = max(1, BLOCKS_PER_SM * sms // (col_tiles * grid_z))
+    strip_rows = -(-n // (target_y * per_block))
+    grid_y = -(-n // (strip_rows * per_block))
+    return tile_w, col_tiles, strip_rows, grid_y, grid_z
 
 
 def tap_rows(ay: AxisPlan) -> tuple[np.ndarray, np.ndarray]:
@@ -318,10 +349,20 @@ def h_tile_fits(plan: ScalePlan) -> bool:
     return h_words(plan) <= H_WORDS
 
 
+def rolls(plan: ScalePlan) -> bool:
+    """ROLL's class: a 0-halving bilinear V upscale, whose tap rows only
+    slide down, by 0 or 1 a row, beside an X axis of kind BILINEAR, COPY or
+    ONE."""
+    y = plan.y
+    return (axis_kind(y) == BILINEAR and y.halvings == 0 and plan.height_out > plan.height_in
+            and axis_kind(plan.x) != BOX)
+
+
 def direct_forms(plan: ScalePlan) -> list[int]:
     """The direct path's forms that can run the plan: LOOP always, H_TILE
-    where the tap rows fit the h tile."""
-    return [LOOP, H_TILE] if h_tile_fits(plan) else [LOOP]
+    where the tap rows fit the h tile, ROLL in its class."""
+    forms = [LOOP, H_TILE] if h_tile_fits(plan) else [LOOP]
+    return forms + [ROLL] if rolls(plan) else forms
 
 
 def h_reuse(plan: ScalePlan) -> float:
@@ -355,9 +396,11 @@ def h_tile_pays(plan: ScalePlan) -> bool:
 
 
 def direct_form(plan: ScalePlan) -> int:
-    """The direct path's form by class: H_TILE where the h tile fits and
-    :func:`h_tile_pays`, else LOOP.  On each timed row this is the faster
-    of the two (PERF.md §6)."""
+    """The direct path's form by class: ROLL in its class (:func:`rolls`),
+    else H_TILE where the h tile fits and :func:`h_tile_pays`, else LOOP.
+    On each timed row this is the fastest form (PERF.md §6)."""
+    if rolls(plan):
+        return ROLL
     return H_TILE if h_tile_fits(plan) and h_tile_pays(plan) else LOOP
 
 
@@ -463,7 +506,8 @@ class _BilinearParams(ctypes.Structure):
             "nb_in", "nb_out", "alpha_ch", "unassoc_in", "unassoc_out",
         )
     ] + [("src", ctypes.c_int64 * 4)] + [
-        (name, ctypes.c_int64) for name in ("tile_w", "grid_y", "grid_z", "form", "h_words")
+        (name, ctypes.c_int64)
+        for name in ("tile_w", "grid_y", "grid_z", "form", "h_words", "strip_rows")
     ]
 
 
@@ -496,13 +540,17 @@ def _params(plan: ScalePlan, batch: int, first: int, n: int, lanes: int,
     :func:`direct_form`'s; unused when ``lanes`` stages a box X axis)."""
     p = _BilinearParams.from_buffer_copy(_plan_params(plan))
     p.batch, p.row0, p.n_rows, p.lanes_x = batch, first, n, lanes
-    _, _, p.grid_y, p.grid_z = launch_shape(plan.width_out, first, n, batch, sms)
     if form is not None:
-        forms = [LOOP, H_TILE] if p.h_words <= H_WORDS else [LOOP]
+        forms = ([LOOP, H_TILE] if p.h_words <= H_WORDS else [LOOP]) + [ROLL] * rolls(plan)
         if not lanes and form not in forms:
             raise ValueError(f"plan {plan.key}: the direct path's {FORMS.get(form, form)} "
                              f"form does not fit (forms {[FORMS[k] for k in forms]})")
         p.form = form
+    if p.form == ROLL and not lanes:
+        p.tile_w, _, p.strip_rows, p.grid_y, p.grid_z = roll_shape(
+            plan.width_out, first, n, batch, sms)
+    else:
+        _, _, p.grid_y, p.grid_z = launch_shape(plan.width_out, first, n, batch, sms)
     return p
 
 
@@ -545,6 +593,8 @@ def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int,
     if err != 0:
         raise RuntimeError(f"bilinear kernel launch failed: CUDA error {err}")
     launches += 1
+    if not lanes:
+        form_launches[params.form] += 1
     return out if imgs.dim() == 4 else out[0]
 
 

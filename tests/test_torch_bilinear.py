@@ -9,6 +9,7 @@ chip_smoke.py).  All arithmetic is integer: the tolerance is byte equality.
 """
 
 import importlib.util
+import json
 from pathlib import Path
 from unittest import mock
 
@@ -18,6 +19,7 @@ import torch
 from jax.experimental import pallas as pl
 
 import smolscale_tpu
+from portbench import traffic
 import smolscale_tpu_torch as stt
 from smolscale_tpu import plan as ref_plan
 from smolscale_tpu.backends import numpy_ref, xla
@@ -160,6 +162,21 @@ DIRECT = [
     (384, 384, 64, 64, 0, 0),      # row 5b's 384^2 levels: 2h, 1h, 0h
     (384, 384, 128, 128, 0, 0),
     (384, 384, 256, 256, 0, 0),
+    # ROLL's edges: f just above 1 and exactly 2, w_out not a multiple of 4,
+    # 2-row input (1-row input is a ONE V axis, outside ROLL), one output
+    # column (ONE and 1h X), 3-byte pixels, unassociated in, unassociated out,
+    # and a 2h X axis
+    (200, 300, 201, 301, 0, 0),
+    (129, 64, 258, 128, 0, 0),
+    (37, 2, 75, 9, 0, 0),
+    (37, 1, 75, 9, 0, 0),
+    (1, 30, 1, 77, 0, 0),
+    (3, 30, 1, 77, 1, 2),
+    (99, 41, 150, 83, 8, 9),
+    (97, 40, 203, 77, 0, 8),
+    (64, 50, 130, 101, 5, 0),
+    (61, 50, 133, 101, 0, 4),
+    (300, 40, 70, 83, 0, 0),
 ]
 # row ranges that start and end inside a row group
 DIRECT_ROWS = [
@@ -169,6 +186,7 @@ DIRECT_ROWS = [
     ((100, 257, 31, 257, 4, 0), 250, 7),
     ((4096, 40, 4096, 8, 0, 0), 5, 1),
     ((512, 512, 171, 171, 8, 8), 9, 150),
+    ((129, 64, 258, 128, 0, 0), 13, 115),
 ]
 # (key, first, n) of test_pallas_rows_exact
 ROWS = [
@@ -466,7 +484,8 @@ def test_stage_constants_match_kernel():
     assert f"constexpr int kThreads = {bilinear.THREADS};" in src
     assert f"constexpr int kStageBytes = {bilinear.STAGE_BYTES};" in src
     assert f"constexpr int kHWords = {bilinear.H_WORDS};" in src
-    assert f"enum Form {{ kLoop = {bilinear.LOOP}, kHTile = {bilinear.H_TILE} }};" in src
+    assert (f"enum Form {{ kLoop = {bilinear.LOOP}, kHTile = {bilinear.H_TILE}, "
+            f"kRoll = {bilinear.ROLL} }};") in src
 
 
 def test_axis_tables_layout():
@@ -501,7 +520,14 @@ def test_kernel_params_follow_plan():
     r = bilinear._params(up, 8, 100, 200, 0, bilinear.LOOP, 100)
     assert (r.row0, r.n_rows, r.form) == (100, 200, bilinear.LOOP)
     assert (r.tile_w, r.grid_y, r.grid_z) == (32, 6, 8)
-    assert bilinear._params(up, 8, 100, 200, 0).form == bilinear.H_TILE
+    # routed to ROLL: tile rows of 32 threads over 128 columns, strips as
+    # long as 16 blocks per SM of 100 leave them (25 over 8 column tiles and
+    # 8 images, 8 strips a block: one row each)
+    q = bilinear._params(up, 8, 100, 200, 0, sms=100)
+    assert q.form == bilinear.ROLL == bilinear.direct_form(up)
+    assert (q.tile_w, q.strip_rows, q.grid_y, q.grid_z) == (128, 1, 25, 8)
+    h = bilinear._params(up, 8, 100, 200, 0, bilinear.H_TILE, 100)
+    assert (h.form, h.tile_w, h.grid_y) == (bilinear.H_TILE, 32, 6)
     # a form that does not fit the plan raises
     with pytest.raises(ValueError, match="form"):
         bilinear._params(ScalePlan(4096, 4096, 4096, 32, 0, 0), 8, 0, 32, 0, bilinear.H_TILE)
@@ -731,8 +757,9 @@ def test_direct_windows_hold_every_read(key):
 def test_direct_forms_fit_shared_memory(key):
     """H_TILE runs a plan only where its widest row group's taps fit
     kHWords words at the tile's width; its shared memory (h_words, a
-    multiple of 4) holds every row group's taps.  The routed form is one
-    that fits."""
+    multiple of 4) holds every row group's taps.  ROLL runs exactly the
+    0-halving bilinear V upscales beside a BILINEAR, COPY or ONE X axis, and
+    takes them.  The routed form is one that fits."""
     plan = ScalePlan(*key)
     forms, form = bilinear.direct_forms(plan), bilinear.direct_form(plan)
     rows = bilinear.row_windows(plan)
@@ -744,6 +771,10 @@ def test_direct_forms_fit_shared_memory(key):
     assert words % 4 == 0 and taps * tile_w <= words < taps * tile_w + 4
     if bilinear.H_TILE in forms:
         assert words <= bilinear.H_WORDS
+    y = plan.y
+    roll = (bilinear.axis_kind(y) == bilinear.BILINEAR and y.halvings == 0
+            and plan.height_out > plan.height_in and bilinear.axis_kind(plan.x) != bilinear.BOX)
+    assert (bilinear.ROLL in forms) == roll == (form == bilinear.ROLL)
 
 
 def test_a_deep_v_box_stays_on_loop():
@@ -751,3 +782,134 @@ def test_a_deep_v_box_stays_on_loop():
     the h tile, so only LOOP takes it."""
     plan = ScalePlan(4096, 4096, 4096, 32, 0, 0)
     assert bilinear.direct_forms(plan) == [bilinear.LOOP] == [bilinear.direct_form(plan)]
+
+
+_CONFIGS = Path(__file__).resolve().parent.parent / "portbench" / "configs"
+
+
+def _parent_form(plan):
+    """The direct path's form before ROLL: H_TILE where it fits and pays."""
+    fits = bilinear.h_tile_fits(plan) and bilinear.h_tile_pays(plan)
+    return bilinear.H_TILE if fits else bilinear.LOOP
+
+
+def test_roll_takes_the_sweeps_upscales_and_nothing_else():
+    """Of frames-2160p's 200 plans, exactly the 101 V upscales route to ROLL
+    and every other plan keeps the form it had before ROLL; no level plan of
+    fleet-5b routes to ROLL."""
+    frames = json.loads((_CONFIGS / "frames-2160p.json").read_text())["frames"]
+    plans = [ScalePlan(*k) for k in traffic.frame_plans(frames)]
+    ups = [p for p in plans if p.height_out > p.height_in]
+    assert len(plans) == 200 and len(ups) == 101
+    for p in plans:
+        want = bilinear.ROLL if p.height_out > p.height_in else _parent_form(p)
+        assert bilinear.direct_form(p) == want, p.key
+    fleet = json.loads((_CONFIGS / "fleet-5b.json").read_text())["fleet"]
+    levels = [ScalePlan(*g["size"], s, s, g["pixel_type"], g["pixel_type"], fleet["with_srgb"])
+              for g in fleet["groups"] for s in fleet["sizes"]]
+    assert len(levels) == 15
+    for p in levels:
+        assert bilinear.ROLL not in bilinear.direct_forms(p)
+        assert bilinear.direct_form(p) == _parent_form(p), p.key
+
+
+def _lerp4(p, q, f):
+    """csrc/bilinear.cu's lerp4 in uint32 arithmetic (held in uint64 and cut
+    to 32 bits after each sum)."""
+    m, g = np.uint64(0xFFFFFFFF), np.uint64(256 - f)
+    f = np.uint64(f)
+    lo = ((p & np.uint64(0x00FF00FF)) * f + (q & np.uint64(0x00FF00FF)) * g) & m
+    hi = (((p >> np.uint64(8)) & np.uint64(0x00FF00FF)) * f
+          + ((q >> np.uint64(8)) & np.uint64(0x00FF00FF)) * g) & m
+    return ((lo >> np.uint64(8)) & np.uint64(0x00FF00FF)) | (hi & np.uint64(0xFF00FF00))
+
+
+def test_lerp4_is_lerp_for_every_p_q_and_f():
+    """ROLL's lerp of two channels in the 16-bit halves of a word gives, in
+    every byte, the byte of ``lerp`` (((p - q)*F >> 8) + q, masked to 8 bits)
+    for every p and q in 0..255 and F in 0..256, beside neighbours equal to
+    p and q and beside others."""
+    p, q = (a.ravel() for a in np.meshgrid(np.arange(256), np.arange(256), indexing="ij"))
+    words = [(p, q, p, q, p, q, p, q), (p, q, q, p, 255 - p, 255 - q, 255 - q, 255 - p)]
+    for f in range(257):
+        want_pq = ((((p - q) * f) >> 8) + q) & 0xFF
+        want_qp = ((((q - p) * f) >> 8) + p) & 0xFF
+        want_rr = (((((255 - p) - (255 - q)) * f) >> 8) + 255 - q) & 0xFF
+        want_ss = (((((255 - q) - (255 - p)) * f) >> 8) + 255 - p) & 0xFF
+        for pw, qw, want in (
+            (words[0][::2], words[0][1::2], (want_pq,) * 4),
+            (words[1][::2], words[1][1::2], (want_pq, want_qp, want_rr, want_ss)),
+        ):
+            pu = sum(np.uint64(b) << np.uint64(8 * k) for k, b in enumerate(pw))
+            qu = sum(np.uint64(b) << np.uint64(8 * k) for k, b in enumerate(qw))
+            got = _lerp4(pu.astype(np.uint64), qu.astype(np.uint64), f)
+            for k in range(4):
+                assert np.array_equal((got >> np.uint64(8 * k)) & np.uint64(0xFF),
+                                      want[k].astype(np.uint64)), (f, k)
+
+
+def _roll_stores(w_out, first, n, batch, nb, sms):
+    """How many times csrc/bilinear.cu's ROLL loops, laid out by roll_shape,
+    store each image, output row and output column of an output that starts
+    on a 16-byte boundary, and check that each word of 4 pixels is stored at
+    an aligned address (16 bytes; 3-byte pixels: 4).  Blocks z over images,
+    blocks y over strips (a block's thread rows, ``THREADS // lanes``
+    strips; s = y * per_block + row, + grid_y * per_block, ...), rows
+    [first + s * strip_rows, + strip_rows) of each; in a row whose address
+    is ``a`` pixels past the alignment, lane t of column tile x (columns j0
+    = x * tile_w + 4t ..) stores the aligned word of 4 pixels from j0 - a
+    (lane 0: its pixels j0 .. j0 + 3 - a alone; the last lane also its last
+    a pixels), no column at w_out or past."""
+    tile_w, col_tiles, strip_rows, grid_y, grid_z = bilinear.roll_shape(
+        w_out, first, n, batch, sms)
+    lanes = tile_w // bilinear.ROLL_COLS
+    per_block = bilinear.THREADS // lanes
+    assert lanes == 1 << (lanes.bit_length() - 1) and lanes <= 32 and grid_y < 2**16
+    assert col_tiles * tile_w >= w_out > (col_tiles - 1) * tile_w
+    strips = -(-n // strip_rows)
+    count = np.zeros((batch, n, w_out), dtype=int)
+    row_bytes = w_out * nb
+    for b in _loop(range(grid_z), grid_z, batch):
+        for s in _loop(range(grid_y * per_block), grid_y * per_block, strips):
+            for i in range(first + s * strip_rows, min(first + (s + 1) * strip_rows, first + n)):
+                base = (b * n + i - first) * row_bytes
+                a = (base >> 2) & 3 if nb == 4 else (3 * base) & 3
+                for x in range(col_tiles):
+                    for t in range(lanes):
+                        j0 = x * tile_w + 4 * t
+                        cols = []
+                        if t > 0 or a == 0:
+                            cs = j0 - a
+                            if cs + 3 < w_out:
+                                assert (base + cs * nb) % (16 if nb == 4 else 4) == 0
+                                cols += range(cs, cs + 4)
+                            else:
+                                cols += [c for c in range(cs, cs + 3) if c < w_out]
+                        else:
+                            cols += [j0 + k for k in range(4 - a) if j0 + k < w_out]
+                        if t == lanes - 1 and a > 0:
+                            cols += [j0 + k for k in range(4 - a, 4) if j0 + k < w_out]
+                        count[b, i - first, cols] += 1
+    return count
+
+
+@pytest.mark.parametrize("nb", [3, 4])
+@pytest.mark.parametrize("w_out", [1, 2, 3, 5, 7, 8, 127, 128, 129, 130, 131, 257])
+@pytest.mark.parametrize("first,n,batch,sms", [(0, 9, 2, 132), (5, 30, 1, 132), (3, 40, 3, 1)])
+def test_roll_stores_every_pixel_once(nb, w_out, first, n, batch, sms):
+    """ROLL's strips and lanes store every output pixel of the range exactly
+    once, at every alignment of a row, its words of 4 pixels aligned."""
+    assert (_roll_stores(w_out, first, n, batch, nb, sms) == 1).all()
+
+
+@pytest.mark.parametrize("w_out,n,batch", [(8, 65535, 1), (4096, 65535, 2), (4, 3, 70000)])
+def test_roll_shape_stays_in_the_grid(w_out, n, batch):
+    """Tall ranges and batches: grid y and z stay below 2^16, and the
+    strips that the blocks' loops walk cover the range once."""
+    tile_w, col_tiles, strip_rows, grid_y, grid_z = bilinear.roll_shape(w_out, 0, n, batch)
+    per_block = bilinear.THREADS * bilinear.ROLL_COLS // tile_w
+    assert grid_y < 2**16 and grid_z < 2**16 and strip_rows >= 1
+    strips = -(-n // strip_rows)
+    walked = _loop(range(grid_y * per_block), grid_y * per_block, strips)
+    assert np.array_equal(np.sort(walked), np.arange(strips))
+    assert np.array_equal(np.sort(_loop(range(grid_z), grid_z, batch)), np.arange(batch))

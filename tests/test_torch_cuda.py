@@ -271,11 +271,43 @@ def test_direct_forms_match_plain(cuda_device, key):
     first, n = min(5, h - 1), max(1, h - min(5, h - 1) - 1)
     assert torch.equal(bilinear.scale_fn(plan, x), want)
     for form in _forms(plan):
-        before = bilinear.launches
+        before, by_form = bilinear.launches, bilinear.form_launches[form]
         assert torch.equal(bilinear.scale_fn(plan, x, form), want), bilinear.FORMS[form]
         assert torch.equal(bilinear.scale_rows_fn(plan, x, first, n, form),
                            want[:, first : first + n]), bilinear.FORMS[form]
         assert bilinear.launches == before + 2
+        assert bilinear.form_launches[form] == by_form + 2
+
+
+# the direct path's plans in ROLL's class: its edges (f just above 1 and 2,
+# w_out not a multiple of 4, 2-row input, one output column, 3-byte pixels,
+# unassociated in and out) among them
+ROLL_PLANS = [k for k in DIRECT_PLANS if bilinear.rolls(stt.ScalePlan(*k))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ROLL_PLANS, ids=_id)
+def test_roll_matches_plain_on_its_edges(cuda_device, key):
+    """ROLL, routed, against the plain version on outputs poisoned first
+    (as the fuzz does): whole, from a row in the middle of the whole
+    image's first strip, and on ranges that end at the last row, one of
+    them a single strip."""
+    plan = stt.ScalePlan(*key)
+    assert bilinear.direct_form(plan) == bilinear.ROLL
+    x = torch.randint(0, 256, (3, key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8,
+                      device=cuda_device)
+    want = bilinear.bilinear_scale_ref(plan, x)
+    h = plan.height_out
+    strip = bilinear.roll_shape(plan.width_out, 0, h, 3)[2]
+    ranges = [(0, h), (strip // 2, h - strip // 2), (h // 3, h - h // 3), (h - 1, 1)]
+    for first, n in ranges:
+        shape = (3, n, plan.width_out, plan.meta_out.n_bytes)
+        addr = fuzz.poison([shape], cuda_device)
+        before = bilinear.form_launches[bilinear.ROLL]
+        got = bilinear.scale_rows_fn(plan, x, first, n)
+        assert got.data_ptr() in addr and got.shape == shape
+        assert torch.equal(got, want[:, first : first + n]), (first, n)
+        assert bilinear.form_launches[bilinear.ROLL] == before + 1
 
 
 @pytest.mark.cuda

@@ -126,7 +126,7 @@ def test_direct_draws_reach_every_form():
                 fitting.update(forms)
         staged = _draws("staged")[0].plans()[0]
         assert fuzz._other_forms(staged) == []
-    assert routed == fitting == {bilinear.LOOP, bilinear.H_TILE}
+    assert routed == fitting == {bilinear.LOOP, bilinear.H_TILE, bilinear.ROLL}
 
 
 def test_s128_draws_run_3_byte_input_in_every_form():
