@@ -1,0 +1,22 @@
+"""``csrc/bilinear128.cu``'s share of its roofline in the traced window:
+the bytes the port's ``bilinear128`` wrapper was handed and returned (its
+``bilinear128`` counter: each image read once and written once, from the
+shapes), at the HBM peak (3.35 TB/s, H100 SXM data sheet, at 700 W), over
+the summed device time of every ``bilinear128_kernel`` instance.  None
+where the kernel did not run or the port has no counters."""
+
+from portbench import counters
+
+LAYER = "kernels: csrc/*.cu"
+UNIT = "%"
+BETTER = "higher"
+SOURCE = "device_trace"
+MOVES = "mpix_per_s"
+
+
+def read(record):
+    nbytes = counters.bytes_of("bilinear128")
+    kernel_s = counters.device_s(record, "bilinear128_kernel")
+    if not nbytes or kernel_s <= 0:
+        return None
+    return 100.0 * nbytes / record.peak_bytes_per_s / kernel_s

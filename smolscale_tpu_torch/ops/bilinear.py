@@ -43,10 +43,12 @@ import torch
 
 from ..formats import AlphaType, GammaType, StorageType
 from ..plan import AxisPlan, FilterType, ScalePlan
+from ..utils.timing import counter
 from . import pixels
 from ._plan_cache import plan_cache
 
 launches = 0
+BYTES = counter("bilinear")  # bytes handed in and returned, while tracing
 
 # box x box plans past this ratio on either axis go to the deep box kernel
 DEEP_BOX_RATIO = 64
@@ -608,10 +610,13 @@ def scale_rows_fn(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int,
     first, n = int(first), int(n)
     _check(plan, imgs, first, n)
     if imgs.device.type == "cpu":
-        return bilinear_scale_ref(plan, imgs, first, n)
-    if imgs.device.type == "cuda":
-        return _launch(plan, imgs, first, n, form)
-    raise ValueError(f"no bilinear kernel for device {imgs.device}")
+        out = bilinear_scale_ref(plan, imgs, first, n)
+    elif imgs.device.type == "cuda":
+        out = _launch(plan, imgs, first, n, form)
+    else:
+        raise ValueError(f"no bilinear kernel for device {imgs.device}")
+    BYTES.add(imgs, out)
+    return out
 
 
 def scale_fn(plan: ScalePlan, imgs: torch.Tensor, form: int | None = None) -> torch.Tensor:

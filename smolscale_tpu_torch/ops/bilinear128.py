@@ -40,6 +40,7 @@ import torch
 
 from ..formats import GammaType, StorageType
 from ..plan import ScalePlan
+from ..utils.timing import counter
 from . import pixels
 from ._plan_cache import plan_cache
 from .bilinear import (_windows, axis_kind, axis_table, deep_v, filter_scale, row_windows,
@@ -48,6 +49,7 @@ from .bilinear import launch_shape as tile_launch_shape
 from .deep import masks, mode
 
 launches = 0
+BYTES = counter("bilinear128")  # bytes handed in and returned, while tracing
 
 
 def applicable(plan: ScalePlan) -> bool:
@@ -261,10 +263,13 @@ def scale_rows_fn(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int,
     first, n = int(first), int(n)
     _check(plan, imgs, first, n)
     if imgs.device.type == "cpu":
-        return bilinear128_scale_ref(plan, imgs, first, n)
-    if imgs.device.type == "cuda":
-        return _launch(plan, imgs, first, n, form)
-    raise ValueError(f"no 128bpp kernel for device {imgs.device}")
+        out = bilinear128_scale_ref(plan, imgs, first, n)
+    elif imgs.device.type == "cuda":
+        out = _launch(plan, imgs, first, n, form)
+    else:
+        raise ValueError(f"no 128bpp kernel for device {imgs.device}")
+    BYTES.add(imgs, out)
+    return out
 
 
 def scale_fn(plan: ScalePlan, imgs: torch.Tensor, form: int | None = None) -> torch.Tensor:

@@ -24,9 +24,11 @@ import torch
 
 from ..formats import AlphaType, GammaType, StorageType
 from ..plan import AxisPlan, FilterType, ScalePlan
+from ..utils.timing import counter
 from . import pixels
 
 launches = 0
+BYTES = counter("box")  # bytes handed in and returned, while tracing
 
 
 def uniform_box(ax: AxisPlan) -> bool:
@@ -269,7 +271,10 @@ def scale_fn(plan: ScalePlan, imgs: torch.Tensor) -> torch.Tensor:
     (h, w, nb_out) uint8, on the device where ``imgs`` lies."""
     _check(plan, imgs)
     if imgs.device.type == "cpu":
-        return box_scale_ref(plan, imgs)
-    if imgs.device.type == "cuda":
-        return _launch(plan, imgs)
-    raise ValueError(f"no box kernel for device {imgs.device}")
+        out = box_scale_ref(plan, imgs)
+    elif imgs.device.type == "cuda":
+        out = _launch(plan, imgs)
+    else:
+        raise ValueError(f"no box kernel for device {imgs.device}")
+    BYTES.add(imgs, out)
+    return out

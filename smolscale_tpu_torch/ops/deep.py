@@ -32,11 +32,13 @@ import torch
 
 from ..formats import AlphaType, GammaType, StorageType
 from ..plan import FilterType, ScalePlan
+from ..utils.timing import counter
 from . import pixels
 from ._plan_cache import plan_cache
 from .bilinear import axis_table, filter_scale
 
 launches = 0
+BYTES = counter("deep")  # bytes handed in and returned, while tracing
 
 # (internal alpha, gamma) modes, as enum Mode in csrc/deep.cu
 P8_COMPRESSED, P8_LINEAR, P16_COMPRESSED, P16_LINEAR = range(4)
@@ -268,10 +270,13 @@ def scale_rows_fn(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> to
     first, n = int(first), int(n)
     _check(plan, imgs, first, n)
     if imgs.device.type == "cpu":
-        return deep_scale_ref(plan, imgs, first, n)
-    if imgs.device.type == "cuda":
-        return _launch(plan, imgs, first, n)
-    raise ValueError(f"no deep box kernel for device {imgs.device}")
+        out = deep_scale_ref(plan, imgs, first, n)
+    elif imgs.device.type == "cuda":
+        out = _launch(plan, imgs, first, n)
+    else:
+        raise ValueError(f"no deep box kernel for device {imgs.device}")
+    BYTES.add(imgs, out)
+    return out
 
 
 def scale_fn(plan: ScalePlan, imgs: torch.Tensor) -> torch.Tensor:

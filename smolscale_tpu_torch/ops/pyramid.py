@@ -45,10 +45,12 @@ import torch
 
 from ..formats import AlphaType, GammaType, StorageType
 from ..plan import ScalePlan
+from ..utils.timing import counter
 from . import bilinear, pixels
 from ._plan_cache import plan_cache
 
 launches = 0
+BYTES = counter("pyramid")  # bytes handed in and returned, while tracing
 
 # the kernel is instantiated for 0-2 halvings per axis: the planner takes a
 # box past 8:1, so a bilinear axis has at most 2 (plan.pick_filter_params)
@@ -202,7 +204,10 @@ def pyramid_fn(plans, imgs: torch.Tensor) -> tuple[torch.Tensor, ...]:
     plans = tuple(plans)
     _check(plans, imgs)
     if imgs.device.type == "cpu":
-        return pyramid_scale_ref(plans, imgs)
-    if imgs.device.type == "cuda":
-        return _launch(plans, imgs)
-    raise ValueError(f"no pyramid kernel for device {imgs.device}")
+        outs = pyramid_scale_ref(plans, imgs)
+    elif imgs.device.type == "cuda":
+        outs = _launch(plans, imgs)
+    else:
+        raise ValueError(f"no pyramid kernel for device {imgs.device}")
+    BYTES.add(imgs, *outs)
+    return outs

@@ -23,6 +23,13 @@ device's entry, the per-plan tables, the parameter block) and
 ``smolscale.farm.group`` (grouping the fleet into sub-batches),
 ``smolscale.farm.stack`` (a sub-batch's stacking into the pinned ring),
 ``smolscale.farm.upload`` and ``smolscale.farm.download``.
+
+:func:`counter` counts work at a layer boundary on the same terms: on only
+while a profiler collects, its per-name totals read by
+:func:`counter_totals`.  Each kernel wrapper (``ops/*.py``) counts, under
+its module's name (``bilinear``, ``bilinear128``, ``box``, ``deep``,
+``pyramid``), the bytes of the images it is handed and of those it returns,
+from their shapes, on every call, the plain versions' on the CPU included.
 """
 
 from __future__ import annotations
@@ -135,4 +142,42 @@ def span_totals() -> dict[str, dict[str, int]]:
             got["count"] += c
             got["total_ns"] += t
             got["self_ns"] += s
+    return out
+
+
+# By thread ident: the counts the thread added while tracing, name -> count.
+_counts: dict[int, dict] = {}
+
+
+class _Counter:
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def add(self, *tensors: torch.Tensor) -> None:
+        """Add the elements of ``tensors`` (bytes, for uint8 images) while a
+        profiler collects; otherwise read one flag and do nothing."""
+        if _profiler._is_profiler_enabled:
+            ident = get_ident()
+            counts = _counts.get(ident)
+            if counts is None:
+                counts = _counts[ident] = {}
+            counts[self.name] = counts.get(self.name, 0) + sum(t.numel() for t in tensors)
+
+
+def counter(name: str) -> _Counter:
+    """The counter ``name``: ``add(*tensors)`` adds their elements while a
+    profiler collects, and does nothing otherwise.  Make it once, where the
+    module loads."""
+    return _Counter(name)
+
+
+def counter_totals() -> dict[str, int]:
+    """The totals of every counter added to while tracing, by name, since
+    the process started."""
+    out: dict[str, int] = {}
+    for counts in list(_counts.values()):
+        for name, n in list(counts.items()):
+            out[name] = out.get(name, 0) + n
     return out
