@@ -101,7 +101,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    box-deep (128:1 x 128:1 on split warps, and on the deep box kernel) and
    the other kinds of box x box past 64:1 that both kernels take (RGB24,
    16:1 x 128:1, 10:1 x 128:1, 128:1 x 16:1), each on both, which decide
-   ``torch_ops.whole_kernel``'s route.
+   ``torch_ops.whole_kernel``'s route, and the general kernel's 0h V
+   downscales: upstream's format-conversion benchmark (64 frames 3840x2160
+   -> 3839x2159 in six byte and alpha classes) and the sweep near 0.6x.
    The copy row is timed beside ``torch.Tensor.clone``, which gives its
    bytes (COPY x COPY between identical formats is the identity; checked
    first), as its library time.  Row 5 is also timed level by level on the
@@ -370,6 +372,23 @@ DIRECT_CHECK_PLANS = [
     (64, 50, 130, 101, 5, 0),
     (61, 50, 133, 101, 0, 4),
     (300, 40, 70, 83, 0, 0),
+    # ROLL's downscale edges: conv-2160p's plan (the window steps one row at
+    # every output row) in six byte and alpha classes (4 -> 4 premultiplied,
+    # unassociated -> premultiplied, premultiplied -> unassociated, 3 -> 4,
+    # 4 -> 3, 3 -> 3), f just above 0.5 (two rows at nearly every output
+    # row), w_out not a multiple of 4, one output row, one output column
+    # (ONE and 1h X)
+    (3840, 2160, 3839, 2159, 0, 0),
+    (3840, 2160, 3839, 2159, 4, 0),
+    (3840, 2160, 3839, 2159, 0, 4),
+    (3840, 2160, 3839, 2159, 8, 0),
+    (3840, 2160, 3839, 2159, 0, 8),
+    (3840, 2160, 3839, 2159, 8, 8),
+    (400, 301, 201, 151, 0, 0),
+    (301, 97, 203, 77, 0, 0),
+    (37, 2, 30, 1, 0, 0),
+    (1, 30, 1, 20, 0, 0),
+    (3, 30, 1, 20, 1, 2),
 ]
 # (plan, first output row, rows) through the row form: ranges that start and
 # end inside a row group
@@ -381,6 +400,8 @@ DIRECT_CHECK_ROWS = [
     ((4096, 40, 4096, 8, 0, 0), 5, 1),
     ((512, 512, 171, 171, 8, 8), 9, 150),
     ((129, 64, 258, 128, 0, 0), 13, 115),
+    ((400, 301, 201, 151, 0, 0), 51, 100),
+    ((301, 97, 203, 77, 8, 0), 5, 72),
 ]
 # the general kernel on inputs at byte offsets 1-3: a 2h ladder with tails
 # (direct byte loads), and staged boxes (ragged stretch ends staged byte by
@@ -666,6 +687,18 @@ EXTRA_ROWS = [
     ("copy", (1024, 1024, 1024, 1024, 0, 0), 8, "bilinear"),
     # up-2160 in 3-byte pixels: the route of 3-byte 0h upscales
     ("up-2160 rgb24", (3840, 2160, 7296, 4104, 8, 8), 8, "bilinear"),
+    # upstream's format-conversion benchmark (conv-2160p): 64 4K frames to a
+    # pixel less, a 0h downscale whose V window steps one row at every output
+    # row, in six byte and alpha classes (4 -> 4 premultiplied, unassociated
+    # -> premultiplied, premultiplied -> unassociated, 3 -> 4, 4 -> 3, 3 -> 3)
+    ("conv 4-4", (3840, 2160, 3839, 2159, 0, 0), 64, "bilinear"),
+    ("conv u-4", (3840, 2160, 3839, 2159, 4, 0), 64, "bilinear"),
+    ("conv 4-u", (3840, 2160, 3839, 2159, 0, 4), 64, "bilinear"),
+    ("conv 3-4", (3840, 2160, 3839, 2159, 8, 0), 64, "bilinear"),
+    ("conv 4-3", (3840, 2160, 3839, 2159, 0, 8), 64, "bilinear"),
+    ("conv 3-3", (3840, 2160, 3839, 2159, 8, 8), 64, "bilinear"),
+    # a 0h downscale of the proportional sweep (frames-2160p) near 0.6x
+    ("down-0.6", (3840, 2160, 2292, 1289, 0, 0), 8, "bilinear"),
     # the headline on the general kernel, beside the box kernel's row 0
     ("row 0 on bilinear", (4096, 4096, 256, 256, 0, 0), 8, "bilinear"),
     # a 10:1 box whose 40-byte spans take the box kernel's staged form:
@@ -1182,16 +1215,18 @@ def main(argv: list) -> int:
     check_levels(f"{case} transposed view through make_pyramid_fn", got, fn(imgs))
     del imgs, flat, shifted, strided
 
-    # 4. main paths at full size
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.integers(0, 256, (8, 4096, 4096, 4), dtype=np.uint8)).to(dev)
-    torch.cuda.synchronize()
-    log(f"[main] input {tuple(x.shape)} uint8 ({x.numel() / 2**20:.0f} MiB) "
-        f"made and uploaded in {time.perf_counter() - t0:.1f} s")
+    # 4. main paths at full size, each row's input a view of one random buffer
     all_rows = (MAIN_ROWS + BILINEAR_ROWS + [STREAM_ROW] + DEEP_ROWS + WIDE_ROWS
                 + [r[:3] for r in A1_ROWS] + [r[:3] for r in EXTRA_ROWS])
     plans = {name: plan_of(key) for name, key, _ in all_rows}
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    size = max(batch * plans[name].height_in * plans[name].width_in
+               * plans[name].meta_in.n_bytes for name, _, batch in all_rows)
+    x = torch.from_numpy(rng.integers(0, 256, size, dtype=np.uint8)).to(dev)
+    torch.cuda.synchronize()
+    log(f"[main] input {tuple(x.shape)} uint8 ({x.numel() / 2**20:.0f} MiB) "
+        f"made and uploaded in {time.perf_counter() - t0:.1f} s")
     inputs = {name: view_input(x, plans[name], batch) for name, _, batch in all_rows}
     kernels = {"box": (box.scale_fn, box.box_scale_ref),
                "bilinear": (bilinear.scale_fn, bilinear.bilinear_scale_ref),

@@ -49,9 +49,9 @@
 //   LOOP: each thread walks the V taps of its output pixel and H-filters
 //     each tap row from global memory (L1 serves the neighbours' overlaps),
 //     so a tap row is H-filtered again for every output row that reads it.
-//     It takes a COPY V axis (one tap row per output row), 0h downscales,
-//     and V boxes whose row groups read more rows than the h tile holds
-//     (a1-strip-rows' 128:1).
+//     It takes a COPY V axis (one tap row per output row), a 0h V axis
+//     beside a box X axis, and V boxes whose row groups read more rows than
+//     the h tile holds (a1-strip-rows' 128:1).
 //   H TILE: a row group's output rows read a contiguous range of tap rows,
 //     [r_lo, r_hi) (a host table per row group, `windows`); the block
 //     H-filters each (tap row, column) of its tile once, all of them at
@@ -63,14 +63,16 @@
 //     SM's 256 KB to L1.  It takes V ladders of 1 or 2 halvings, V boxes
 //     and ONE: there each output row reads three tap rows or more, or shares
 //     them two-fold or more.
-//   ROLL: 0-halving bilinear V upscales (beside a BILINEAR, COPY or ONE X
-//     axis), which H TILE and LOOP took before.  There the output is 4f^2
-//     times the input, and the V window only slides down, by 0 or 1 tap rows
-//     per output row.  So a thread owns 4 output columns (their X table
-//     entries loaded once, into registers) and walks a strip of strip_rows
-//     output rows (ops/bilinear.roll_shape) top to bottom, holding the H
-//     values of its two tap rows in registers, 8 bits a channel, and
-//     H-filtering one new tap row when the window steps.  Each row is then
+//   ROLL: 0-halving bilinear V axes, upscales and downscales alike (beside
+//     a BILINEAR, COPY or ONE X axis), which H TILE and LOOP took before.
+//     There the V window only slides down: by 0 or 1 tap rows per output row
+//     on an upscale, by 1 or 2 on a downscale (0h stops at 0.5x).  So a
+//     thread owns 4 output columns (their X table entries loaded once, into
+//     registers) and walks a strip of strip_rows output rows
+//     (ops/bilinear.roll_shape) top to bottom, holding the H values of its
+//     two tap rows in registers, 8 bits a channel: on a step of one row it
+//     H-filters the new bottom row alone, on a step of two both rows, which
+//     each output row of such a downscale reads once only.  Each row is then
 //     one V lerp per pixel, two channels to a 32-bit word (lerp4), and one
 //     16-byte store (3-byte pixels: three 4-byte stores) of 4 pixels at an
 //     aligned address: the lanes pass their words on with one shuffle, as
@@ -78,8 +80,12 @@
 //     those shuffles, so it has no shared memory and no barrier: H TILE
 //     spent two barriers per 8 output rows and left 96 of 256 threads idle
 //     while 160 H-filtered the 5 tap rows of a 2x row group; LOOP H-filtered
-//     both tap rows again for every output pixel.  Its bound is bytes, on an
-//     upscale mostly the store: ~4f^2 output bytes per input byte.
+//     both tap rows again for every output pixel, on a downscale by a pixel
+//     (upstream's format-conversion benchmark) every input row twice, with
+//     the X table, the unpack and a 4-byte store per pixel each time.  Its
+//     bound is bytes: on an upscale mostly the store, ~4f^2 output bytes per
+//     input byte; on a downscale by a pixel, in and out alike (PERF.md §6
+//     times both at 42-64% of it, lowest with 3-byte pixels).
 //
 // What bounds the direct path: not bytes (PERF.md §6: the timed rows run at
 // 12-76% of their byte bound) but the loads and instructions per output
@@ -527,7 +533,7 @@ __device__ __forceinline__ void direct_tile(const uint8_t* __restrict__ in,
   }
 }
 
-// ROLL: a 0-halving bilinear V upscale.  Lane t of a tile row owns output
+// ROLL: a 0-halving bilinear V axis.  Lane t of a tile row owns output
 // columns j0 = tile_w * blockIdx.x + 4t .. j0 + 3 and walks a strip of
 // strip_rows output rows down, holding the H values of tap rows ofs_y[i] and
 // ofs_y[i] + 1 of its columns in registers.

@@ -23,8 +23,8 @@ Every other plan takes the direct path, in one of three forms that
 rows from global memory) and H_TILE (each tap row of a row group H-filtered
 once per tile into shared memory, :func:`row_windows`), both on blocks over
 tiles of output columns by row groups (:func:`launch_shape`), and ROLL for
-0-halving V upscales (each thread walks a strip of output rows with its two
-tap rows in registers, :func:`roll_shape`).
+0-halving bilinear V axes, up and down (each thread walks a strip of output
+rows with its two tap rows in registers, :func:`roll_shape`).
 
 ``scale_fn`` and ``scale_rows_fn`` take ``(B, H, W, nb_in)`` or
 ``(H, W, nb_in)`` uint8 tensors.  A tensor on the CPU goes to
@@ -263,8 +263,9 @@ FORMS = {LOOP: "loop", H_TILE: "h tile", ROLL: "roll"}
 # the direct path's launches by form
 form_launches = dict.fromkeys(FORMS, 0)
 # ROLL's output columns per thread (csrc/bilinear.cu's direct_roll: one
-# 16-byte store of 4-byte pixels)
+# 16-byte store of 4-byte pixels), and its longest strip of output rows
 ROLL_COLS = 4
+ROLL_STRIP_ROWS = 64
 
 
 def tile_width(w_out: int) -> int:
@@ -301,15 +302,21 @@ def roll_shape(w_out: int, first: int, n: int, batch: int,
     of the range; a block holds ``THREADS * ROLL_COLS // tile_w`` strips.
     Block (x, y, z) takes column tile x, the strips of blocks y, y + grid_y,
     ... and images z, z + grid_z, ....  The strips are as long as they must
-    be for the grid to hold about BLOCKS_PER_SM blocks per SM, so ``grid_y``
-    stays below that many blocks; ``grid_z`` stays below 2^16."""
+    be for the grid to hold about BLOCKS_PER_SM blocks per SM, and at most
+    ROLL_STRIP_ROWS: where a batch's column tiles alone fill the grid (64
+    4K frames), more and shorter strips make the last wave of blocks a
+    smaller share of the launch; much shorter ones cost more than they
+    balance, as a strip's first row H-filters both tap rows (PERF.md §6).
+    Every block holds at least one strip; ``grid_y`` and ``grid_z`` stay
+    below 2^16."""
     quads = -(-w_out // ROLL_COLS)
     lanes = min(32, 1 << (quads - 1).bit_length())
     tile_w = ROLL_COLS * lanes
     col_tiles = -(-w_out // tile_w)
     per_block = THREADS // lanes
     grid_z = min(batch, 65535)
-    target_y = max(1, BLOCKS_PER_SM * sms // (col_tiles * grid_z))
+    target_y = max(1, BLOCKS_PER_SM * sms // (col_tiles * grid_z),
+                   -(-n // (per_block * ROLL_STRIP_ROWS)))
     strip_rows = -(-n // (target_y * per_block))
     grid_y = -(-n // (strip_rows * per_block))
     return tile_w, col_tiles, strip_rows, grid_y, grid_z
@@ -352,12 +359,11 @@ def h_tile_fits(plan: ScalePlan) -> bool:
 
 
 def rolls(plan: ScalePlan) -> bool:
-    """ROLL's class: a 0-halving bilinear V upscale, whose tap rows only
-    slide down, by 0 or 1 a row, beside an X axis of kind BILINEAR, COPY or
-    ONE."""
+    """ROLL's class: a 0-halving bilinear V axis, whose tap rows only slide
+    down (an upscale by 0 or 1 a row, a downscale to 0.5x by 1 or 2), beside
+    an X axis of kind BILINEAR, COPY or ONE."""
     y = plan.y
-    return (axis_kind(y) == BILINEAR and y.halvings == 0 and plan.height_out > plan.height_in
-            and axis_kind(plan.x) != BOX)
+    return axis_kind(y) == BILINEAR and y.halvings == 0 and axis_kind(plan.x) != BOX
 
 
 def direct_forms(plan: ScalePlan) -> list[int]:

@@ -25,6 +25,7 @@ from smolscale_tpu import plan as ref_plan
 from smolscale_tpu.backends import numpy_ref, xla
 from smolscale_tpu.ops import pallas_bilinear, pallas_box
 from smolscale_tpu_torch import plan as port_plan
+from smolscale_tpu_torch.backends import torch_ops
 from smolscale_tpu_torch.ops import bilinear, box
 from smolscale_tpu_torch.plan import ScalePlan
 
@@ -177,6 +178,23 @@ DIRECT = [
     (64, 50, 130, 101, 5, 0),
     (61, 50, 133, 101, 0, 4),
     (300, 40, 70, 83, 0, 0),
+    # ROLL's downscale edges: conv-2160p's plan (the window steps one row at
+    # every output row) in six byte and alpha classes (4 -> 4 premultiplied,
+    # unassociated -> premultiplied, premultiplied -> unassociated, 3 -> 4,
+    # 4 -> 3, 3 -> 3), f just above 0.5 (two rows at nearly every output
+    # row), w_out not a multiple of 4, one output row, one output column
+    # (ONE and 1h X)
+    (3840, 2160, 3839, 2159, 0, 0),
+    (3840, 2160, 3839, 2159, 4, 0),
+    (3840, 2160, 3839, 2159, 0, 4),
+    (3840, 2160, 3839, 2159, 8, 0),
+    (3840, 2160, 3839, 2159, 0, 8),
+    (3840, 2160, 3839, 2159, 8, 8),
+    (400, 301, 201, 151, 0, 0),
+    (301, 97, 203, 77, 0, 0),
+    (37, 2, 30, 1, 0, 0),
+    (1, 30, 1, 20, 0, 0),
+    (3, 30, 1, 20, 1, 2),
 ]
 # row ranges that start and end inside a row group
 DIRECT_ROWS = [
@@ -187,6 +205,8 @@ DIRECT_ROWS = [
     ((4096, 40, 4096, 8, 0, 0), 5, 1),
     ((512, 512, 171, 171, 8, 8), 9, 150),
     ((129, 64, 258, 128, 0, 0), 13, 115),
+    ((400, 301, 201, 151, 0, 0), 51, 100),
+    ((301, 97, 203, 77, 8, 0), 5, 72),
 ]
 # (key, first, n) of test_pallas_rows_exact
 ROWS = [
@@ -758,8 +778,8 @@ def test_direct_forms_fit_shared_memory(key):
     """H_TILE runs a plan only where its widest row group's taps fit
     kHWords words at the tile's width; its shared memory (h_words, a
     multiple of 4) holds every row group's taps.  ROLL runs exactly the
-    0-halving bilinear V upscales beside a BILINEAR, COPY or ONE X axis, and
-    takes them.  The routed form is one that fits."""
+    0-halving bilinear V axes, up and down, beside a BILINEAR, COPY or ONE X
+    axis, and takes them.  The routed form is one that fits."""
     plan = ScalePlan(*key)
     forms, form = bilinear.direct_forms(plan), bilinear.direct_form(plan)
     rows = bilinear.row_windows(plan)
@@ -773,7 +793,7 @@ def test_direct_forms_fit_shared_memory(key):
         assert words <= bilinear.H_WORDS
     y = plan.y
     roll = (bilinear.axis_kind(y) == bilinear.BILINEAR and y.halvings == 0
-            and plan.height_out > plan.height_in and bilinear.axis_kind(plan.x) != bilinear.BOX)
+            and bilinear.axis_kind(plan.x) != bilinear.BOX)
     assert (bilinear.ROLL in forms) == roll == (form == bilinear.ROLL)
 
 
@@ -793,24 +813,46 @@ def _parent_form(plan):
     return bilinear.H_TILE if fits else bilinear.LOOP
 
 
-def test_roll_takes_the_sweeps_upscales_and_nothing_else():
-    """Of frames-2160p's 200 plans, exactly the 101 V upscales route to ROLL
-    and every other plan keeps the form it had before ROLL; no level plan of
-    fleet-5b routes to ROLL."""
-    frames = json.loads((_CONFIGS / "frames-2160p.json").read_text())["frames"]
-    plans = [ScalePlan(*k) for k in traffic.frame_plans(frames)]
-    ups = [p for p in plans if p.height_out > p.height_in]
-    assert len(plans) == 200 and len(ups) == 101
-    for p in plans:
-        want = bilinear.ROLL if p.height_out > p.height_in else _parent_form(p)
-        assert bilinear.direct_form(p) == want, p.key
-    fleet = json.loads((_CONFIGS / "fleet-5b.json").read_text())["fleet"]
-    levels = [ScalePlan(*g["size"], s, s, g["pixel_type"], g["pixel_type"], fleet["with_srgb"])
-              for g in fleet["groups"] for s in fleet["sizes"]]
-    assert len(levels) == 15
-    for p in levels:
+def _levels(fleet):
+    return [ScalePlan(*g["size"], s, s, g["pixel_type"], g["pixel_type"], fleet["with_srgb"])
+            for g in fleet["groups"] for s in fleet["sizes"]]
+
+
+# configuration -> its plans, those that route to ROLL (V upscales, V
+# downscales) and those that keep the form they had before ROLL
+ROLL_ROUTES = {"frames-2160p": (200, 101, 50, 49), "conv-2160p": (100, 0, 100, 0),
+               "fleet-5b": (15, 0, 5, 10)}
+
+
+@pytest.mark.parametrize("config", ROLL_ROUTES)
+def test_roll_takes_every_0h_v_axis_and_nothing_else(config):
+    """Each configuration's plans whose V axis is a 0-halving bilinear one
+    route to ROLL, upscales and downscales alike, and every other plan keeps
+    the form it had before ROLL.  frames-2160p: the 101 V upscales and the
+    50 0h V downscales; the 25 + 13 V ladders and the 11 box x box plans
+    keep theirs.  conv-2160p: every one of the 84 pairs that reach
+    ``bilinear.cu``.  fleet-5b: the five 256^2 levels (0h), the 384^2
+    group's among them, which the farm runs on ``bilinear.cu``; the 64^2
+    and 128^2 ladders keep H TILE."""
+    data = json.loads((_CONFIGS / f"{config}.json").read_text())
+    plans = (_levels(data["fleet"]) if "fleet" in data
+             else [ScalePlan(*k) for k in traffic.frame_plans(data["frames"])])
+    rolled = [p for p in plans if bilinear.direct_form(p) == bilinear.ROLL]
+    kept = [p for p in plans if p not in rolled]
+    assert (len(plans), sum(p.height_out > p.height_in for p in rolled),
+            sum(p.height_out < p.height_in for p in rolled), len(kept)) == ROLL_ROUTES[config]
+    for p in rolled:
+        assert bilinear.axis_kind(p.y) == bilinear.BILINEAR and p.y.halvings == 0, p.key
+        assert bilinear.axis_kind(p.x) != bilinear.BOX, p.key
+    for p in kept:
         assert bilinear.ROLL not in bilinear.direct_forms(p)
         assert bilinear.direct_form(p) == _parent_form(p), p.key
+    on_bilinear = [p for p in plans if torch_ops.whole_kernel(p) is bilinear]
+    if config == "conv-2160p":
+        assert len(on_bilinear) == 84 and all(p in rolled for p in on_bilinear)
+    if config == "fleet-5b":
+        level = ScalePlan(384, 384, 256, 256, 0, 0)
+        assert level in on_bilinear and level in rolled
 
 
 def _lerp4(p, q, f):
@@ -902,14 +944,19 @@ def test_roll_stores_every_pixel_once(nb, w_out, first, n, batch, sms):
     assert (_roll_stores(w_out, first, n, batch, nb, sms) == 1).all()
 
 
-@pytest.mark.parametrize("w_out,n,batch", [(8, 65535, 1), (4096, 65535, 2), (4, 3, 70000)])
+@pytest.mark.parametrize("w_out,n,batch", [(8, 65535, 1), (4096, 65535, 2), (4, 3, 70000),
+                                           (3839, 2159, 64), (7296, 4104, 8), (256, 256, 341),
+                                           (1, 65535, 1)])
 def test_roll_shape_stays_in_the_grid(w_out, n, batch):
-    """Tall ranges and batches: grid y and z stay below 2^16, and the
+    """Tall ranges and batches, conv-2160p's 64 frames, up-2160's 8 and a
+    farm sub-batch: grid y and z stay below 2^16, strips are at most
+    ROLL_STRIP_ROWS long, every block holds at least one strip, and the
     strips that the blocks' loops walk cover the range once."""
     tile_w, col_tiles, strip_rows, grid_y, grid_z = bilinear.roll_shape(w_out, 0, n, batch)
     per_block = bilinear.THREADS * bilinear.ROLL_COLS // tile_w
-    assert grid_y < 2**16 and grid_z < 2**16 and strip_rows >= 1
+    assert grid_y < 2**16 and grid_z < 2**16 and 1 <= strip_rows <= bilinear.ROLL_STRIP_ROWS
     strips = -(-n // strip_rows)
+    assert grid_y * per_block - strips < per_block
     walked = _loop(range(grid_y * per_block), grid_y * per_block, strips)
     assert np.array_equal(np.sort(walked), np.arange(strips))
     assert np.array_equal(np.sort(_loop(range(grid_z), grid_z, batch)), np.arange(batch))

@@ -281,27 +281,31 @@ def test_direct_forms_match_plain(cuda_device, key):
 
 # the direct path's plans in ROLL's class: its edges (f just above 1 and 2,
 # w_out not a multiple of 4, 2-row input, one output column, 3-byte pixels,
-# unassociated in and out) among them
-ROLL_PLANS = [k for k in DIRECT_PLANS if bilinear.rolls(stt.ScalePlan(*k))]
+# unassociated in and out, downscales by a pixel and to just above 0.5x)
+# among them, in batches of 3; and fleet-5b's 384^2 -> 256^2 level on one of
+# the farm's sub-batches (341 images: several blocks of strips down each)
+ROLL_CASES = ([(k, 3) for k in DIRECT_PLANS if bilinear.rolls(stt.ScalePlan(*k))]
+              + [((384, 384, 256, 256, 0, 0), 341)])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("key", ROLL_PLANS, ids=_id)
-def test_roll_matches_plain_on_its_edges(cuda_device, key):
+@pytest.mark.parametrize("key,batch", ROLL_CASES, ids=lambda v: _id(v) if isinstance(v, tuple)
+                         else str(v))
+def test_roll_matches_plain_on_its_edges(cuda_device, key, batch):
     """ROLL, routed, against the plain version on outputs poisoned first
     (as the fuzz does): whole, from a row in the middle of the whole
     image's first strip, and on ranges that end at the last row, one of
     them a single strip."""
     plan = stt.ScalePlan(*key)
     assert bilinear.direct_form(plan) == bilinear.ROLL
-    x = torch.randint(0, 256, (3, key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8,
+    x = torch.randint(0, 256, (batch, key[1], key[0], plan.meta_in.n_bytes), dtype=torch.uint8,
                       device=cuda_device)
     want = bilinear.bilinear_scale_ref(plan, x)
     h = plan.height_out
-    strip = bilinear.roll_shape(plan.width_out, 0, h, 3)[2]
+    strip = bilinear.roll_shape(plan.width_out, 0, h, batch)[2]
     ranges = [(0, h), (strip // 2, h - strip // 2), (h // 3, h - h // 3), (h - 1, 1)]
     for first, n in ranges:
-        shape = (3, n, plan.width_out, plan.meta_out.n_bytes)
+        shape = (batch, n, plan.width_out, plan.meta_out.n_bytes)
         addr = fuzz.poison([shape], cuda_device)
         before = bilinear.form_launches[bilinear.ROLL]
         got = bilinear.scale_rows_fn(plan, x, first, n)
