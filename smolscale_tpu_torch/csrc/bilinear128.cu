@@ -68,7 +68,7 @@
 //
 //   LOOP (every plan): block (x, y, z) takes column tile x, row groups y,
 //     y + grid_y, ... of the range and images z, z + grid_z, ...
-//     (ops/bilinear128.launch_shape: about 16 blocks per SM, so each block
+//     (ops/bilinear.launch_shape: about 16 blocks per SM, so each block
 //     copies its tables once for several row groups; grid y and z below
 //     2^16).  Each thread walks the V taps of its output pixel and H-filters
 //     each tap row from global memory: a V sample's two rows (r, r + 1) -- a
@@ -602,8 +602,8 @@ Launcher pick(int64_t kx, int64_t ky, int64_t mode, int px, int64_t form) {
 // [r_lo, r_hi) of each row group of 256 / tile_w output rows
 // (ops/bilinear.row_windows), whose widest is h_cells / tile_w rows or
 // fewer; the grid is (ceil(w_out / tile_w), grid_y, grid_z)
-// (ops/bilinear128.launch_shape for LOOP, ops/bilinear.launch_shape for H
-// TILE).  The kernel runs on `stream` and is not waited for.  Returns
+// (ops/bilinear.launch_shape, from row 0 for LOOP and from the range's
+// first row for H TILE).  The kernel runs on `stream` and is not waited for.  Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for an axis
 // kind, mode or form outside the class (H TILE: 3-byte input at PREMUL8
 // only), or a tile width, grid or h tile outside the limits.

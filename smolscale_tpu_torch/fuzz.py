@@ -549,10 +549,10 @@ def kernel_runs(case: Case, x: torch.Tensor, distinct: torch.Tensor, cover: dict
                 cover["bilinear forms"].update(
                     bilinear.FORMS[f] for f in [bilinear.direct_form(plan)] + _other_forms(plan))
         elif name == "bilinear128":
-            tile_w, _, grid_y, _ = bilinear128.launch_shape(plan.width_out, n_rows, batch, sms)
+            tile_w, _, grid_y, _ = bilinear.launch_shape(plan.width_out, 0, n_rows, batch, sms)
             cover["bilinear128 tile_w"].add(tile_w)
             cover["bilinear128 row loops"].add(
-                grid_y * (bilinear128.THREADS // tile_w) < n_rows)
+                grid_y * (bilinear.THREADS // tile_w) < n_rows)
             cover["bilinear128 forms"].update(
                 bilinear128.FORMS[f] for f in [bilinear128.form(plan)]
                 + _other_forms(plan, bilinear128))

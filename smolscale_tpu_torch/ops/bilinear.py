@@ -36,19 +36,18 @@ direct path's by form.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from ..formats import AlphaType, GammaType, StorageType
 from ..plan import AxisPlan, FilterType, ScalePlan
-from ..utils.timing import counter
 from . import pixels
+from ._kernel import Kernel
 from ._plan_cache import plan_cache
+from .pixels import GRID_LIMIT, pow2_ceil
 
 launches = 0
-BYTES = counter("bilinear")  # bytes handed in and returned, while tracing
 
 # box x box plans past this ratio on either axis go to the deep box kernel
 DEEP_BOX_RATIO = 64
@@ -85,16 +84,6 @@ def applicable(plan: ScalePlan) -> bool:
         and plan.meta_out.n_bytes in (3, 4)
         and not deep_box(plan)
     )
-
-
-def _check(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> None:
-    if not applicable(plan):
-        raise ValueError(f"plan {plan.key} is outside the bilinear kernel's class")
-    pixels.check_input(plan, imgs)
-    if first < 0 or n < 1 or first + n > plan.height_out:
-        raise ValueError(
-            f"row range [{first}, {first + n}) outside [0, {plan.height_out})"
-        )
 
 
 # ----------------------------------------------------------------------------
@@ -271,7 +260,7 @@ ROLL_STRIP_ROWS = 64
 def tile_width(w_out: int) -> int:
     """The direct path's output columns per block: w_out rounded up to a
     power of two, at most 32."""
-    return min(32, 1 << (w_out - 1).bit_length())
+    return min(32, pow2_ceil(w_out))
 
 
 def launch_shape(w_out: int, first: int, n: int, batch: int,
@@ -282,13 +271,13 @@ def launch_shape(w_out: int, first: int, n: int, batch: int,
     range spans those from ``first``'s to ``first + n - 1``'s; block (x, y,
     z) takes column tile x, the range's row groups y, y + grid_y, ... and
     images z, z + grid_z, ....  ``grid_y`` is cut so that the grid holds
-    about BLOCKS_PER_SM blocks per SM; ``grid_y`` and ``grid_z`` stay below
-    2^16."""
+    about BLOCKS_PER_SM blocks per SM; ``grid_y`` and ``grid_z`` stay at most
+    GRID_LIMIT.  ``csrc/bilinear128.cu`` takes this grid too."""
     tile_w = tile_width(w_out)
     tile_h = THREADS // tile_w
     col_tiles = -(-w_out // tile_w)
     groups = (first + n - 1) // tile_h - first // tile_h + 1
-    grid_z = min(batch, 65535)
+    grid_z = min(batch, GRID_LIMIT)
     grid_y = max(1, min(groups, BLOCKS_PER_SM * sms // (col_tiles * grid_z)))
     return tile_w, col_tiles, grid_y, grid_z
 
@@ -307,14 +296,14 @@ def roll_shape(w_out: int, first: int, n: int, batch: int,
     4K frames), more and shorter strips make the last wave of blocks a
     smaller share of the launch; much shorter ones cost more than they
     balance, as a strip's first row H-filters both tap rows (PERF.md §6).
-    Every block holds at least one strip; ``grid_y`` and ``grid_z`` stay
-    below 2^16."""
+    Every block holds at least one strip; ``grid_y`` and ``grid_z`` stay at
+    most GRID_LIMIT."""
     quads = -(-w_out // ROLL_COLS)
-    lanes = min(32, 1 << (quads - 1).bit_length())
+    lanes = min(32, pow2_ceil(quads))
     tile_w = ROLL_COLS * lanes
     col_tiles = -(-w_out // tile_w)
     per_block = THREADS // lanes
-    grid_z = min(batch, 65535)
+    grid_z = min(batch, GRID_LIMIT)
     target_y = max(1, BLOCKS_PER_SM * sms // (col_tiles * grid_z),
                    -(-n // (per_block * ROLL_STRIP_ROWS)))
     strip_rows = -(-n // (target_y * per_block))
@@ -366,11 +355,16 @@ def rolls(plan: ScalePlan) -> bool:
     return axis_kind(y) == BILINEAR and y.halvings == 0 and axis_kind(plan.x) != BOX
 
 
+@plan_cache
+def _forms(plan: ScalePlan) -> tuple:
+    forms = (LOOP, H_TILE) if h_tile_fits(plan) else (LOOP,)
+    return forms + (ROLL,) if rolls(plan) else forms
+
+
 def direct_forms(plan: ScalePlan) -> list[int]:
     """The direct path's forms that can run the plan: LOOP always, H_TILE
     where the tap rows fit the h tile, ROLL in its class."""
-    forms = [LOOP, H_TILE] if h_tile_fits(plan) else [LOOP]
-    return forms + [ROLL] if rolls(plan) else forms
+    return list(_forms(plan))
 
 
 def h_reuse(plan: ScalePlan) -> float:
@@ -495,7 +489,7 @@ def bilinear_scale_ref(plan: ScalePlan, imgs: torch.Tensor, first: int = 0,
     """Plain PyTorch version of the kernel, on any device: output rows
     [first, first+n) (all by default)."""
     n = plan.height_out - first if n is None else n
-    _check(plan, imgs, first, n)
+    KERNEL.check(plan, imgs, first, n)
     return filter_scale(plan, imgs, first, n, _tables(plan, imgs.device))
 
 
@@ -529,15 +523,14 @@ def _plan_params(plan: ScalePlan) -> _BilinearParams:
     """The parameters that follow from the plan alone (the direct path's
     routed form and h tile among them); :func:`_params` copies them per
     call."""
-    f = pixels.kernel_fields(plan)
-    f["src"] = (ctypes.c_int64 * 4)(*f["src"])
     return _BilinearParams(
         h_in=plan.height_in, w_in=plan.width_in, h_out=plan.height_out, w_out=plan.width_out,
         kind_x=axis_kind(plan.x), kind_y=axis_kind(plan.y),
         halvings_x=plan.x.halvings, halvings_y=plan.y.halvings,
         len_x=table_len(plan.x), len_y=table_len(plan.y),
         span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul),
-        tile_w=tile_width(plan.width_out), form=direct_form(plan), h_words=h_words(plan), **f,
+        tile_w=tile_width(plan.width_out), form=direct_form(plan), h_words=h_words(plan),
+        **pixels.kernel_fields(plan),
     )
 
 
@@ -549,7 +542,7 @@ def _params(plan: ScalePlan, batch: int, first: int, n: int, lanes: int,
     p = _BilinearParams.from_buffer_copy(_plan_params(plan))
     p.batch, p.row0, p.n_rows, p.lanes_x = batch, first, n, lanes
     if form is not None:
-        forms = ([LOOP, H_TILE] if p.h_words <= H_WORDS else [LOOP]) + [ROLL] * rolls(plan)
+        forms = _forms(plan)
         if not lanes and form not in forms:
             raise ValueError(f"plan {plan.key}: the direct path's {FORMS.get(form, form)} "
                              f"form does not fit (forms {[FORMS[k] for k in forms]})")
@@ -562,48 +555,27 @@ def _params(plan: ScalePlan, batch: int, first: int, n: int, lanes: int,
     return p
 
 
-@functools.cache
-def _entry():
-    from ._build import library
-
-    fn = library().smolscale_bilinear_scale
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.POINTER(_BilinearParams), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int,
-            form: int | None) -> torch.Tensor:
-    global launches
-    if not imgs.is_contiguous():
-        raise ValueError("the bilinear kernel takes contiguous input")
-    batch = imgs if imgs.dim() == 4 else imgs[None]
-    with pixels.ALLOC_SPAN:
-        out = torch.empty(
-            (batch.shape[0], n, plan.width_out, plan.meta_out.n_bytes),
-            dtype=torch.uint8, device=imgs.device,
-        )
-    with pixels.TABLES_SPAN, torch.cuda.device(imgs.device):
-        inv_div = pixels.inv_div_table(imgs.device)
-        tx, ty = _tables(plan, imgs.device)
-        lanes, windows = _stage_tables(plan, imgs.device)
-        if not lanes:
-            windows = _windows(plan, imgs.device)
-        params = _params(plan, batch.shape[0], first, n, lanes, form,
-                         pixels.sm_count(imgs.device))
-        pixels.TABLES_SPAN.end()
-        with pixels.LAUNCH_SPAN:
-            err = _entry()(
-                batch.data_ptr(), out.data_ptr(), inv_div.data_ptr(),
-                tx.data_ptr(), ty.data_ptr(), windows.data_ptr(),
-                ctypes.byref(params), torch.cuda.current_stream().cuda_stream,
-            )
-    if err != 0:
-        raise RuntimeError(f"bilinear kernel launch failed: CUDA error {err}")
-    launches += 1
+def _step(plan: ScalePlan, batch: torch.Tensor, outs: list, device: torch.device,
+          first: int, n: int, form: int | None):
+    tx, ty = _tables(plan, device)
+    lanes, windows = _stage_tables(plan, device)
     if not lanes:
+        windows = _windows(plan, device)
+    params = _params(plan, batch.shape[0], first, n, lanes, form, pixels.sm_count(device))
+    return (batch, outs[0], pixels.inv_div_table(device), tx, ty, windows), params
+
+
+def _plain(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int, form: int | None):
+    return filter_scale(plan, imgs, first, n, _tables(plan, imgs.device))
+
+
+def _count_form(params: _BilinearParams) -> None:
+    if not params.lanes_x:
         form_launches[params.form] += 1
-    return out if imgs.dim() == 4 else out[0]
+
+
+KERNEL = Kernel(__name__, "bilinear", "smolscale_bilinear_scale", 6, _BilinearParams,
+                plain=_plain, step=_step, applicable=applicable, launched=_count_form)
 
 
 def scale_rows_fn(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int,
@@ -614,15 +586,8 @@ def scale_rows_fn(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int,
     path in that form (one of :func:`direct_forms`) instead of the one
     :func:`direct_form` picks; the bytes are the same."""
     first, n = int(first), int(n)
-    _check(plan, imgs, first, n)
-    if imgs.device.type == "cpu":
-        out = bilinear_scale_ref(plan, imgs, first, n)
-    elif imgs.device.type == "cuda":
-        out = _launch(plan, imgs, first, n, form)
-    else:
-        raise ValueError(f"no bilinear kernel for device {imgs.device}")
-    BYTES.add(imgs, out)
-    return out
+    KERNEL.check(plan, imgs, first, n)
+    return KERNEL(plan, imgs, ((n, plan.width_out, plan.meta_out.n_bytes),), first, n, form)[0]
 
 
 def scale_fn(plan: ScalePlan, imgs: torch.Tensor, form: int | None = None) -> torch.Tensor:

@@ -34,22 +34,19 @@ kernel, or raises.  ``launches`` counts the kernel launches.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from ..formats import GammaType, StorageType
 from ..plan import ScalePlan
-from ..utils.timing import counter
 from . import pixels
+from ._kernel import Kernel
 from ._plan_cache import plan_cache
-from .bilinear import (_windows, axis_kind, axis_table, deep_v, filter_scale, row_windows,
-                       table_len, tile_width)
-from .bilinear import launch_shape as tile_launch_shape
+from .bilinear import (_windows, axis_kind, axis_table, deep_v, filter_scale, launch_shape,
+                       row_windows, table_len, tile_width)
 from .deep import masks, mode
 
 launches = 0
-BYTES = counter("bilinear128")  # bytes handed in and returned, while tracing
 
 
 def applicable(plan: ScalePlan) -> bool:
@@ -58,16 +55,6 @@ def applicable(plan: ScalePlan) -> bool:
         and plan.meta_in.n_bytes in (3, 4)
         and plan.meta_out.n_bytes in (3, 4)
     )
-
-
-def _check(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> None:
-    if not applicable(plan):
-        raise ValueError(f"plan {plan.key} is outside the 128bpp kernel's class")
-    pixels.check_input(plan, imgs)
-    if first < 0 or n < 1 or first + n > plan.height_out:
-        raise ValueError(
-            f"row range [{first}, {first + n}) outside [0, {plan.height_out})"
-        )
 
 
 def tables(plan: ScalePlan):
@@ -88,7 +75,7 @@ def bilinear128_scale_ref(plan: ScalePlan, imgs: torch.Tensor, first: int = 0,
     [first, first+n) (all by default), at the 128bpp masks (0xffffff, and
     0xffff after a box normalisation)."""
     n = plan.height_out - first if n is None else n
-    _check(plan, imgs, first, n)
+    KERNEL.check(plan, imgs, first, n)
     return filter_scale(plan, imgs, first, n, _tables(plan, imgs.device), *masks(plan))
 
 
@@ -110,30 +97,6 @@ class _Bilinear128Params(ctypes.Structure):
     ] + [("src", ctypes.c_int64 * 4)] + [
         (name, ctypes.c_int64) for name in ("form", "h_cells")
     ]
-
-
-# the kernel's blocks (kThreads in csrc/bilinear128.cu) and the blocks per
-# SM the grid aims at
-THREADS = 256
-BLOCKS_PER_SM = 16
-
-
-def launch_shape(w_out: int, n_rows: int, batch: int,
-                 sms: int = pixels.H100_SMS) -> tuple[int, int, int, int]:
-    """The kernel's grid for ``n_rows`` output rows of ``batch`` images:
-    ``(tile_w, col_tiles, grid_y, grid_z)``.  A block of THREADS threads
-    covers ``tile_w`` consecutive output columns (a power of two up to 32)
-    of ``THREADS // tile_w`` consecutive rows; block (x, y, z) takes column
-    tile x, row groups y, y + grid_y, ... of images z, z + grid_z, ....
-    ``grid_y`` is cut so that the grid holds about BLOCKS_PER_SM blocks per
-    SM, each then covering several row groups with one copy of the LUTs;
-    ``grid_y`` and ``grid_z`` stay below 2^16."""
-    tile_w = min(32, 1 << (w_out - 1).bit_length())
-    col_tiles = -(-w_out // tile_w)
-    row_groups = -(-n_rows // (THREADS // tile_w))
-    grid_z = min(batch, 65535)
-    grid_y = max(1, min(row_groups, BLOCKS_PER_SM * sms // (col_tiles * grid_z)))
-    return tile_w, col_tiles, grid_y, grid_z
 
 
 # the forms (enum Form in csrc/bilinear128.cu); H_TILE keeps at most
@@ -182,8 +145,6 @@ def form(plan: ScalePlan) -> int:
 def _plan_params(plan: ScalePlan) -> _Bilinear128Params:
     """The parameters that follow from the plan alone (its routed form and
     h tile among them); :func:`_params` copies them per call."""
-    f = pixels.kernel_fields(plan)
-    f["src"] = (ctypes.c_int64 * 4)(*f["src"])
     return _Bilinear128Params(
         h_in=plan.height_in, w_in=plan.width_in, h_out=plan.height_out, w_out=plan.width_out,
         kind_x=axis_kind(plan.x), kind_y=axis_kind(plan.y),
@@ -191,7 +152,7 @@ def _plan_params(plan: ScalePlan) -> _Bilinear128Params:
         len_x=table_len(plan.x), len_y=table_len(plan.y),
         span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul),
         mode=mode(plan), pack24_direct=int(plan.pack24_linear_direct), form=form(plan),
-        h_cells=h_cells(plan) if rgb24(plan) else 0, **f,
+        h_cells=h_cells(plan) if rgb24(plan) else 0, **pixels.kernel_fields(plan),
     )
 
 
@@ -199,7 +160,9 @@ def _params(plan: ScalePlan, batch: int, first: int, n: int, sms: int = pixels.H
             form: int | None = None) -> _Bilinear128Params:
     """The kernel's parameters for output rows [first, first + n) of
     ``batch`` images; ``form`` is :func:`form`'s by default, else one of
-    :func:`forms` (raises for one that does not fit)."""
+    :func:`forms` (raises for one that does not fit).  Both take
+    ``bilinear.launch_shape``'s grid: LOOP's row groups start at ``first``,
+    H_TILE's at output row 0, as ``bilinear.row_windows`` counts them."""
     p = _Bilinear128Params.from_buffer_copy(_plan_params(plan))
     p.batch, p.row0, p.n_rows = batch, first, n
     if form is not None:
@@ -207,50 +170,26 @@ def _params(plan: ScalePlan, batch: int, first: int, n: int, sms: int = pixels.H
             raise ValueError(f"plan {plan.key}: the 128bpp kernel's {FORMS.get(form, form)} "
                              f"form does not fit (forms {[FORMS[k] for k in _forms(plan)]})")
         p.form = form
-    shape = launch_shape if p.form == LOOP else tile_launch_shape
-    args = (n,) if p.form == LOOP else (first, n)
-    p.tile_w, _, p.grid_y, p.grid_z = shape(plan.width_out, *args, batch, sms)
+    p.tile_w, _, p.grid_y, p.grid_z = launch_shape(
+        plan.width_out, 0 if p.form == LOOP else first, n, batch, sms)
     return p
 
 
-@functools.cache
-def _entry():
-    from ._build import library
+def _step(plan: ScalePlan, batch: torch.Tensor, outs: list, device: torch.device,
+          first: int, n: int, form: int | None):
+    tx, ty = _tables(plan, device)
+    params = _params(plan, batch.shape[0], first, n, pixels.sm_count(device), form)
+    windows = None if params.form == LOOP else _windows(plan, device)
+    fold = pixels.unpack24_lut(device, plan.gamma == GammaType.SRGB_LINEAR)
+    return (batch, outs[0], pixels.lut_table(device), fold, tx, ty, windows), params
 
-    fn = library().smolscale_bilinear128_scale
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.POINTER(_Bilinear128Params), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+
+def _plain(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int, form: int | None):
+    return filter_scale(plan, imgs, first, n, _tables(plan, imgs.device), *masks(plan))
 
 
-def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int,
-            form: int | None) -> torch.Tensor:
-    global launches
-    if not imgs.is_contiguous():
-        raise ValueError("the 128bpp kernel takes contiguous input")
-    batch = imgs if imgs.dim() == 4 else imgs[None]
-    with pixels.ALLOC_SPAN:
-        out = torch.empty(
-            (batch.shape[0], n, plan.width_out, plan.meta_out.n_bytes),
-            dtype=torch.uint8, device=imgs.device,
-        )
-    with pixels.TABLES_SPAN, torch.cuda.device(imgs.device):
-        lut = pixels.lut_table(imgs.device)
-        fold = pixels.unpack24_lut(imgs.device, plan.gamma == GammaType.SRGB_LINEAR)
-        tx, ty = _tables(plan, imgs.device)
-        params = _params(plan, batch.shape[0], first, n, pixels.sm_count(imgs.device), form)
-        windows = None if params.form == LOOP else _windows(plan, imgs.device).data_ptr()
-        pixels.TABLES_SPAN.end()
-        with pixels.LAUNCH_SPAN:
-            err = _entry()(
-                batch.data_ptr(), out.data_ptr(), lut.data_ptr(), fold.data_ptr(),
-                tx.data_ptr(), ty.data_ptr(), windows,
-                ctypes.byref(params), torch.cuda.current_stream().cuda_stream,
-            )
-    if err != 0:
-        raise RuntimeError(f"128bpp kernel launch failed: CUDA error {err}")
-    launches += 1
-    return out if imgs.dim() == 4 else out[0]
+KERNEL = Kernel(__name__, "128bpp", "smolscale_bilinear128_scale", 7, _Bilinear128Params,
+                plain=_plain, step=_step, applicable=applicable)
 
 
 def scale_rows_fn(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int,
@@ -261,15 +200,8 @@ def scale_rows_fn(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int,
     in that form (one of :func:`forms`) instead of the one :func:`form`
     picks; the bytes are the same."""
     first, n = int(first), int(n)
-    _check(plan, imgs, first, n)
-    if imgs.device.type == "cpu":
-        out = bilinear128_scale_ref(plan, imgs, first, n)
-    elif imgs.device.type == "cuda":
-        out = _launch(plan, imgs, first, n, form)
-    else:
-        raise ValueError(f"no 128bpp kernel for device {imgs.device}")
-    BYTES.add(imgs, out)
-    return out
+    KERNEL.check(plan, imgs, first, n)
+    return KERNEL(plan, imgs, ((n, plan.width_out, plan.meta_out.n_bytes),), first, n, form)[0]
 
 
 def scale_fn(plan: ScalePlan, imgs: torch.Tensor, form: int | None = None) -> torch.Tensor:

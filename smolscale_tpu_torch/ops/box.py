@@ -18,17 +18,16 @@ launches the kernel, or raises.  ``launches`` counts the kernel launches.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from ..formats import AlphaType, GammaType, StorageType
 from ..plan import AxisPlan, FilterType, ScalePlan
-from ..utils.timing import counter
 from . import pixels
+from ._kernel import Kernel
+from .pixels import GRID_LIMIT, MAX_WARPS, WAVE_WARPS, pow2_ceil
 
 launches = 0
-BYTES = counter("box")  # bytes handed in and returned, while tracing
 
 
 def uniform_box(ax: AxisPlan) -> bool:
@@ -69,12 +68,6 @@ def _span(ax: AxisPlan) -> tuple[int, bool]:
     return r, int(ax.strides[-1]) == r - 2
 
 
-def _check(plan: ScalePlan, imgs: torch.Tensor) -> None:
-    if not applicable(plan):
-        raise ValueError(f"plan {plan.key} is outside the box kernel's class")
-    pixels.check_input(plan, imgs)
-
-
 # ----------------------------------------------------------------------------
 # Plain PyTorch version
 # ----------------------------------------------------------------------------
@@ -111,7 +104,7 @@ def _ref_one(plan: ScalePlan, img: torch.Tensor) -> torch.Tensor:
 def box_scale_ref(plan: ScalePlan, imgs: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device: int64 channels,
     one image at a time to bound memory at the headline size."""
-    _check(plan, imgs)
+    KERNEL.check(plan, imgs)
     batch = imgs if imgs.dim() == 4 else imgs[None]
     out = torch.empty(
         (batch.shape[0], plan.height_out, plan.width_out, plan.meta_out.n_bytes),
@@ -148,17 +141,10 @@ FORMS = {DIRECT: "direct", COPY: "copy", STAGED: "staged"}
 # a warp's input stretch per row in the staged form, at most (kSlotBytes in
 # csrc/box.cu holds it with its skew)
 STAGE_BYTES = 2048
-MAX_WARPS = 8          # warps per block (kMaxWarps)
-GRID_LIMIT = 65535     # grid y and z
-WAVE_WARPS = 128       # warps per SM the grid aims at: two waves of 64
 
 
 def _pow2_floor(n: int) -> int:
     return 1 << (n.bit_length() - 1)
-
-
-def _pow2_ceil(n: int) -> int:
-    return 1 << (n - 1).bit_length()
 
 
 def form(plan: ScalePlan, address: int = 0) -> int:
@@ -200,13 +186,13 @@ def launch_shape(plan: ScalePlan, batch: int, kind: int,
     elif kind == DIRECT:
         cw = 32 // min(32, _pow2_floor(rx * nb // 16))
     else:
-        cw = min(32, _pow2_floor(max(1, STAGE_BYTES // (rx * nb))), _pow2_ceil(w_out))
+        cw = min(32, _pow2_floor(max(1, STAGE_BYTES // (rx * nb))), pow2_ceil(w_out))
     col_warps = -(-w_out // cw)
     splits = 1
     while (splits < MAX_WARPS and ry >= 8 * splits
            and col_warps * h_out * batch * splits < WAVE_WARPS * sms):
         splits *= 2
-    wc = min(MAX_WARPS // splits, _pow2_ceil(col_warps))
+    wc = min(MAX_WARPS // splits, pow2_ceil(col_warps))
     return dict(
         form=kind, cw=cw, wc=wc, splits=splits, rows_per_split=-(-ry // splits),
         grid_x=-(-w_out // (wc * cw)), grid_y=min(h_out, GRID_LIMIT),
@@ -218,63 +204,29 @@ def _params(plan: ScalePlan, batch: int, address: int = 0,
             sms: int = pixels.H100_SMS) -> _BoxParams:
     rx, drop_x = _span(plan.x)
     ry, drop_y = _span(plan.y)
-    f = pixels.kernel_fields(plan)
-    f["src"] = (ctypes.c_int64 * 4)(*f["src"])
     return _BoxParams(
         batch=batch, h_in=plan.height_in, w_in=plan.width_in,
         h_out=plan.height_out, w_out=plan.width_out, rx=rx, ry=ry,
         box_x=int(plan.x.filter == FilterType.BOX),
         box_y=int(plan.y.filter == FilterType.BOX),
         drop_x=int(drop_x), drop_y=int(drop_y),
-        span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul), **f,
+        span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul),
+        **pixels.kernel_fields(plan),
         **launch_shape(plan, batch, form(plan, address), sms),
     )
 
 
-@functools.cache
-def _entry():
-    from ._build import library
-
-    fn = library().smolscale_box_scale
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.POINTER(_BoxParams), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _step(plan: ScalePlan, batch: torch.Tensor, outs: list, device: torch.device):
+    params = _params(plan, batch.shape[0], batch.data_ptr(), pixels.sm_count(device))
+    return (batch, outs[0], pixels.inv_div_table(device)), params
 
 
-def _launch(plan: ScalePlan, imgs: torch.Tensor) -> torch.Tensor:
-    global launches
-    if not imgs.is_contiguous():
-        raise ValueError("the box kernel takes contiguous input")
-    batch = imgs if imgs.dim() == 4 else imgs[None]
-    with pixels.ALLOC_SPAN:
-        out = torch.empty(
-            (batch.shape[0], plan.height_out, plan.width_out, plan.meta_out.n_bytes),
-            dtype=torch.uint8, device=imgs.device,
-        )
-    with pixels.TABLES_SPAN, torch.cuda.device(imgs.device):
-        inv_div = pixels.inv_div_table(imgs.device)
-        params = _params(plan, batch.shape[0], batch.data_ptr(), pixels.sm_count(imgs.device))
-        pixels.TABLES_SPAN.end()
-        with pixels.LAUNCH_SPAN:
-            err = _entry()(
-                batch.data_ptr(), out.data_ptr(), inv_div.data_ptr(),
-                ctypes.byref(params), torch.cuda.current_stream().cuda_stream,
-            )
-    if err != 0:
-        raise RuntimeError(f"box kernel launch failed: CUDA error {err}")
-    launches += 1
-    return out if imgs.dim() == 4 else out[0]
+KERNEL = Kernel(__name__, "box", "smolscale_box_scale", 3, _BoxParams,
+                plain=box_scale_ref, step=_step, applicable=applicable)
 
 
 def scale_fn(plan: ScalePlan, imgs: torch.Tensor) -> torch.Tensor:
     """(B, H, W, nb_in) or (H, W, nb_in) uint8 -> (B, h, w, nb_out) or
     (h, w, nb_out) uint8, on the device where ``imgs`` lies."""
-    _check(plan, imgs)
-    if imgs.device.type == "cpu":
-        out = box_scale_ref(plan, imgs)
-    elif imgs.device.type == "cuda":
-        out = _launch(plan, imgs)
-    else:
-        raise ValueError(f"no box kernel for device {imgs.device}")
-    BYTES.add(imgs, out)
-    return out
+    KERNEL.check(plan, imgs)
+    return KERNEL(plan, imgs, ((plan.height_out, plan.width_out, plan.meta_out.n_bytes),))[0]

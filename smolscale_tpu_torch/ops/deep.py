@@ -25,20 +25,19 @@ raises.  ``launches`` counts the kernel launches.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from ..formats import AlphaType, GammaType, StorageType
 from ..plan import FilterType, ScalePlan
-from ..utils.timing import counter
 from . import pixels
+from ._kernel import Kernel
 from ._plan_cache import plan_cache
 from .bilinear import axis_table, filter_scale
+from .pixels import GRID_LIMIT, MAX_WARPS, WAVE_WARPS, pow2_ceil
 
 launches = 0
-BYTES = counter("deep")  # bytes handed in and returned, while tracing
 
 # (internal alpha, gamma) modes, as enum Mode in csrc/deep.cu
 P8_COMPRESSED, P8_LINEAR, P16_COMPRESSED, P16_LINEAR = range(4)
@@ -66,16 +65,6 @@ def masks(plan: ScalePlan) -> tuple[int, int]:
     return plan.working_mask, 0xFF if plan.storage == StorageType.S64 else 0xFFFF
 
 
-def _check(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> None:
-    if not applicable(plan):
-        raise ValueError(f"plan {plan.key} is outside the deep box kernel's class")
-    pixels.check_input(plan, imgs)
-    if first < 0 or n < 1 or first + n > plan.height_out:
-        raise ValueError(
-            f"row range [{first}, {first + n}) outside [0, {plan.height_out})"
-        )
-
-
 def tables(plan: ScalePlan) -> tuple[np.ndarray, np.ndarray]:
     """The int32 tables the kernel reads: per axis six rows of ``dim_out``
     (first index, first weight, mid start, mid length, last index, last
@@ -98,7 +87,7 @@ def deep_scale_ref(plan: ScalePlan, imgs: torch.Tensor, first: int = 0,
     """Plain PyTorch version of the kernel, on any device: output rows
     [first, first+n) (all by default)."""
     n = plan.height_out - first if n is None else n
-    _check(plan, imgs, first, n)
+    KERNEL.check(plan, imgs, first, n)
     return filter_scale(plan, imgs, first, n, _tables(plan, imgs.device), *masks(plan))
 
 
@@ -127,13 +116,6 @@ class _DeepParams(ctypes.Structure):
 PACKED, SHIFTED, RGB = 0, 1, 2
 FORMS = {PACKED: "packed", SHIFTED: "shifted", RGB: "rgb"}
 MAX_UNITS = 4          # 16-byte words per lane per span row and chunk (template W)
-MAX_WARPS = 8          # warps per block (kMaxWarps)
-GRID_LIMIT = 65535     # grid y and z
-WAVE_WARPS = 128       # warps per SM the grid aims at: two waves of 64
-
-
-def _pow2_ceil(n: int) -> int:
-    return 1 << (n - 1).bit_length()
 
 
 def form(plan: ScalePlan, address: int = 0) -> int:
@@ -190,7 +172,7 @@ def launch_shape(plan: ScalePlan, batch: int, n_rows: int | None = None, address
     card."""
     n_rows = plan.height_out if n_rows is None else n_rows
     q = span_words(plan, row_skews(plan, address))
-    lanes = min(32, max(4, _pow2_ceil(-(-q // MAX_UNITS))))
+    lanes = min(32, max(4, pow2_ceil(-(-q // MAX_UNITS))))
     per_lane = -(-q // lanes)
     units = min(per_lane, MAX_UNITS)
     cw = 32 // lanes
@@ -202,7 +184,7 @@ def launch_shape(plan: ScalePlan, batch: int, n_rows: int | None = None, address
     splits = 1
     while splits < MAX_WARPS and rows >= 8 * splits and warps * splits < target:
         splits *= 2
-    wc = min(MAX_WARPS // splits, _pow2_ceil(col_warps))
+    wc = min(MAX_WARPS // splits, pow2_ceil(col_warps))
     return dict(
         units=units, lanes=lanes, cw=cw, chunks=chunks, wc=wc, splits=splits,
         rows_per_split=-(-rows // splits), grid_x=-(-plan.width_out // (wc * cw)),
@@ -212,54 +194,26 @@ def launch_shape(plan: ScalePlan, batch: int, n_rows: int | None = None, address
 
 def _params(plan: ScalePlan, batch: int, first: int, n: int, address: int = 0,
             sms: int = pixels.H100_SMS) -> _DeepParams:
-    f = pixels.kernel_fields(plan)
-    f["src"] = (ctypes.c_int64 * 4)(*f["src"])
     mask, out_mask = masks(plan)
     return _DeepParams(
         batch=batch, h_in=plan.height_in, w_in=plan.width_in,
         h_out=plan.height_out, w_out=plan.width_out, row0=first, n_rows=n,
         span_mul_x=int(plan.x.span_mul), span_mul_y=int(plan.y.span_mul),
         work_mask=mask, out_mask=out_mask, mode=mode(plan),
-        pack24_direct=int(plan.pack24_linear_direct), **f,
+        pack24_direct=int(plan.pack24_linear_direct), **pixels.kernel_fields(plan),
         form=form(plan, address), **launch_shape(plan, batch, n, address, sms),
     )
 
 
-@functools.cache
-def _entry():
-    from ._build import library
-
-    fn = library().smolscale_deep_scale
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.POINTER(_DeepParams), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _step(plan: ScalePlan, batch: torch.Tensor, outs: list, device: torch.device,
+          first: int, n: int):
+    tx, ty = _tables(plan, device)
+    params = _params(plan, batch.shape[0], first, n, batch.data_ptr(), pixels.sm_count(device))
+    return (batch, outs[0], pixels.lut_table(device), tx, ty), params
 
 
-def _launch(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> torch.Tensor:
-    global launches
-    if not imgs.is_contiguous():
-        raise ValueError("the deep box kernel takes contiguous input")
-    batch = imgs if imgs.dim() == 4 else imgs[None]
-    with pixels.ALLOC_SPAN:
-        out = torch.empty(
-            (batch.shape[0], n, plan.width_out, plan.meta_out.n_bytes),
-            dtype=torch.uint8, device=imgs.device,
-        )
-    with pixels.TABLES_SPAN, torch.cuda.device(imgs.device):
-        lut = pixels.lut_table(imgs.device)
-        tx, ty = _tables(plan, imgs.device)
-        params = _params(plan, batch.shape[0], first, n, batch.data_ptr(),
-                         pixels.sm_count(imgs.device))
-        pixels.TABLES_SPAN.end()
-        with pixels.LAUNCH_SPAN:
-            err = _entry()(
-                batch.data_ptr(), out.data_ptr(), lut.data_ptr(), tx.data_ptr(), ty.data_ptr(),
-                ctypes.byref(params), torch.cuda.current_stream().cuda_stream,
-            )
-    if err != 0:
-        raise RuntimeError(f"deep box kernel launch failed: CUDA error {err}")
-    launches += 1
-    return out if imgs.dim() == 4 else out[0]
+KERNEL = Kernel(__name__, "deep box", "smolscale_deep_scale", 5, _DeepParams,
+                plain=deep_scale_ref, step=_step, applicable=applicable)
 
 
 def scale_rows_fn(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> torch.Tensor:
@@ -268,15 +222,8 @@ def scale_rows_fn(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int) -> to
     ``imgs`` lies.  Only those rows are computed, from the input rows their
     spans cover."""
     first, n = int(first), int(n)
-    _check(plan, imgs, first, n)
-    if imgs.device.type == "cpu":
-        out = deep_scale_ref(plan, imgs, first, n)
-    elif imgs.device.type == "cuda":
-        out = _launch(plan, imgs, first, n)
-    else:
-        raise ValueError(f"no deep box kernel for device {imgs.device}")
-    BYTES.add(imgs, out)
-    return out
+    KERNEL.check(plan, imgs, first, n)
+    return KERNEL(plan, imgs, ((n, plan.width_out, plan.meta_out.n_bytes),), first, n)[0]
 
 
 def scale_fn(plan: ScalePlan, imgs: torch.Tensor) -> torch.Tensor:

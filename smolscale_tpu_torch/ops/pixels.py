@@ -1,6 +1,7 @@
 """Pixel unpack and pack for every (internal alpha, gamma) pair, shared by the
 kernels' wrappers and plain versions (``ops.box``, ``ops.bilinear``,
-``ops.deep``).
+``ops.deep``), with the device tables and the launch-shape limits the
+wrappers share.
 
 The work channels are the input bytes in order; 24bpp input gets a constant
 alpha of 255 as channel 3 (the reference unpacks 24bpp with alpha 0xff and
@@ -21,6 +22,7 @@ _p16l) and to_srgb, keeping the 24bpp asymmetry that
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -29,13 +31,6 @@ import torch
 from .. import luts
 from ..formats import AlphaType, GammaType
 from ..plan import ScalePlan
-from ..utils.timing import span
-
-# the host spans of each kernel wrapper's _launch: the outputs' allocation;
-# the device's entry, the per-plan tables and the parameter block; the launch
-ALLOC_SPAN = span("smolscale.alloc")
-TABLES_SPAN = span("smolscale.tables")
-LAUNCH_SPAN = span("smolscale.launch")
 
 # the tables of lut_table, in order; csrc/deep.cu reads them at these offsets
 LUT_NAMES = ("FROM_SRGB", "TO_SRGB", "INV_DIV_P8", "INV_DIV_P8L", "INV_DIV_P16",
@@ -57,8 +52,9 @@ def out_sources(plan: ScalePlan) -> list[int]:
 
 
 def kernel_fields(plan: ScalePlan) -> dict:
-    """The pixel-format fields of the kernels' parameter blocks."""
-    src = out_sources(plan) + [0] * (4 - plan.meta_out.n_bytes)
+    """The pixel-format fields of the kernels' parameter blocks (``src`` as
+    their ``int64[4]``)."""
+    src = (ctypes.c_int64 * 4)(*out_sources(plan))
     return dict(
         nb_in=plan.meta_in.n_bytes, nb_out=plan.meta_out.n_bytes,
         alpha_ch=alpha_channel(plan),
@@ -162,6 +158,17 @@ def inv_div_table(device: torch.device) -> torch.Tensor:
 # the SMs of an H100 SXM, which the kernels' launch shapes assume when no
 # card is asked (the wrappers read the card's own with sm_count)
 H100_SMS = 132
+# grid y and z stay at most GRID_LIMIT; box.cu and deep.cu hold at most
+# MAX_WARPS warps a block (kMaxWarps there) and aim their grids at WAVE_WARPS
+# warps per SM, two waves of 64
+GRID_LIMIT = 65535
+MAX_WARPS = 8
+WAVE_WARPS = 128
+
+
+def pow2_ceil(n: int) -> int:
+    """The least power of two at least ``n`` (>= 1)."""
+    return 1 << (n - 1).bit_length()
 
 
 @functools.cache

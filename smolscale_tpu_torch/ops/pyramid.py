@@ -38,19 +38,17 @@ or raises.  ``launches`` counts the kernel launches.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from ..formats import AlphaType, GammaType, StorageType
 from ..plan import ScalePlan
-from ..utils.timing import counter
 from . import bilinear, pixels
+from ._kernel import Kernel
 from ._plan_cache import plan_cache
 
 launches = 0
-BYTES = counter("pyramid")  # bytes handed in and returned, while tracing
 
 # the kernel is instantiated for 0-2 halvings per axis: the planner takes a
 # box past 8:1, so a bilinear axis has at most 2 (plan.pick_filter_params)
@@ -161,41 +159,12 @@ def _params(plans: tuple, batch: int, outs: list[torch.Tensor]) -> _PyramidParam
     )
 
 
-@functools.cache
-def _entry():
-    from ._build import library
-
-    fn = library().smolscale_pyramid_scale
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_PyramidParams),
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _step(plans: tuple, batch: torch.Tensor, outs: list, device: torch.device):
+    return (batch, pixels.inv_div_table(device)), _params(plans, batch.shape[0], outs)
 
 
-def _launch(plans: tuple, imgs: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    global launches
-    if not imgs.is_contiguous():
-        raise ValueError("the pyramid kernel takes contiguous input")
-    batch = imgs if imgs.dim() == 4 else imgs[None]
-    with pixels.ALLOC_SPAN:
-        outs = [
-            torch.empty((batch.shape[0], p.height_out, p.width_out, p.meta_out.n_bytes),
-                        dtype=torch.uint8, device=imgs.device)
-            for p in plans
-        ]
-    with pixels.TABLES_SPAN, torch.cuda.device(imgs.device):
-        inv_div = pixels.inv_div_table(imgs.device)
-        params = _params(plans, batch.shape[0], outs)
-        pixels.TABLES_SPAN.end()
-        with pixels.LAUNCH_SPAN:
-            err = _entry()(
-                batch.data_ptr(), inv_div.data_ptr(), ctypes.byref(params),
-                torch.cuda.current_stream().cuda_stream,
-            )
-    if err != 0:
-        raise RuntimeError(f"pyramid kernel launch failed: CUDA error {err}")
-    launches += 1
-    return tuple(outs) if imgs.dim() == 4 else tuple(o[0] for o in outs)
+KERNEL = Kernel(__name__, "pyramid", "smolscale_pyramid_scale", 2, _PyramidParams,
+                plain=pyramid_scale_ref, step=_step)
 
 
 def pyramid_fn(plans, imgs: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -203,11 +172,5 @@ def pyramid_fn(plans, imgs: torch.Tensor) -> tuple[torch.Tensor, ...]:
     uint8 tensor per plan, on the device where ``imgs`` lies."""
     plans = tuple(plans)
     _check(plans, imgs)
-    if imgs.device.type == "cpu":
-        outs = pyramid_scale_ref(plans, imgs)
-    elif imgs.device.type == "cuda":
-        outs = _launch(plans, imgs)
-    else:
-        raise ValueError(f"no pyramid kernel for device {imgs.device}")
-    BYTES.add(imgs, *outs)
-    return outs
+    return tuple(KERNEL(plans, imgs,
+                        [(p.height_out, p.width_out, p.meta_out.n_bytes) for p in plans]))

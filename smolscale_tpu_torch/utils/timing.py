@@ -16,8 +16,8 @@ profiler call, no clock, no per-thread state, no allocation.
 The spans: ``smolscale.scale``, ``smolscale.scale_rows`` and
 ``smolscale.pyramid`` (a function of ``make_pyramid_fn``) around each
 public call, the outermost; inside them ``smolscale.dispatch`` (the choice
-of a kernel in ``backends/torch_ops``) and, in each kernel wrapper's
-``_launch``, ``smolscale.alloc`` (the outputs), ``smolscale.tables`` (the
+of a kernel in ``backends/torch_ops``) and, in the kernel wrappers' launch
+frame (``ops/_kernel.py``), ``smolscale.alloc`` (the outputs), ``smolscale.tables`` (the
 device's entry, the per-plan tables, the parameter block) and
 ``smolscale.launch`` (the kernel's launch).  ``scale_pyramid_mixed`` adds
 ``smolscale.farm.group`` (grouping the fleet into sub-batches),
@@ -26,7 +26,7 @@ device's entry, the per-plan tables, the parameter block) and
 
 :func:`counter` counts work at a layer boundary on the same terms: on only
 while a profiler collects, its per-name totals read by
-:func:`counter_totals`.  Each kernel wrapper (``ops/*.py``) counts, under
+:func:`counter_totals`.  Each kernel wrapper's frame (``ops/_kernel.py``) counts, under
 its module's name (``bilinear``, ``bilinear128``, ``box``, ``deep``,
 ``pyramid``), the bytes of the images it is handed and of those it returns,
 from their shapes, on every call, the plain versions' on the CPU included.

@@ -475,16 +475,16 @@ def test_kernel_params_follow_plan():
 def _visits(w_out, n_rows, batch, sms, turn):
     """How often the kernel's loops (csrc/bilinear128.cu
     ``bilinear128_kernel``) visit each output pixel (image, row, column)
-    for the grid ``launch_shape`` gives, with ``turn`` row groups per turn
-    (2 for COPY x COPY)."""
-    tile_w, col_tiles, grid_y, grid_z = bilinear128.launch_shape(w_out, n_rows, batch, sms)
-    tile_h = bilinear128.THREADS // tile_w
+    for the grid ``bilinear.launch_shape`` gives LOOP (from row 0), with
+    ``turn`` row groups per turn (2 for COPY x COPY)."""
+    tile_w, col_tiles, grid_y, grid_z = bilinear.launch_shape(w_out, 0, n_rows, batch, sms)
+    tile_h = bilinear.THREADS // tile_w
     step = grid_y * tile_h
     seen = np.zeros((batch, n_rows, w_out), dtype=np.int64)
     for z in range(grid_z):
         images = np.arange(z, batch, grid_z)
         for x in range(col_tiles):
-            for t in range(bilinear128.THREADS):
+            for t in range(bilinear.THREADS):
                 j = x * tile_w + t % tile_w
                 if j >= w_out:
                     continue
@@ -508,7 +508,7 @@ def test_launch_shape_covers_every_pixel_once(w_out, n_rows, batch, sms, turn):
     assert (seen == 1).all()
     assert tile_w & (tile_w - 1) == 0 and tile_w <= 32 and (tile_w >= w_out or tile_w == 32)
     assert 1 <= grid_y <= 65535 and 1 <= grid_z <= 65535
-    assert col_tiles * grid_y * grid_z <= max(bilinear128.BLOCKS_PER_SM * sms,
+    assert col_tiles * grid_y * grid_z <= max(bilinear.BLOCKS_PER_SM * sms,
                                               col_tiles * grid_z)
 
 
@@ -518,7 +518,7 @@ def test_launch_shape_limits():
     card's checks (3 x 30,000 rows) plans like any other."""
     for w_out, n_rows, batch in [(1, 65535, 1), (8, 30000, 3), (65535, 65535, 1),
                                  (1, 1, 200_000), (7, 1, 70_000)]:
-        tile_w, col_tiles, grid_y, grid_z = bilinear128.launch_shape(w_out, n_rows, batch)
+        tile_w, col_tiles, grid_y, grid_z = bilinear.launch_shape(w_out, 0, n_rows, batch)
         assert grid_y <= 65535 and grid_z == min(batch, 65535)
         assert col_tiles * tile_w >= w_out and col_tiles < 2**31
 
@@ -692,7 +692,7 @@ def test_h_cells_cover_every_window(key):
     plan = ScalePlan(*key)
     assert bilinear128.rgb24(plan)
     tile_w = bilinear.tile_width(plan.width_out)
-    tile_h = bilinear128.THREADS // tile_w
+    tile_h = bilinear.THREADS // tile_w
     win = bilinear.row_windows(plan)
     assert (0 <= win[0]).all() and (win[0] < win[1]).all() and (win[1] <= plan.height_in).all()
     tab = bilinear128.tables(plan)[1]
@@ -714,7 +714,7 @@ def _tile_visits(plan, first, n, batch, sms):
     ``bilinear.launch_shape`` gives."""
     tile_w, col_tiles, grid_y, grid_z = bilinear.launch_shape(plan.width_out, first, n, batch,
                                                               sms)
-    tile_h = bilinear128.THREADS // tile_w
+    tile_h = bilinear.THREADS // tile_w
     win = bilinear.row_windows(plan)
     tab = bilinear128.tables(plan)[1]
     seen = np.zeros((batch, n, plan.width_out), dtype=np.int64)

@@ -238,7 +238,7 @@ def test_launch_shape_covers_every_pixel_once(case):
     cw, wc, splits, rps = sh["cw"], sh["wc"], sh["splits"], sh["rows_per_split"]
     # grid and block limits
     assert sh["grid_y"] < 2**16 and sh["grid_z"] < 2**16 and sh["grid_x"] < 2**31
-    assert wc * splits <= box.MAX_WARPS and splits <= ry
+    assert wc * splits <= pixels.MAX_WARPS and splits <= ry
     # the forms: 16-byte words straight from device memory only where a
     # lane's words hold whole spans (direct) or four whole columns (COPY) of
     # 16-byte aligned rows
@@ -312,7 +312,7 @@ def test_launch_shape_of_the_rows(key, batch, want):
     sh = box.launch_shape(plan, batch, box.form(plan))
     assert (sh["form"], sh["cw"], sh["wc"], sh["splits"]) == want
     warps = sh["grid_x"] * sh["wc"] * sh["splits"] * plan.height_out * batch
-    assert warps >= min(box.WAVE_WARPS * pixels.H100_SMS,
+    assert warps >= min(pixels.WAVE_WARPS * pixels.H100_SMS,
                         -(-plan.width_out // sh["cw"]) * plan.height_out * batch * 8)
 
 

@@ -556,7 +556,7 @@ def test_launch_shape_covers_every_pixel_once(case):
     lanes, units, cw, chunks = sh["lanes"], sh["units"], sh["cw"], sh["chunks"]
     wc, splits, rps = sh["wc"], sh["splits"], sh["rows_per_split"]
     assert sh["grid_y"] < 2**16 and sh["grid_z"] < 2**16 and sh["grid_x"] < 2**31
-    assert wc * splits <= deep.MAX_WARPS and lanes * cw == 32 and 4 <= lanes <= 32
+    assert wc * splits <= pixels.MAX_WARPS and lanes * cw == 32 and 4 <= lanes <= 32
     assert 1 <= units <= deep.MAX_UNITS
     kind = deep.form(plan, address)
     assert (kind == deep.RGB) == (nb == 3)
