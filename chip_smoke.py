@@ -18,11 +18,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ROLL; KY 4 for H TILE, which reads the V kind at run time), the 128bpp
    kernel
    (``bilinear128_kernel<KX, KY, MODE, PX, FORM>``: PX 0 word, 1 bytes, 2
-   3-byte through the folded table; FORM 0 LOOP, 1 H TILE, KY 4 for H
-   TILE) and the deep box kernel
+   3-byte through the folded table; FORM 0 LOOP, 1 H TILE, 2 ROLL; KY 4 for
+   H TILE; KX 5 for ROLL's 1-2 halving X ladders) and the deep box kernel
    (``deep_kernel<MODE, FORM, W>``) its registers, stack frame, spills and
    shared memory per block; it raises if a deep box or general kernel
-   instance has a stack frame or spills.
+   instance, or a ROLL instance of the 128bpp kernel, has a stack frame or
+   spills.
 3. Kernels against their plain versions, on the card for a batch of 2: the
    box kernel on each plan of ``CHECK_PLANS`` (plain version
    ``ops.box.box_scale_ref``; its tile edges, 255:1 axes and deep ratios
@@ -71,8 +72,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (general kernel); then on rows 7b, 9, 9b, 9c and 9d, and
    ``scale_streamed`` on row 9 in 4 chunks (deep box kernel); then on rows
    6, 6b and 7 and the 3-byte video rows 6b-4k (3840x2160 -> 1920x1080)
-   and 6b-up (1280x720 -> 1920x1080), and ``scale_streamed`` on row 7 in 4
-   chunks (128bpp kernel); then the rows of ``A1_ROWS``, the classes that
+   and 6b-up (1280x720 -> 1920x1080), ROLL's conv u-u and u-7 (64 frames
+   3840x2160 -> 3839x2159 between unassociated types) and 5b 256 u (192
+   unassociated 512^2 images -> 256^2), and ``scale_streamed`` on row 7 in
+   4 chunks (128bpp kernel); then the rows of ``A1_ROWS``, the classes that
    every plan reaching a kernel added: ``scale`` on a1-p16-copy and a1-srgb-field
    (128bpp kernel, COPY axes) and on a1-strip (general kernel, a 128:1 box
    beside a bilinear axis), ``scale_streamed`` on a1-strip-rows in 4
@@ -82,7 +85,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    exactly one pyramid launch, no general-kernel launch) and
    ``scale_pyramid_mixed`` on row 5b (the suite's 10,000-image fleet, 192 MiB
    sub-batches: one pyramid launch per sub-batch of the three fused groups,
-   one level-kernel launch per level of the other two).  Every image's
+   one level-kernel launch per level of the other two; the general and
+   128bpp kernels' launches by form are printed).  Every image's
    bytes must equal the plain version (row 5b: one probe image per group).
 5. Times: kernel and plain version by CUDA events, in turns plain, five
    kernel turns, plain, with the kernel's median and min-max (row 9 is also
@@ -583,6 +587,28 @@ WIDE_CHECK_PLANS = [
     # 4-byte pixels in and out
     (520, 300, 2, 40, 8, 9, False),
     (520, 300, 2, 40, 0, 8, False),
+    # ROLL's class (PREMUL16 at compressed gamma, a 0h bilinear V axis beside
+    # a bilinear, COPY or ONE X axis) on its edges: a downscale by a pixel
+    # (the V window steps a row per output row), a 0h upscale, fleet-5b's 2:1 level
+    # (both tap rows new each row), X COPY, ONE and 1h and 2h ladders, and
+    # output widths 1-9 and 129 (1-3 lanes, 33 quads, ragged last words)
+    (700, 300, 699, 299, 4, 6, False),
+    (300, 200, 450, 310, 5, 7, False),
+    (512, 512, 256, 256, 4, 4, False),
+    (96, 54, 96, 40, 7, 5, False),
+    (1, 300, 5, 250, 4, 4, False),
+    (800, 300, 300, 250, 6, 4, False),
+    (1200, 90, 250, 70, 5, 5, False),
+    (3, 40, 1, 60, 4, 5, False),
+    (5, 41, 2, 39, 5, 6, False),
+    (5, 42, 3, 62, 6, 7, False),
+    (6, 43, 4, 40, 7, 4, False),
+    (7, 44, 5, 64, 4, 5, False),
+    (8, 45, 6, 47, 5, 6, False),
+    (9, 46, 7, 66, 6, 7, False),
+    (10, 47, 8, 51, 7, 4, False),
+    (11, 48, 9, 68, 4, 5, False),
+    (131, 49, 129, 55, 5, 6, False),
 ]
 # checked on a constant-255 batch too: numpy_ref gives (97, 97, 97, 255),
 # on a box axis beside a bilinear one and beside a COPY one
@@ -604,14 +630,20 @@ WIDE_CHECK_ROWS = [
     ((1, 300, 5, 20, 4, 4, True), 19, 1),        # ONE x box, the last row
     ((512, 300, 7, 290, 4, 4, True), 45, 200),   # starts inside a 32-row tile
     ((1028, 200, 257, 50, 4, 4, False), 3, 13),
+    ((700, 300, 699, 299, 4, 6, False), 37, 200),   # ROLL: starts and ends inside strips
+    ((512, 512, 256, 256, 4, 4, False), 255, 1),    # ROLL: the last row
+    ((300, 200, 450, 310, 5, 7, False), 1, 308),
 ]
 # the 128bpp kernel on inputs at byte offsets 1-3, whole and by rows: a 2h
 # ladder in PREMUL16-linear, COPY x COPY at PREMUL16, a 260:1 box at
 # PREMUL8, COPY x bilinear in PREMUL8-linear; 3-byte pixels (each form): a
-# 2h ladder in linear light and a 260:1 box at PREMUL8
+# 2h ladder in linear light and a 260:1 box at PREMUL8; ROLL's class (each
+# form): a downscale by a pixel, X COPY, X a 1h ladder
 WIDE_UNALIGNED = [(512, 256, 96, 56, 4, 4, True), (96, 54, 96, 54, 4, 4, False),
                   (520, 300, 2, 40, 0, 0, False), (96, 54, 96, 27, 0, 0, True),
-                  (512, 256, 96, 56, 8, 8, True), (520, 300, 2, 40, 8, 9, False)]
+                  (512, 256, 96, 56, 8, 8, True), (520, 300, 2, 40, 8, 9, False),
+                  (700, 300, 699, 299, 4, 6, False), (96, 54, 96, 40, 7, 5, False),
+                  (800, 300, 300, 250, 6, 4, False)]
 # more than 65535 output rows in the batch: (plan, batch)
 WIDE_TALL = ((8, 30000, 8, 30000, 4, 4, False), 3)
 
@@ -657,6 +689,13 @@ WIDE_ROWS = [
     # (0h 2:1) and 720p -> 1080p upscaling (0h, tap rows shared 2.4-fold)
     ("6b-4k", (3840, 2160, 1920, 1080, 8, 8, True), 4),
     ("6b-up", (1280, 720, 1920, 1080, 8, 8, True), 8),
+    # ROLL's class: upstream's format-conversion benchmark between
+    # unassociated types (conv-2160p's PREMUL16 pairs: 64 4K frames to a
+    # pixel less), and fleet-5b's unassociated 512^2 -> 256^2 level on one of
+    # the farm's 192 MiB sub-batches
+    ("conv u-u", (3840, 2160, 3839, 2159, 4, 4, False), 64),
+    ("conv u-7", (3840, 2160, 3839, 2159, 4, 7, False), 64),
+    ("5b 256 u", (512, 512, 256, 256, 4, 4, False), 192),
 ]
 WIDE_STREAM_ROW, WIDE_STREAM_CHUNKS = "row 7", 4
 # the plans that no kernel took before every plan reached one, at full
@@ -944,9 +983,11 @@ def main(argv: list) -> int:
             log(f"[build] {r['kernel']}<{r['args']}>: {r['registers']} registers, "
                 f"{r['stack']} bytes stack frame, {r['spill_stores']} + {r['spill_loads']} bytes "
                 f"spill stores + loads, {r['smem']} bytes shared memory per block")
-    # the deep box and general kernels keep every value in registers
-    for name in ("deep_kernel", "bilinear_kernel"):
-        mine = [r for r in instances if r["kernel"] == name]
+    # the deep box and general kernels, and the 128bpp kernel's ROLL
+    # instances (FORM 2), keep every value in registers
+    for name, form in (("deep_kernel", ""), ("bilinear_kernel", ""),
+                       ("bilinear128_kernel", ", 2")):
+        mine = [r for r in instances if r["kernel"] == name and r["args"].endswith(form)]
         spilled = [r["args"] for r in mine if r["stack"] or r["spill_stores"] or r["spill_loads"]]
         if not mine or spilled:
             raise AssertionError(f"{name} instances with a stack frame or spills: {spilled} "
@@ -1388,13 +1429,17 @@ def main(argv: list) -> int:
                 expect[kernel_of(p_)] += 1
     for mod in level_kernels.values():
         mod.launches = 0
+    by_form = {k: dict(m.form_launches) for k, m in (("bilinear", bilinear),
+                                                      ("bilinear128", bilinear128))}
     t0 = time.perf_counter()
     fleet = stt.scale_pyramid_mixed(images, types, sizes=FLEET_SIZES,
                                     max_batch_bytes=FLEET_BATCH_BYTES)
     fleet_s = time.perf_counter() - t0
     fleet_launches = {k: m.launches for k, m in level_kernels.items()}
+    by_form = {k: {m.FORMS[f]: n - by_form[k][f] for f, n in m.form_launches.items()}
+               for k, m in (("bilinear", bilinear), ("bilinear128", bilinear128))}
     log(f"[main] row 5b: {len(images)} pyramids end to end in {fleet_s:.3f} s "
-        f"(first call); launches {fleet_launches}, expected {expect}")
+        f"(first call); launches {fleet_launches}, expected {expect}; by form {by_form}")
     if fleet_launches != expect:
         raise AssertionError("row 5b did not launch one pyramid kernel per fused sub-batch "
                              "and one level kernel per level of the others")

@@ -64,7 +64,7 @@
 // select and swizzles the output bytes with one __byte_perm.  Neighbouring
 // threads take neighbouring output columns, so a warp's loads of one tap row
 // fall into one contiguous stretch that L1 serves, and its stores into one
-// 128-byte line.  Two forms, chosen on the host (ops/bilinear128.form):
+// 128-byte line.  Three forms, chosen on the host (ops/bilinear128.form):
 //
 //   LOOP (every plan): block (x, y, z) takes column tile x, row groups y,
 //     y + grid_y, ... of the range and images z, z + grid_z, ...
@@ -91,6 +91,29 @@
 //     leaves the rest of the SM to L1.  A 0h V axis stays on LOOP, upscales
 //     included: there the two barriers per row group cost more than the
 //     shared H values save.
+//   ROLL (internal PREMUL16 at compressed gamma -- unassociated 4-byte
+//     pixels in and out -- with a 0-halving bilinear V axis beside a
+//     BILINEAR, COPY or ONE X axis: upstream's format-conversion pairs
+//     between unassociated types, the farm's 2:1 level of unassociated
+//     images), bilinear.cu's direct_roll at 128bpp.  The V window only
+//     slides down, by 0 or 1 tap rows per output row on an upscale and by 1
+//     or 2 on a downscale (0h stops at 0.5x).  A lane owns 4 consecutive
+//     output columns (their X samples loaded once, into registers, as
+//     offset << 9 | F) and walks a strip of strip_rows output rows
+//     (ops/bilinear.roll_shape) top to bottom, holding the H values of tap
+//     rows ofs_y[i] and ofs_y[i] + 1 of its 4 columns, 4 channels each, in
+//     registers: on a step of one row it H-filters the new bottom row alone,
+//     on a step of two both rows.  Each output row is then one V lerp per
+//     channel, the pack, and one aligned 16-byte store of 4 pixels, the
+//     lanes passing their pixels on with one shuffle as each row's alignment
+//     asks; no shared memory, no barrier.  A pixel is rotated as it loads so
+//     that alpha is its byte 3, and neither the unpack nor the pack picks
+//     alpha per channel.  LOOP H-filtered both tap rows again for every
+//     output pixel -- on a downscale by a pixel every input row twice, each
+//     time with the X table loaded before the pixels, the unpack and a
+//     4-byte store.  Measured and dropped (PERF.md §6): a column's left
+//     pixel taken from the column before, INV_DIV_P16 in shared memory or
+//     computed by a reciprocal, and 4 blocks per SM (a spill).
 //
 // What bounds it (PERF.md §6).  Not bytes: the latency of each bilinear
 // sample's table load before its pixel loads (rows 6, 7); linear light's
@@ -124,6 +147,11 @@
 //   mean within its samples' range, so a bilinear, COPY or ONE H value stays
 //   below 2^11, and a box H value is cut to 0xffff (N);
 //   the normalising multiply is 64-bit;
+//   ROLL lerps as (p*F + q*(256 - F)) >> 8 in unsigned 32 bits: that is
+//   floor(((p - q)*F + 256*q) / 256), the lerp above, for every F in
+//   [0, 256], and p*F + q*(256 - F) <= 2^8 * max(p, q) < 2^32 for working
+//   values below 2^24; the result lies between p and q, so the mask changes
+//   nothing (tests/test_torch_bilinear128.py holds the identity);
 //   an image's and a row's base offsets are 64-bit (8 x 2048^2 x 4 bytes is
 //   128 MiB, larger inputs pass 2^31); a table index is below 65535 * 2^6 <
 //   2^22 and an offset within a row below 65535 * 4 < 2^18.
@@ -152,6 +180,7 @@ struct Bilinear128Params {
   int64_t src[4];                  // output byte k <- work channel src[k]
   int64_t form;                    // Form
   int64_t h_cells;                 // H TILE: cells of the h tile
+  int64_t strip_rows;              // ROLL: output rows a lane walks
 };
 
 namespace {
@@ -164,10 +193,12 @@ constexpr int kThreads = 256;
 // pixel readers: a 4-byte pixel as one word (4-byte aligned input) or as
 // four bytes; a 3-byte pixel at internal PREMUL8 through unpack24
 enum Px { kWord = 0, kBytes = 1, kRgb = 2 };
-// the forms (ops/bilinear128.LOOP, H_TILE); H TILE reads the V kind at run
-// time, its template KY is kAnyY
-enum Form { kLoop = 0, kHTile = 1 };
+// the forms (ops/bilinear128.LOOP, H_TILE, ROLL); H TILE reads the V kind
+// at run time, its template KY is kAnyY; ROLL's is kBilinear
+enum Form { kLoop = 0, kHTile = 1, kRoll = 2 };
 constexpr int kAnyY = 4;
+// ROLL's X kind for a BILINEAR axis of 1 or 2 halvings (kBilinear: none)
+constexpr int kLadder = 5;
 // the h tile's largest size in cells: ops/bilinear128.H_CELLS
 constexpr int kHCells = 4096;
 
@@ -515,6 +546,211 @@ __device__ __forceinline__ void direct_tile(const uint8_t* __restrict__ in,
   }
 }
 
+// ROLL.  Lane t of a tile row owns output columns j0 = tile_w * blockIdx.x
+// + 4t .. j0 + 3 and walks a strip of strip_rows output rows down, holding
+// the H values of tap rows ofs_y[i] and ofs_y[i] + 1 of its columns.  It
+// works with alpha in channel 3: a pixel whose alpha is its byte 0 is
+// rotated by a byte as it is loaded, and the pack's swizzle turns it back,
+// so neither the unpack nor the pack picks alpha per channel.
+
+// ROLL's lerp: (p*F + q*(256 - F)) >> 8, the lerp for working values (see
+// the arithmetic note), with g = 256 - F computed once per sample.
+__device__ __forceinline__ uint32_t mix(uint32_t p, uint32_t q, uint32_t f, uint32_t g) {
+  return (p * f + q * g) >> 8;
+}
+
+// The PREMUL16 work channels of a pixel word whose alpha is byte 3 (unpack
+// at kP16Compressed): colour c times alpha, alpha (a << 8) | 0x80.
+__device__ __forceinline__ void unpack16(uint32_t w, uint32_t v[4]) {
+  const uint32_t a = w >> 24;
+  v[0] = (w & 0xff) * a;
+  v[1] = ((w >> 8) & 0xff) * a;
+  v[2] = ((w >> 16) & 0xff) * a;
+  v[3] = (a << 8) | 0x80;
+}
+
+// The pack at kP16Compressed (pack_word) of work channels whose alpha is
+// channel 3: colour (v * inv) >> 16 with inv = INV_DIV_P16[a], then the
+// swizzle.  A colour value is at most 255 * 255 and inv at most 2^16, so
+// the product fits 32 bits.
+__device__ __forceinline__ uint32_t pack16(const uint32_t o[4], const int32_t* inv_p16,
+                                           unsigned perm) {
+  const uint32_t a = (o[3] >> 8) & 0xff;
+  const uint32_t inv = static_cast<uint32_t>(inv_p16[a]);
+  uint32_t w = a << 24;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) w |= (((o[c] * inv) >> 16) & 0xff) << (8 * c);
+  return __byte_perm(w, 0, perm);
+}
+
+// ROLL's X filter of one output column, its table entries in registers:
+// kCopy reads column x (0 for ONE); kBilinear and kLadder keep sample k as
+// offset << 9 | F (offsets below 2^16, F at most 256), and kLadder sums the
+// 2^n samples' lerps (n <= 2).
+template <int KX, int PX>
+struct RollCol {
+  int x;
+  uint32_t s[4];
+
+  __device__ __forceinline__ RollCol(const Bilinear128Params& p,
+                                     const int32_t* __restrict__ tab, int j) {
+    x = p.kind_x == kOne ? 0 : j;
+    const int n = static_cast<int>(p.halvings_x);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const bool on = (KX == kBilinear && k == 0) || (KX == kLadder && k < (1 << n));
+      s[k] = on ? (static_cast<uint32_t>(__ldg(tab + (j << n) + k)) << 9) |
+                      static_cast<uint32_t>(__ldg(tab + p.len_x + (j << n) + k))
+                : 0u;
+    }
+  }
+};
+
+// Pixel i of a row as a word with alpha in byte 3 (`rot` rotates it there).
+template <int PX>
+__device__ __forceinline__ uint32_t roll_pixel(const uint8_t* row, int i, unsigned rot) {
+  const uint32_t w = PX == kWord ? __ldg(reinterpret_cast<const uint32_t*>(row) + i)
+                                 : load_pixel<false>(row, i, Fmt{4, false, true});
+  return __byte_perm(w, 0, rot);
+}
+
+// The H values of a lane's 4 columns in `row`.  Neighbouring columns that
+// share a pixel load it again: taking it from the column before, a branch
+// per column, orders the loads and was slower (PERF.md §6).
+template <int KX, int PX>
+__device__ __forceinline__ void roll_h(const RollCol<KX, PX> (&col)[4], const uint8_t* row,
+                                       unsigned rot, int n, uint32_t (&v)[4][4]) {
+  if constexpr (KX == kCopy) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) unpack16(roll_pixel<PX>(row, col[k].x, rot), v[k]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      uint32_t sum[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int m = 0; m < (KX == kLadder ? 4 : 1); ++m) {
+        if (KX == kBilinear || m < (1 << n)) {
+          const int o = static_cast<int>(col[k].s[m] >> 9);
+          const uint32_t fx = col[k].s[m] & 511u, gx = 256 - fx;
+          uint32_t a[4], b[4];
+          unpack16(roll_pixel<PX>(row, o, rot), a);
+          unpack16(roll_pixel<PX>(row, o + 1, rot), b);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sum[c] += mix(a[c], b[c], fx, gx);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[k][c] = KX == kLadder ? sum[c] >> n : sum[c];
+    }
+  }
+}
+
+template <int KX, int PX>
+__device__ __forceinline__ void direct_roll(const uint8_t* __restrict__ in,
+                                            uint8_t* __restrict__ out,
+                                            const int32_t* __restrict__ luts,
+                                            const int32_t* __restrict__ tab_x,
+                                            const int32_t* __restrict__ tab_y,
+                                            const Bilinear128Params& p) {
+  const int32_t* inv_p16 = luts + kInvDivP16;
+  // lanes: threads of a tile row, 4 columns each; a row of lanes walks one
+  // strip, and shuffles within its lanes only
+  const int lanes = static_cast<int>(p.tile_w) >> 2;
+  const int lshift = __ffs(lanes) - 1;
+  const int t = static_cast<int>(threadIdx.x) & (lanes - 1);
+  const unsigned mask = lanes == 32 ? 0xffffffffu
+                                    : ((1u << lanes) - 1u) << (threadIdx.x & 31 & ~(lanes - 1));
+  const int w_out = static_cast<int>(p.w_out);
+  const int j0 = static_cast<int>(blockIdx.x) * static_cast<int>(p.tile_w) + 4 * t;
+  const int n_x = static_cast<int>(p.halvings_x);
+  // alpha to byte 3, and back: work channel k is the pixel's channel k + 1
+  // (mod 4) where alpha is its byte 0
+  const bool alpha_first = p.alpha_ch == 0;
+  const unsigned rot = alpha_first ? 0x0321u : 0x3210u;
+  const unsigned perm = static_cast<unsigned>(((p.src[0] + alpha_first * 3) & 3) |
+                                              (((p.src[1] + alpha_first * 3) & 3) << 4) |
+                                              (((p.src[2] + alpha_first * 3) & 3) << 8) |
+                                              (((p.src[3] + alpha_first * 3) & 3) << 12));
+  // columns past w_out compute column w_out - 1 and store nothing of their own
+  const RollCol<KX, PX> col[4] = {RollCol<KX, PX>(p, tab_x, min(j0, w_out - 1)),
+                                  RollCol<KX, PX>(p, tab_x, min(j0 + 1, w_out - 1)),
+                                  RollCol<KX, PX>(p, tab_x, min(j0 + 2, w_out - 1)),
+                                  RollCol<KX, PX>(p, tab_x, min(j0 + 3, w_out - 1))};
+  const int row_bytes = static_cast<int>(p.w_in) * 4, out_row = w_out * 4;
+  const int row0 = static_cast<int>(p.row0), n_rows = static_cast<int>(p.n_rows);
+  const int R = static_cast<int>(p.strip_rows);
+  const int strips = (n_rows + R - 1) / R;
+  const int per_block = kThreads >> lshift;
+  const int s_step = static_cast<int>(gridDim.y) * per_block;
+  const int32_t* fy_tab = tab_y + p.len_y;
+  for (int64_t b = blockIdx.z; b < p.batch; b += gridDim.z) {
+    const uint8_t* img = in + b * p.h_in * row_bytes;
+    uint8_t* out_img = out + b * p.n_rows * out_row;
+    for (int s = static_cast<int>(blockIdx.y) * per_block + (static_cast<int>(threadIdx.x) >> lshift);
+         s < strips; s += s_step) {
+      const int i_lo = row0 + s * R, i_hi = min(i_lo + R, row0 + n_rows);
+      int held = -2;  // the tap row in top; bot holds the next
+      uint32_t top[4][4], bot[4][4];
+      for (int i = i_lo; i < i_hi; ++i) {
+        const int oy = __ldg(tab_y + i);
+        if (oy != held) {
+          if (oy == held + 1) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) top[k][c] = bot[k][c];
+          } else {
+            roll_h(col, img + static_cast<int64_t>(oy) * row_bytes, rot, n_x, top);
+          }
+          roll_h(col, img + static_cast<int64_t>(oy + 1) * row_bytes, rot, n_x, bot);
+          held = oy;
+        }
+        const uint32_t fy = __ldg(fy_tab + i), gy = 256 - fy;
+        uint32_t o[4], pv[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          uint32_t v[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) v[c] = mix(top[k][c], bot[k][c], fy, gy);
+          o[k] = pack16(v, inv_p16, perm);
+          pv[k] = __shfl_up_sync(mask, o[k], 1, lanes);
+        }
+        // The row's 16-byte aligned words of 4 pixels start `a` columns
+        // before each lane's first: a lane stores the word that starts
+        // there, its first `a` pixels from the lane before; lane 0 stores
+        // its first 4 - a pixels alone, the last lane its last a, so the
+        // tiles meet.
+        uint8_t* row = out_img + static_cast<int64_t>(i - row0) * out_row;
+        const int a = static_cast<int>((reinterpret_cast<uintptr_t>(row) >> 2) & 3);
+        const uint32_t c0 = a == 0 ? o[0] : a == 1 ? pv[3] : a == 2 ? pv[2] : pv[1];
+        const uint32_t c1 = a == 0 ? o[1] : a == 1 ? o[0] : a == 2 ? pv[3] : pv[2];
+        const uint32_t c2 = a == 0 ? o[2] : a == 1 ? o[1] : a == 2 ? o[0] : pv[3];
+        const uint32_t c3 = a == 0 ? o[3] : a == 1 ? o[2] : a == 2 ? o[1] : o[0];
+        const int cs = j0 - a;
+        uint32_t* d = reinterpret_cast<uint32_t*>(row);
+        if (t > 0 || a == 0) {
+          if (cs + 3 < w_out) {
+            *reinterpret_cast<uint4*>(d + cs) = make_uint4(c0, c1, c2, c3);
+          } else {
+            if (cs < w_out) d[cs] = c0;
+            if (cs + 1 < w_out) d[cs + 1] = c1;
+            if (cs + 2 < w_out) d[cs + 2] = c2;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            if (k < 4 - a && j0 + k < w_out) d[j0 + k] = o[k];
+        }
+        if (t == lanes - 1 && a > 0) {
+#pragma unroll
+          for (int k = 1; k < 4; ++k)
+            if (k >= 4 - a && j0 + k < w_out) d[j0 + k] = o[k];
+        }
+      }
+    }
+  }
+}
+
 template <int KX, int KY, int MODE, int PX, int FORM>
 __global__ void __launch_bounds__(kThreads)
 bilinear128_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
@@ -526,6 +762,29 @@ bilinear128_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   else
     direct_tile<KX, MODE>(in, out, luts, fold, tab_x, tab_y, windows, p);
 }
+
+// ROLL's six instances (X kinds kCopy, kBilinear and kLadder, 4-byte pixels
+// as words or as bytes), with launch bounds of their own: ROLL keeps no
+// shared memory, so its registers alone set how many threads an SM holds,
+// and BLOCKS blocks per SM cap them at 65536 / (256 BLOCKS), as far as they
+// go without a spill (4 blocks spill).
+#define ROLL_INSTANCE(KX, PX, BLOCKS)                                                        \
+  template <>                                                                              \
+  __global__ void __launch_bounds__(kThreads, BLOCKS)                                      \
+  bilinear128_kernel<KX, kBilinear, kP16Compressed, PX, kRoll>(                            \
+      const uint8_t* __restrict__ in, uint8_t* __restrict__ out,                           \
+      const int32_t* __restrict__ luts, const int32_t* __restrict__,                       \
+      const int32_t* __restrict__ tab_x, const int32_t* __restrict__ tab_y,                \
+      const int32_t* __restrict__, const Bilinear128Params p) {                            \
+    direct_roll<KX, PX>(in, out, luts, tab_x, tab_y, p);                                   \
+  }
+ROLL_INSTANCE(kCopy, kWord, 3)
+ROLL_INSTANCE(kCopy, kBytes, 3)
+ROLL_INSTANCE(kBilinear, kWord, 3)
+ROLL_INSTANCE(kBilinear, kBytes, 3)
+ROLL_INSTANCE(kLadder, kWord, 2)
+ROLL_INSTANCE(kLadder, kBytes, 2)
+#undef ROLL_INSTANCE
 
 typedef void (*Launcher)(const uint8_t*, uint8_t*, const int32_t*, const int32_t*,
                          const int32_t*, const int32_t*, const int32_t*,
@@ -582,6 +841,20 @@ Launcher pick(int64_t ky, int64_t mode, int px, int64_t form) {
   return nullptr;
 }
 
+// ROLL: a BILINEAR V axis (of no halvings, at PREMUL16 compressed, 4-byte
+// pixels: checked by the caller) beside a COPY, ONE or BILINEAR X axis
+template <int PX>
+Launcher pick_roll(int64_t kx, int64_t halvings_x) {
+  switch (kx) {
+    case kCopy:
+    case kOne: return &launch<kCopy, kBilinear, kP16Compressed, PX, kRoll>;
+    case kBilinear:
+      return halvings_x > 0 ? &launch<kLadder, kBilinear, kP16Compressed, PX, kRoll>
+                            : &launch<kBilinear, kBilinear, kP16Compressed, PX, kRoll>;
+  }
+  return nullptr;
+}
+
 Launcher pick(int64_t kx, int64_t ky, int64_t mode, int px, int64_t form) {
   switch (kx) {
     case kCopy:
@@ -603,10 +876,13 @@ Launcher pick(int64_t kx, int64_t ky, int64_t mode, int px, int64_t form) {
 // (ops/bilinear.row_windows), whose widest is h_cells / tile_w rows or
 // fewer; the grid is (ceil(w_out / tile_w), grid_y, grid_z)
 // (ops/bilinear.launch_shape, from row 0 for LOOP and from the range's
-// first row for H TILE).  The kernel runs on `stream` and is not waited for.  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for an axis
-// kind, mode or form outside the class (H TILE: 3-byte input at PREMUL8
-// only), or a tile width, grid or h tile outside the limits.
+// first row for H TILE; ROLL's ops/bilinear.roll_shape).  The kernel runs on
+// `stream` and is not waited for.  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for an axis kind, mode or form outside
+// the class (H TILE: 3-byte input at PREMUL8 only; ROLL: a 0-halving
+// BILINEAR V axis beside a COPY, ONE or BILINEAR X axis of at most 2
+// halvings, at PREMUL16 compressed, 4-byte pixels in and out), or a tile
+// width, grid, h tile or strip outside the limits.
 extern "C" int smolscale_bilinear128_scale(const uint8_t* in, uint8_t* out,
                                            const int32_t* luts, const int32_t* fold,
                                            const int32_t* tab_x, const int32_t* tab_y,
@@ -616,12 +892,18 @@ extern "C" int smolscale_bilinear128_scale(const uint8_t* in, uint8_t* out,
   if (p.batch * p.n_rows * p.w_out <= 0) return static_cast<int>(cudaSuccess);
   if (p.tile_w < 1 || p.tile_w > kThreads || (p.tile_w & (p.tile_w - 1)) != 0 ||
       p.grid_y < 1 || p.grid_y > 65535 || p.grid_z < 1 || p.grid_z > 65535 ||
-      (p.form == kHTile && (p.tile_w > 32 || p.h_cells < 1 || p.h_cells > kHCells)))
+      (p.form == kHTile && (p.tile_w > 32 || p.h_cells < 1 || p.h_cells > kHCells)) ||
+      (p.form == kRoll &&
+       (p.tile_w < 4 || p.tile_w > 128 || p.strip_rows < 1 || p.kind_y != kBilinear ||
+        p.halvings_y != 0 || p.halvings_x > 2 || p.mode != kP16Compressed || p.nb_in != 4 ||
+        p.nb_out != 4)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int px = p.nb_in == 3                                    ? kRgb
                  : (reinterpret_cast<uintptr_t>(in) & 3) == 0 ? kWord
                                                                : kBytes;
-  const Launcher fn = pick(p.kind_x, p.kind_y, p.mode, px, p.form);
+  const Launcher fn = p.form != kRoll ? pick(p.kind_x, p.kind_y, p.mode, px, p.form)
+                      : px == kWord   ? pick_roll<kWord>(p.kind_x, p.halvings_x)
+                                      : pick_roll<kBytes>(p.kind_x, p.halvings_x);
   if (fn == nullptr || (px == kRgb && p.kind_x == kBilinear && p.halvings_x > 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((p.w_out + p.tile_w - 1) / p.tile_w),

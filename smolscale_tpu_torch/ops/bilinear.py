@@ -251,8 +251,9 @@ LOOP, H_TILE, ROLL = range(3)
 FORMS = {LOOP: "loop", H_TILE: "h tile", ROLL: "roll"}
 # the direct path's launches by form
 form_launches = dict.fromkeys(FORMS, 0)
-# ROLL's output columns per thread (csrc/bilinear.cu's direct_roll: one
-# 16-byte store of 4-byte pixels), and its longest strip of output rows
+# ROLL's output columns per thread (csrc/bilinear.cu's and bilinear128.cu's
+# direct_roll: one 16-byte store of 4-byte pixels), and its longest strip of
+# output rows
 ROLL_COLS = 4
 ROLL_STRIP_ROWS = 64
 
@@ -272,7 +273,8 @@ def launch_shape(w_out: int, first: int, n: int, batch: int,
     z) takes column tile x, the range's row groups y, y + grid_y, ... and
     images z, z + grid_z, ....  ``grid_y`` is cut so that the grid holds
     about BLOCKS_PER_SM blocks per SM; ``grid_y`` and ``grid_z`` stay at most
-    GRID_LIMIT.  ``csrc/bilinear128.cu`` takes this grid too."""
+    GRID_LIMIT.  ``csrc/bilinear128.cu``'s LOOP and H TILE take this grid
+    too."""
     tile_w = tile_width(w_out)
     tile_h = THREADS // tile_w
     col_tiles = -(-w_out // tile_w)
@@ -297,7 +299,7 @@ def roll_shape(w_out: int, first: int, n: int, batch: int,
     smaller share of the launch; much shorter ones cost more than they
     balance, as a strip's first row H-filters both tap rows (PERF.md §6).
     Every block holds at least one strip; ``grid_y`` and ``grid_z`` stay at
-    most GRID_LIMIT."""
+    most GRID_LIMIT.  ``csrc/bilinear128.cu``'s ROLL takes this grid too."""
     quads = -(-w_out // ROLL_COLS)
     lanes = min(32, pow2_ceil(quads))
     tile_w = ROLL_COLS * lanes

@@ -18,17 +18,21 @@ with one output column or row runs here.  The numbers are those of
 ``backends/numpy_ref`` at 128bpp masks (see the note at the top of
 ``csrc/bilinear128.cu``).
 
-The kernel has two forms (see ``csrc/bilinear128.cu``), which
-:func:`form` picks per plan: LOOP (every plan: each thread H-filters its own
-tap rows from global memory) and, for 3-byte input, H_TILE (each tap row of
-a row group H-filtered once per tile into shared memory,
+The kernel has three forms (see ``csrc/bilinear128.cu``), which
+:func:`form` picks per plan by class: LOOP (every plan: each thread
+H-filters its own tap rows from global memory); for 3-byte input, H_TILE
+(each tap row of a row group H-filtered once per tile into shared memory,
 ``bilinear.row_windows``) where each output row reads three tap rows or
-more.
+more; and ROLL (:func:`rolls`: internal PREMUL16 at compressed gamma with a
+0-halving bilinear V axis beside a bilinear, COPY or ONE X axis), where each
+thread walks a strip of output rows for 4 columns with both tap rows' H
+values in registers (``bilinear.roll_shape``).
 
 ``scale_fn`` and ``scale_rows_fn`` take ``(B, H, W, nb_in)`` or
 ``(H, W, nb_in)`` uint8 tensors.  A tensor on the CPU goes to
 :func:`bilinear128_scale_ref`; a tensor on a CUDA device launches the
-kernel, or raises.  ``launches`` counts the kernel launches.
+kernel, or raises.  ``launches`` counts the kernel launches,
+``form_launches`` those of each form.
 """
 
 from __future__ import annotations
@@ -39,12 +43,12 @@ import torch
 
 from ..formats import GammaType, StorageType
 from ..plan import ScalePlan
-from . import pixels
+from . import bilinear, pixels
 from ._kernel import Kernel
 from ._plan_cache import plan_cache
 from .bilinear import (_windows, axis_kind, axis_table, deep_v, filter_scale, launch_shape,
-                       row_windows, table_len, tile_width)
-from .deep import masks, mode
+                       roll_shape, row_windows, table_len, tile_width)
+from .deep import P16_COMPRESSED, masks, mode
 
 launches = 0
 
@@ -95,15 +99,17 @@ class _Bilinear128Params(ctypes.Structure):
             "pack24_direct",
         )
     ] + [("src", ctypes.c_int64 * 4)] + [
-        (name, ctypes.c_int64) for name in ("form", "h_cells")
+        (name, ctypes.c_int64) for name in ("form", "h_cells", "strip_rows")
     ]
 
 
 # the forms (enum Form in csrc/bilinear128.cu); H_TILE keeps at most
 # H_CELLS cells of two words (kHCells there: 32 KB)
-LOOP, H_TILE = range(2)
-FORMS = {LOOP: "loop", H_TILE: "h tile"}
+LOOP, H_TILE, ROLL = range(3)
+FORMS = {LOOP: "loop", H_TILE: "h tile", ROLL: "roll"}
 H_CELLS = 4096
+# the launches by form
+form_launches = dict.fromkeys(FORMS, 0)
 
 
 def rgb24(plan: ScalePlan) -> bool:
@@ -120,24 +126,37 @@ def h_cells(plan: ScalePlan) -> int:
     return int((rows[1] - rows[0]).max()) * tile_width(plan.width_out)
 
 
+def rolls(plan: ScalePlan) -> bool:
+    """ROLL's class: internal PREMUL16 at compressed gamma (unassociated
+    4-byte pixels in and out) with a 0-halving bilinear V axis, whose tap
+    rows only slide down, beside an X axis of kind BILINEAR, COPY or ONE
+    (``bilinear.rolls``)."""
+    return mode(plan) == P16_COMPRESSED and bilinear.rolls(plan)
+
+
 @plan_cache
 def _forms(plan: ScalePlan) -> tuple:
+    if rolls(plan):
+        return (LOOP, ROLL)
     return (LOOP, H_TILE) if rgb24(plan) and h_cells(plan) <= H_CELLS else (LOOP,)
 
 
 def forms(plan: ScalePlan) -> list[int]:
     """The forms that can run the plan: LOOP always, H_TILE for
-    :func:`rgb24` plans whose tap rows fit the h tile."""
+    :func:`rgb24` plans whose tap rows fit the h tile, ROLL in its class."""
     return list(_forms(plan))
 
 
 def form(plan: ScalePlan) -> int:
-    """The plan's form: H_TILE where it fits and each output row reads
-    three tap rows or more (``bilinear.deep_v``: a V ladder of 1 or more
-    halvings, a V box), else LOOP (COPY V, 0h V axes, 4-byte input).
+    """The plan's form by class: ROLL in its class (:func:`rolls`);
+    H_TILE where it fits and each output row reads three tap rows or more
+    (``bilinear.deep_v``: a V ladder of 1 or more halvings, a V box); else
+    LOOP (COPY V, other 0h V axes, the other 4-byte plans).
     ``bilinear.cu``'s rule also sends upscales to its h tile; here LOOP was
-    the faster on 6b-up.  On each timed 3-byte row this is the faster of
-    the two (PERF.md §6)."""
+    the faster on 6b-up.  On each timed row this is the fastest form that
+    fits (PERF.md §6)."""
+    if rolls(plan):
+        return ROLL
     return H_TILE if H_TILE in _forms(plan) and deep_v(plan) else LOOP
 
 
@@ -160,9 +179,10 @@ def _params(plan: ScalePlan, batch: int, first: int, n: int, sms: int = pixels.H
             form: int | None = None) -> _Bilinear128Params:
     """The kernel's parameters for output rows [first, first + n) of
     ``batch`` images; ``form`` is :func:`form`'s by default, else one of
-    :func:`forms` (raises for one that does not fit).  Both take
+    :func:`forms` (raises for one that does not fit).  LOOP and H_TILE take
     ``bilinear.launch_shape``'s grid: LOOP's row groups start at ``first``,
-    H_TILE's at output row 0, as ``bilinear.row_windows`` counts them."""
+    H_TILE's at output row 0, as ``bilinear.row_windows`` counts them; ROLL
+    takes ``bilinear.roll_shape``'s tiles, strips and grid."""
     p = _Bilinear128Params.from_buffer_copy(_plan_params(plan))
     p.batch, p.row0, p.n_rows = batch, first, n
     if form is not None:
@@ -170,8 +190,12 @@ def _params(plan: ScalePlan, batch: int, first: int, n: int, sms: int = pixels.H
             raise ValueError(f"plan {plan.key}: the 128bpp kernel's {FORMS.get(form, form)} "
                              f"form does not fit (forms {[FORMS[k] for k in _forms(plan)]})")
         p.form = form
-    p.tile_w, _, p.grid_y, p.grid_z = launch_shape(
-        plan.width_out, 0 if p.form == LOOP else first, n, batch, sms)
+    if p.form == ROLL:
+        p.tile_w, _, p.strip_rows, p.grid_y, p.grid_z = roll_shape(
+            plan.width_out, first, n, batch, sms)
+    else:
+        p.tile_w, _, p.grid_y, p.grid_z = launch_shape(
+            plan.width_out, 0 if p.form == LOOP else first, n, batch, sms)
     return p
 
 
@@ -179,7 +203,7 @@ def _step(plan: ScalePlan, batch: torch.Tensor, outs: list, device: torch.device
           first: int, n: int, form: int | None):
     tx, ty = _tables(plan, device)
     params = _params(plan, batch.shape[0], first, n, pixels.sm_count(device), form)
-    windows = None if params.form == LOOP else _windows(plan, device)
+    windows = _windows(plan, device) if params.form == H_TILE else None
     fold = pixels.unpack24_lut(device, plan.gamma == GammaType.SRGB_LINEAR)
     return (batch, outs[0], pixels.lut_table(device), fold, tx, ty, windows), params
 
@@ -188,8 +212,12 @@ def _plain(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int, form: int | 
     return filter_scale(plan, imgs, first, n, _tables(plan, imgs.device), *masks(plan))
 
 
+def _count_form(params: _Bilinear128Params) -> None:
+    form_launches[params.form] += 1
+
+
 KERNEL = Kernel(__name__, "128bpp", "smolscale_bilinear128_scale", 7, _Bilinear128Params,
-                plain=_plain, step=_step, applicable=applicable)
+                plain=_plain, step=_step, applicable=applicable, launched=_count_form)
 
 
 def scale_rows_fn(plan: ScalePlan, imgs: torch.Tensor, first: int, n: int,

@@ -9,6 +9,7 @@ chip_smoke.py).  All arithmetic is integer: the tolerance is byte equality.
 """
 
 import importlib.util
+import json
 from pathlib import Path
 from unittest import mock
 
@@ -20,6 +21,7 @@ from jax.experimental import pallas as pl
 
 import smolscale_tpu
 import smolscale_tpu_torch as stt
+from portbench import traffic
 from smolscale_tpu import plan as ref_plan
 from smolscale_tpu.backends import numpy_ref, xla
 from smolscale_tpu.ops import pallas_128, pallas_srgb
@@ -121,8 +123,31 @@ EDGES = [
     (520, 300, 2, 40, 8, 9, False),
     (520, 300, 2, 40, 0, 8, False),
 ]
+# ROLL's class (PREMUL16 at compressed gamma, a 0h bilinear V axis beside a
+# bilinear, COPY or ONE X axis) on its edges: a downscale by a pixel, a 0h
+# upscale, fleet-5b's 2:1 level, X COPY, ONE and 1h and 2h ladders, and
+# output widths 1-9 and 129
+ROLL_PLANS = [
+    (700, 300, 699, 299, 4, 6, False),
+    (300, 200, 450, 310, 5, 7, False),
+    (512, 512, 256, 256, 4, 4, False),
+    (96, 54, 96, 40, 7, 5, False),
+    (1, 300, 5, 250, 4, 4, False),
+    (800, 300, 300, 250, 6, 4, False),
+    (1200, 90, 250, 70, 5, 5, False),
+    (3, 40, 1, 60, 4, 5, False),
+    (5, 41, 2, 39, 5, 6, False),
+    (5, 42, 3, 62, 6, 7, False),
+    (6, 43, 4, 40, 7, 4, False),
+    (7, 44, 5, 64, 4, 5, False),
+    (8, 45, 6, 47, 5, 6, False),
+    (9, 46, 7, 66, 6, 7, False),
+    (10, 47, 8, 51, 7, 4, False),
+    (11, 48, 9, 68, 4, 5, False),
+    (131, 49, 129, 55, 5, 6, False),
+]
 ALL = list(dict.fromkeys(COMPRESSED + LINEAR + RGB24 + PLANES + [LOW_ALPHA] + ONE_OUTPUT
-                         + COPY_ONE + [CONST_COPY] + EDGES))
+                         + COPY_ONE + [CONST_COPY] + EDGES + ROLL_PLANS))
 # more than 65535 output rows in a batch of 3: chip_smoke.py's WIDE_TALL
 TALL = ((8, 30000, 8, 30000, 4, 4, False), 3)
 # (key, first, n): chip_smoke.py's WIDE_CHECK_ROWS
@@ -138,6 +163,9 @@ ROWS = [
     ((1, 300, 5, 20, 4, 4, True), 19, 1),        # ONE x box, the last row
     ((512, 300, 7, 290, 4, 4, True), 45, 200),   # starts inside a 32-row tile
     ((1028, 200, 257, 50, 4, 4, False), 3, 13),
+    ((700, 300, 699, 299, 4, 6, False), 37, 200),   # ROLL: starts and ends inside strips
+    ((512, 512, 256, 256, 4, 4, False), 255, 1),    # ROLL: the last row
+    ((300, 200, 450, 310, 5, 7, False), 1, 308),
 ]
 # suite rows 6, 6b and 7 (benchmarks/suite.py:314-324) and chip_smoke.py's
 # 6b-4k and 6b-up cut to a small size
@@ -632,18 +660,41 @@ def test_rgb24_rows_route_by_class(key, routed):
 
 
 def test_four_byte_plans_keep_loop():
-    """4-byte plans have one form, LOOP; a form that does not fit raises
-    before any launch."""
+    """4-byte plans outside ROLL's class have one form, LOOP; a 0h PREMUL16
+    plan has LOOP and ROLL, routed to ROLL, with ``bilinear.roll_shape``'s
+    strips and grid; a form that does not fit raises before any launch."""
     for key in [(2048, 2048, 256, 256, 4, 4, True), (512, 256, 96, 56, 0, 0, True),
                 (2048, 2048, 256, 256, 4, 4, False), (512, 256, 96, 56, 0, 8, True)]:
         plan = ScalePlan(*key)
-        assert not bilinear128.rgb24(plan)
+        assert not bilinear128.rgb24(plan) and not bilinear128.rolls(plan)
         assert bilinear128.forms(plan) == [bilinear128.LOOP] == [bilinear128.form(plan)]
     plan = ScalePlan(2048, 2048, 256, 256, 4, 4, True)
     with pytest.raises(ValueError, match="does not fit"):
         bilinear128._params(plan, 8, 0, 256, form=bilinear128.H_TILE)
+    with pytest.raises(ValueError, match="does not fit"):
+        bilinear128._params(plan, 8, 0, 256, form=bilinear128.ROLL)
     p = bilinear128._params(plan, 8, 0, 256, form=bilinear128.LOOP)
     assert (p.form, p.h_cells) == (bilinear128.LOOP, 0)
+    # conv-2160p's PREMUL16 pairs and fleet-5b's 256^2 level, whole and by rows
+    for key, batch, first, n in [((3840, 2160, 3839, 2159, 4, 7, False), 64, 0, 2159),
+                                 ((512, 512, 256, 256, 4, 4, False), 192, 0, 256),
+                                 ((700, 300, 699, 299, 4, 6, False), 2, 37, 200)]:
+        plan = ScalePlan(*key)
+        assert bilinear128.rolls(plan) and not bilinear128.rgb24(plan)
+        assert bilinear128.forms(plan) == [bilinear128.LOOP, bilinear128.ROLL]
+        assert bilinear128.form(plan) == bilinear128.ROLL
+        with pytest.raises(ValueError, match="does not fit"):
+            bilinear128._params(plan, batch, first, n, form=bilinear128.H_TILE)
+        r = bilinear128._params(plan, batch, first, n, 132)
+        tile_w, _, strip_rows, grid_y, grid_z = bilinear.roll_shape(
+            plan.width_out, first, n, batch, 132)
+        assert (r.form, r.tile_w, r.strip_rows, r.grid_y, r.grid_z) == (
+            bilinear128.ROLL, tile_w, strip_rows, grid_y, grid_z)
+        assert (r.row0, r.n_rows, r.mode, r.nb_in, r.nb_out) == (
+            first, n, deep.P16_COMPRESSED, 4, 4)
+        q = bilinear128._params(plan, batch, first, n, 132, bilinear128.LOOP)
+        tile_w, _, grid_y, grid_z = bilinear.launch_shape(plan.width_out, 0, n, batch, 132)
+        assert (q.form, q.tile_w, q.grid_y, q.grid_z) == (bilinear128.LOOP, tile_w, grid_y, grid_z)
     # a 3-byte plan whose row groups read more tap rows than the h tile holds
     deep_v = ScalePlan(64, 8000, 64, 30, 8, 8, True)
     assert bilinear128.rgb24(deep_v) and bilinear128.h_cells(deep_v) > bilinear128.H_CELLS
@@ -664,6 +715,83 @@ def test_h_tile_params_follow_plan():
     r = bilinear128._params(plan, 8, 13, 30, 132, bilinear128.LOOP)
     assert (r.form, r.tile_w, r.grid_y) == (bilinear128.LOOP, 32, 4)
     assert r.h_cells == p.h_cells   # the template's; LOOP does not read it
+
+
+_CONFIGS = Path(__file__).resolve().parent.parent / "portbench" / "configs"
+
+
+def _config_plans(config):
+    data = json.loads((_CONFIGS / f"{config}.json").read_text())
+    if "fleet" in data:
+        fleet = data["fleet"]
+        return [ScalePlan(*g["size"], s, s, g["pixel_type"], g["pixel_type"], fleet["with_srgb"])
+                for g in fleet["groups"] for s in fleet["sizes"]]
+    return [ScalePlan(*k) for k in traffic.frame_plans(data["frames"])]
+
+
+# configuration -> its plans that reach bilinear128.cu, those of them in ROLL
+ROLL128_ROUTES = {"conv-2160p": (16, 16), "fleet-5b": (3, 1), "frames-2160p": (0, 0)}
+
+
+@pytest.mark.parametrize("config", ROLL128_ROUTES)
+def test_roll_takes_every_0h_v_premul16_plan_and_nothing_else(config):
+    """Each configuration's plans that reach ``bilinear128.cu`` route to
+    ROLL exactly where they are PREMUL16 at compressed gamma with a 0h
+    bilinear V axis beside a non-box X axis.  conv-2160p: its 16
+    unassociated -> unassociated pairs, all of them, and no other pair
+    reaches the kernel; fleet-5b: the unassociated group's 256^2 level
+    rolls, its 128^2 and 64^2 ladders keep LOOP; frames-2160p: no plan
+    reaches the kernel."""
+    plans = _config_plans(config)
+    on = [p for p in plans if torch_ops.whole_kernel(p) is bilinear128]
+    rolled = [p for p in on if bilinear128.form(p) == bilinear128.ROLL]
+    assert (len(on), len(rolled)) == ROLL128_ROUTES[config]
+    for p in rolled:
+        assert bilinear.axis_kind(p.y) == bilinear.BILINEAR and p.y.halvings == 0, p.key
+        assert bilinear.axis_kind(p.x) != bilinear.BOX and p.x.halvings <= 2, p.key
+        assert deep.mode(p) == deep.P16_COMPRESSED, p.key
+        assert p.meta_in.n_bytes == p.meta_out.n_bytes == 4, p.key
+    for p in on:
+        if p not in rolled:
+            assert bilinear128.ROLL not in bilinear128.forms(p) and not bilinear128.rolls(p)
+    if config == "conv-2160p":
+        assert {p.key[4:6] for p in on} == {(i, o) for i in range(4, 8) for o in range(4, 8)}
+    if config == "fleet-5b":
+        assert [p.key for p in rolled] == [(512, 512, 256, 256, 4, 4, False)]
+        assert {p.key[2] for p in on if p not in rolled} == {64, 128}
+        assert all(bilinear128.form(p) == bilinear128.LOOP for p in on if p not in rolled)
+
+
+def test_roll_plans_route_to_roll():
+    """The card's ROLL checks (chip_smoke.py's) lie in ROLL's class and
+    route to it, beside LOOP."""
+    for key in ROLL_PLANS:
+        plan = ScalePlan(*key)
+        assert bilinear128.forms(plan) == [bilinear128.LOOP, bilinear128.ROLL], key
+        assert bilinear128.form(plan) == bilinear128.ROLL, key
+    kinds = {(bilinear.axis_kind(ScalePlan(*k).x), ScalePlan(*k).x.halvings) for k in ROLL_PLANS}
+    assert kinds == {(bilinear.COPY, 0), (bilinear.ONE, 0), (bilinear.BILINEAR, 0),
+                     (bilinear.BILINEAR, 1), (bilinear.BILINEAR, 2)}
+    assert {k[2] for k in ROLL_PLANS} >= set(range(1, 10)) | {129}
+
+
+def test_roll_lerp_is_lerp():
+    """ROLL's lerp, (p*F + q*(256 - F)) >> 8 in unsigned 32 bits, equals
+    the lerp ((p - q)*F >> 8) + q (floor shift), masked to 24 bits, for every
+    F in [0, 256] and working values below 2^24: every pair of PREMUL16
+    values of one channel (c*a, and the alpha (a << 8) | 0x80) with its
+    partner's alpha, and pairs at the 24-bit edges."""
+    a = np.arange(256, dtype=np.int64)
+    vals = np.unique(np.concatenate([np.outer(a, a).ravel(), (a << 8) | 0x80]))
+    edge = np.array([0, 1, 2, 255, 256, 65407, 65408, 65535, 2**23, 2**24 - 2, 2**24 - 1])
+    rng = np.random.default_rng(25)
+    p = np.concatenate([rng.choice(vals, 200_000), np.repeat(edge, len(edge))])
+    q = np.concatenate([rng.choice(vals, 200_000), np.tile(edge, len(edge))])
+    for f in range(257):
+        want = ((((p - q) * f) >> 8) + q) & 0xFFFFFF
+        total = p * f + q * (256 - f)
+        assert total.max() < 2**32
+        assert np.array_equal(total >> 8, want), f
 
 
 _V_PLANS = sorted({k for k in ALL + SUITE if k[4] >= 8} | {k for k, _ in RGB24_ROWS}

@@ -509,21 +509,24 @@ def test_bilinear128_kernel_matches_plain(cuda_device, key):
     rng = np.random.default_rng(sum(key))
     imgs = rng.integers(0, 256, (2, key[1], key[0], plan.meta_in.n_bytes), dtype=np.uint8)
     x = torch.from_numpy(imgs).to(cuda_device)
-    before = bilinear128.launches
+    before, routed = bilinear128.launches, bilinear128.form_launches[bilinear128.form(plan)]
     got = bilinear128.scale_fn(plan, x)
     assert bilinear128.launches == before + 1
+    assert bilinear128.form_launches[bilinear128.form(plan)] == routed + 1
     plain = bilinear128.bilinear128_scale_ref(plan, x)
     torch.cuda.synchronize()
     assert got.device == cuda_device and torch.equal(got, plain)
     assert np.array_equal(got[1].cpu().numpy(), numpy_ref.scale(RefPlan(*key), imgs[1]))
-    # every form that fits (H TILE beside LOOP for 3-byte input), whole and
-    # on row ranges: a middle one, the last row
+    # every form that fits (H TILE beside LOOP for 3-byte input, ROLL beside
+    # LOOP in its class), whole and on row ranges: a middle one, the last row
     h = plan.height_out
     for form in bilinear128.forms(plan):
+        by_form = bilinear128.form_launches[form]
         assert torch.equal(bilinear128.scale_fn(plan, x, form), plain), bilinear128.FORMS[form]
         for first, n in ((h // 3, max(1, h // 2)), (h - 1, 1)):
             assert torch.equal(bilinear128.scale_rows_fn(plan, x, first, n, form),
                                plain[:, first : first + n]), bilinear128.FORMS[form]
+        assert bilinear128.form_launches[form] == by_form + 3, bilinear128.FORMS[form]
 
 
 @pytest.mark.cuda
