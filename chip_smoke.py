@@ -69,13 +69,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    0 just before and read just after: ``smolscale_tpu_torch.scale`` on rows
    0, 3e and 8 (box kernel, batch 8 of 4096^2 RGBA); then on rows 1, 1b, 2,
    3a, 3b, 3c and 3d, and ``scale_streamed`` on row 4 in 16 chunks
-   (general kernel); then on rows 7b, 9, 9b, 9c and 9d, and
+   (general kernel); then on rows 7b, 9, 9b, 9c and 9d, the linear-light
+   sweep's srgb box-0.06 (32 frames 3840x2160 -> 229x129), and
    ``scale_streamed`` on row 9 in 4 chunks (deep box kernel); then on rows
    6, 6b and 7 and the 3-byte video rows 6b-4k (3840x2160 -> 1920x1080)
    and 6b-up (1280x720 -> 1920x1080), ROLL's conv u-u and u-7 (64 frames
-   3840x2160 -> 3839x2159 between unassociated types) and 5b 256 u (192
-   unassociated 512^2 images -> 256^2), and ``scale_streamed`` on row 7 in
-   4 chunks (128bpp kernel); then the rows of ``A1_ROWS``, the classes that
+   3840x2160 -> 3839x2159 between unassociated types), 5b 256 u (192
+   unassociated 512^2 images -> 256^2), the linear-light sweep's srgb
+   up-2.0, down-0.6 and 1h-0.5 (32 frames 3840x2160 -> 7680x4320,
+   2292x1289, 1910x1074), and ``scale_streamed`` on row 7 in 4 chunks
+   (128bpp kernel); then the rows of ``A1_ROWS``, the classes that
    every plan reaching a kernel added: ``scale`` on a1-p16-copy and a1-srgb-field
    (128bpp kernel, COPY axes) and on a1-strip (general kernel, a 128:1 box
    beside a bilinear axis), ``scale_streamed`` on a1-strip-rows in 4
@@ -678,6 +681,9 @@ DEEP_ROWS = [
     ("row 9b", (2048, 2048, 12, 12, 4, 4), 8),
     ("row 9c", (2000, 2000, 7, 7, 0, 0, True), 8),
     ("row 9d", (3000, 3000, 9, 9, 8, 8), 8),
+    # the linear-light sweep's box x box plans (frames-2160p-srgb, 32 frames
+    # a request as in sweep2160-srgb-b32): 0.06x in P8-linear
+    ("srgb box-0.06", (3840, 2160, 229, 129, 0, 0, True), 32),
 ]
 DEEP_STREAM_ROW, DEEP_STREAM_CHUNKS = "row 9", 4
 # 128bpp kernel (suite.py:314-324), and row 7 through scale_streamed
@@ -696,6 +702,12 @@ WIDE_ROWS = [
     ("conv u-u", (3840, 2160, 3839, 2159, 4, 4, False), 64),
     ("conv u-7", (3840, 2160, 3839, 2159, 4, 7, False), 64),
     ("5b 256 u", (512, 512, 256, 256, 4, 4, False), 192),
+    # the linear-light sweep's heaviest classes (frames-2160p-srgb, 32 frames
+    # a request as in sweep2160-srgb-b32), LOOP in P8-linear: 2x and 0.597x
+    # (0h), 0.497x (the widest 1h ladder)
+    ("srgb up-2.0", (3840, 2160, 7680, 4320, 0, 0, True), 32),
+    ("srgb down-0.6", (3840, 2160, 2292, 1289, 0, 0, True), 32),
+    ("srgb 1h-0.5", (3840, 2160, 1910, 1074, 0, 0, True), 32),
 ]
 WIDE_STREAM_ROW, WIDE_STREAM_CHUNKS = "row 7", 4
 # the plans that no kernel took before every plan reached one, at full

@@ -39,7 +39,7 @@ from .pixels import GRID_LIMIT, MAX_WARPS, WAVE_WARPS, pow2_ceil
 
 launches = 0
 
-# (internal alpha, gamma) modes, as enum Mode in csrc/deep.cu
+# (internal alpha, gamma) modes, as enum Mode in csrc/pixels.cuh
 P8_COMPRESSED, P8_LINEAR, P16_COMPRESSED, P16_LINEAR = range(4)
 
 

@@ -18,6 +18,8 @@ import pytest
 import torch
 
 import smolscale_tpu_torch as stt
+from portbench.reference import scale as bench_reference
+from portbench.reference.plan import ScalePlan as BenchPlan
 from smolscale_tpu.backends import numpy_ref
 from smolscale_tpu.plan import ScalePlan as RefPlan
 from smolscale_tpu_torch import fuzz
@@ -575,6 +577,40 @@ def test_bilinear128_constant_255_3_byte(cuda_device, key):
     assert bilinear128.H_TILE in bilinear128.forms(plan)
     for form in bilinear128.forms(plan):
         assert torch.equal(bilinear128.scale_fn(plan, x, form), want), bilinear128.FORMS[form]
+
+
+# frames-2160p-srgb (the sweep2160-srgb-b32 cell) at its published widths:
+# 2.0x (0h up), 0.597x (0h down) and a 2h ladder on the 128bpp kernel's LOOP,
+# 0.06x (box x box) on the deep box kernel, all in P8-linear
+SRGB_SWEEP = [((3840, 2160, 7680, 4320, 0, 0, True), "bilinear128"),
+              ((3840, 2160, 2292, 1289, 0, 0, True), "bilinear128"),
+              ((3840, 2160, 496, 279, 0, 0, True), "bilinear128"),
+              ((3840, 2160, 229, 129, 0, 0, True), "deep")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key,kernel", SRGB_SWEEP,
+                         ids=lambda v: _id(v) if isinstance(v, tuple) else v)
+def test_srgb_sweep_matches_benchmark_reference(cuda_device, key, kernel):
+    """A batch of 2 through ``scale``, byte for byte against the
+    benchmark's plain reference; one launch on the routed wrapper, in
+    P8-linear (LOOP on the 128bpp kernel), and none on another."""
+    mods = {"bilinear": bilinear, "box": box, "deep": deep, "bilinear128": bilinear128}
+    plan = stt.ScalePlan(*key)
+    assert deep.mode(plan) == deep.P8_LINEAR
+    gen = torch.Generator().manual_seed(sum(key[:4]))
+    x = torch.randint(0, 256, (2, key[1], key[0], 4), dtype=torch.uint8,
+                      generator=gen).to(cuda_device)
+    launches = {k: m.launches for k, m in mods.items()}
+    forms = dict(bilinear128.form_launches)
+    got = stt.scale(plan, x)
+    torch.cuda.synchronize()
+    assert {k: m.launches - launches[k] for k, m in mods.items()} == {
+        k: int(k == kernel) for k in mods}
+    assert {f: n - forms[f] for f, n in bilinear128.form_launches.items()} == {
+        f: int(kernel == "bilinear128" and f == bilinear128.LOOP) for f in bilinear128.FORMS}
+    for b in range(2):
+        assert torch.equal(got[b], bench_reference.scale(BenchPlan(*key), x[b]))
 
 
 @pytest.mark.cuda
