@@ -612,6 +612,28 @@ WIDE_CHECK_PLANS = [
     (10, 47, 8, 51, 7, 4, False),
     (11, 48, 9, 68, 4, 5, False),
     (131, 49, 129, 55, 5, 6, False),
+    # ROLL in P8-linear (sRGB linear light, 4-byte pixels with a
+    # premultiplied side) on its edges: f just above 1, exactly 2, 0.5x and
+    # a pixel less, X COPY, ONE and 1h and 2h ladders, output widths 1-9 and
+    # 129, premultiplied and unassociated on either side
+    (400, 300, 421, 316, 0, 0, True),
+    (150, 100, 300, 200, 1, 2, True),
+    (300, 200, 150, 100, 2, 3, True),
+    (700, 300, 699, 299, 3, 0, True),
+    (96, 54, 96, 40, 0, 4, True),
+    (1, 300, 5, 250, 4, 0, True),
+    (800, 300, 300, 250, 5, 1, True),
+    (1200, 90, 250, 70, 6, 2, True),
+    (3, 40, 1, 60, 7, 3, True),
+    (5, 41, 2, 39, 0, 5, True),
+    (5, 42, 3, 62, 1, 6, True),
+    (6, 43, 4, 40, 2, 7, True),
+    (7, 44, 5, 64, 3, 4, True),
+    (8, 45, 6, 47, 4, 1, True),
+    (9, 46, 7, 66, 5, 2, True),
+    (10, 47, 8, 51, 6, 3, True),
+    (11, 48, 9, 68, 7, 0, True),
+    (131, 49, 129, 55, 2, 6, True),
 ]
 # checked on a constant-255 batch too: numpy_ref gives (97, 97, 97, 255),
 # on a box axis beside a bilinear one and beside a COPY one
@@ -636,17 +658,21 @@ WIDE_CHECK_ROWS = [
     ((700, 300, 699, 299, 4, 6, False), 37, 200),   # ROLL: starts and ends inside strips
     ((512, 512, 256, 256, 4, 4, False), 255, 1),    # ROLL: the last row
     ((300, 200, 450, 310, 5, 7, False), 1, 308),
+    ((400, 300, 421, 316, 0, 0, True), 37, 200),    # ROLL, P8-linear: inside strips
+    ((300, 200, 150, 100, 2, 3, True), 99, 1),      # ROLL, P8-linear: the last row
 ]
 # the 128bpp kernel on inputs at byte offsets 1-3, whole and by rows: a 2h
 # ladder in PREMUL16-linear, COPY x COPY at PREMUL16, a 260:1 box at
 # PREMUL8, COPY x bilinear in PREMUL8-linear; 3-byte pixels (each form): a
 # 2h ladder in linear light and a 260:1 box at PREMUL8; ROLL's class (each
-# form): a downscale by a pixel, X COPY, X a 1h ladder
+# form): a downscale by a pixel, X COPY, X a 1h ladder, and in P8-linear a
+# 2x upscale and X COPY
 WIDE_UNALIGNED = [(512, 256, 96, 56, 4, 4, True), (96, 54, 96, 54, 4, 4, False),
                   (520, 300, 2, 40, 0, 0, False), (96, 54, 96, 27, 0, 0, True),
                   (512, 256, 96, 56, 8, 8, True), (520, 300, 2, 40, 8, 9, False),
                   (700, 300, 699, 299, 4, 6, False), (96, 54, 96, 40, 7, 5, False),
-                  (800, 300, 300, 250, 6, 4, False)]
+                  (800, 300, 300, 250, 6, 4, False), (150, 100, 300, 200, 1, 2, True),
+                  (96, 54, 96, 40, 0, 4, True)]
 # more than 65535 output rows in the batch: (plan, batch)
 WIDE_TALL = ((8, 30000, 8, 30000, 4, 4, False), 3)
 
@@ -703,8 +729,8 @@ WIDE_ROWS = [
     ("conv u-7", (3840, 2160, 3839, 2159, 4, 7, False), 64),
     ("5b 256 u", (512, 512, 256, 256, 4, 4, False), 192),
     # the linear-light sweep's heaviest classes (frames-2160p-srgb, 32 frames
-    # a request as in sweep2160-srgb-b32), LOOP in P8-linear: 2x and 0.597x
-    # (0h), 0.497x (the widest 1h ladder)
+    # a request as in sweep2160-srgb-b32) in P8-linear: 2x and 0.597x (0h,
+    # ROLL; timed in LOOP too), 0.497x (the widest 1h ladder, LOOP)
     ("srgb up-2.0", (3840, 2160, 7680, 4320, 0, 0, True), 32),
     ("srgb down-0.6", (3840, 2160, 2292, 1289, 0, 0, True), 32),
     ("srgb 1h-0.5", (3840, 2160, 1910, 1074, 0, 0, True), 32),

@@ -91,29 +91,40 @@
 //     leaves the rest of the SM to L1.  A 0h V axis stays on LOOP, upscales
 //     included: there the two barriers per row group cost more than the
 //     shared H values save.
-//   ROLL (internal PREMUL16 at compressed gamma -- unassociated 4-byte
-//     pixels in and out -- with a 0-halving bilinear V axis beside a
-//     BILINEAR, COPY or ONE X axis: upstream's format-conversion pairs
+//   ROLL (4-byte pixels in and out, with a 0-halving bilinear V axis beside
+//     a BILINEAR, COPY or ONE X axis, at internal PREMUL16 compressed --
+//     unassociated pixels in and out: upstream's format-conversion pairs
 //     between unassociated types, the farm's 2:1 level of unassociated
-//     images), bilinear.cu's direct_roll at 128bpp.  The V window only
-//     slides down, by 0 or 1 tap rows per output row on an upscale and by 1
-//     or 2 on a downscale (0h stops at 0.5x).  A lane owns 4 consecutive
-//     output columns (their X samples loaded once, into registers, as
-//     offset << 9 | F) and walks a strip of strip_rows output rows
-//     (ops/bilinear.roll_shape) top to bottom, holding the H values of tap
-//     rows ofs_y[i] and ofs_y[i] + 1 of its 4 columns, 4 channels each, in
-//     registers: on a step of one row it H-filters the new bottom row alone,
-//     on a step of two both rows.  Each output row is then one V lerp per
-//     channel, the pack, and one aligned 16-byte store of 4 pixels, the
+//     images -- or at P8-linear -- sRGB linear light with a premultiplied
+//     side: the linear sweep's 0h upscales and downscales, a video field
+//     halved in linear light), bilinear.cu's direct_roll at 128bpp.  The V
+//     window only slides down, by 0 or 1 tap rows per output row on an
+//     upscale and by 1 or 2 on a downscale (0h stops at 0.5x).  A lane owns
+//     4 consecutive output columns (their X samples loaded once, into
+//     registers, as offset << 9 | F) and walks a strip of strip_rows output
+//     rows (ops/bilinear.roll_shape) top to bottom, holding the H values of
+//     tap rows ofs_y[i] and ofs_y[i] + 1 of its 4 columns, 4 channels each,
+//     in registers: on a step of one row it H-filters the new bottom row
+//     alone, on a step of two both rows.  Each output row is then one V lerp
+//     per channel, the pack, and one aligned 16-byte store of 4 pixels, the
 //     lanes passing their pixels on with one shuffle as each row's alignment
-//     asks; no shared memory, no barrier.  A pixel is rotated as it loads so
-//     that alpha is its byte 3, and neither the unpack nor the pack picks
-//     alpha per channel.  LOOP H-filtered both tap rows again for every
-//     output pixel -- on a downscale by a pixel every input row twice, each
-//     time with the X table loaded before the pixels, the unpack and a
-//     4-byte store.  Measured and dropped (PERF.md §6): a column's left
-//     pixel taken from the column before, INV_DIV_P16 in shared memory or
-//     computed by a reciprocal, and 4 blocks per SM (a spill).
+//     asks; no barrier but the one after P8-linear copies its unpack and
+//     pack tables into shared memory (TO_SRGB as 2 KB of bytes; its pack
+//     gathered them from global memory 11% slower on srgb up-2.0, PERF.md
+//     §6).  A pixel is rotated as it loads so that alpha is its byte 3, and
+//     neither the unpack nor the pack picks alpha per channel.  LOOP
+//     H-filtered both tap rows again for every output pixel -- on a
+//     downscale by a pixel every input row twice, each time with the X table
+//     loaded before the pixels, the unpack and a 4-byte store; in linear
+//     light each unpack is three FROM_SRGB lookups and, for premultiplied
+//     input, an INV_DIV_P8 one, so a 2x upscale unpacked each input pixel
+//     about 16 times, ROLL about 4 (one per output pixel).
+//     Measured and dropped (PERF.md §6): a column's left pixel taken from
+//     the column before, INV_DIV_P16 in shared memory or computed by a
+//     reciprocal, and 4 blocks per SM (a spill) at PREMUL16; at P8-linear
+//     the held H values as two 16-bit channels a word (slower at 3 blocks
+//     per SM and at 4), and the unpack tables copied 16 or 32 times across
+//     the banks (slower).
 //
 // What bounds it (PERF.md §6).  Not bytes: the latency of each bilinear
 // sample's table load before its pixel loads (rows 6, 7); linear light's
@@ -150,8 +161,16 @@
 //   ROLL lerps as (p*F + q*(256 - F)) >> 8 in unsigned 32 bits: that is
 //   floor(((p - q)*F + 256*q) / 256), the lerp above, for every F in
 //   [0, 256], and p*F + q*(256 - F) <= 2^8 * max(p, q) < 2^32 for working
-//   values below 2^24; the result lies between p and q, so the mask changes
-//   nothing (tests/test_torch_bilinear128.py holds the identity);
+//   values below 2^24 -- at P8-linear, colours of at most 2040 and alpha of
+//   at most 255, it is below 2^19; the result lies between p and q, so the
+//   mask changes nothing (tests/test_torch_bilinear128.py holds the
+//   identity, for every pair of P8-linear values too);
+//   ROLL's P8-linear unpack (unpack8l) multiplies a byte by INV_DIV_P8
+//   (below 2^29) and FROM_SRGB + 1 by 8a + 1 (below 2^23), and gives
+//   colours of at most 2040; a lerp and a halving mean lie within their
+//   values, so ROLL's pack reads colours of at most 2040 and alpha of at
+//   most 255, and the colour's product with INV_DIV_P8L (at most 258779) is
+//   below 2^29 (the same test file holds these bounds);
 //   an image's and a row's base offsets are 64-bit (8 x 2048^2 x 4 bytes is
 //   128 MiB, larger inputs pass 2^31); a table index is below 65535 * 2^6 <
 //   2^22 and an offset within a row below 65535 * 4 < 2^18.
@@ -583,6 +602,78 @@ __device__ __forceinline__ uint32_t pack16(const uint32_t o[4], const int32_t* i
   return __byte_perm(w, 0, perm);
 }
 
+// The P8-linear work channels of a pixel word whose alpha is byte 3:
+// pixels.cuh's unpack at kP8Linear with alpha's INV_DIV_P8 entry loaded
+// once (that unpack, called here, was 9-21% slower on the srgb rows,
+// PERF.md §6).  `lut` is the block's shared FROM_SRGB then INV_DIV_P8.
+__device__ __forceinline__ void unpack8l(uint32_t w, const int32_t* lut, bool premul,
+                                         uint32_t v[4]) {
+  const uint32_t a = w >> 24, a8 = (a << 3) + 1;
+  const uint32_t inv = premul ? static_cast<uint32_t>(lut[256 + a]) : 0u;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    uint32_t u = (w >> (8 * c)) & 0xff;
+    if (premul) u = ((u * inv) >> 13) & 0xff;
+    v[c] = (((static_cast<uint32_t>(lut[u]) + 1) * a8 - 1) >> 11) & 0x7ff;
+  }
+  v[3] = a;
+}
+
+// ROLL's unpack and pack at the plan's mode, alpha in channel 3: PREMUL16
+// at compressed gamma (unpack16, pack16), or P8-linear (unpack8l, and the
+// pack below), which first copies its tables into the block's shared
+// memory.
+template <int MODE>
+struct RollFmt {
+  const int32_t* inv_p16;
+
+  __device__ __forceinline__ RollFmt(const Bilinear128Params&, const int32_t* __restrict__ luts)
+      : inv_p16(luts + kInvDivP16) {}
+  __device__ __forceinline__ void unpack(uint32_t w, uint32_t v[4]) const { unpack16(w, v); }
+  __device__ __forceinline__ uint32_t pack(const uint32_t o[4], unsigned perm) const {
+    return pack16(o, inv_p16, perm);
+  }
+};
+
+template <>
+struct RollFmt<kP8Linear> {
+  const int32_t* lut;  // shared: FROM_SRGB, INV_DIV_P8, INV_DIV_P8L
+  const uint8_t* to;   // shared: TO_SRGB as bytes
+  bool premul_in, premul_out;
+
+  __device__ __forceinline__ RollFmt(const Bilinear128Params& p, const int32_t* __restrict__ luts)
+      : premul_in(p.unassoc_in == 0), premul_out(p.unassoc_out == 0) {
+    __shared__ int32_t s_lut[768];
+    __shared__ uint8_t s_to[2048];
+    for (int k = threadIdx.x; k < 256; k += blockDim.x)
+      s_lut[512 + k] = __ldg(luts + kInvDivP8L + k);
+    for (int k = threadIdx.x; k < 2048; k += blockDim.x)
+      s_to[k] = static_cast<uint8_t>(__ldg(luts + kToSrgb + k));
+    load_unpack_luts(luts, s_lut);  // and the barrier
+    lut = s_lut;
+    to = s_to;
+  }
+  __device__ __forceinline__ void unpack(uint32_t w, uint32_t v[4]) const {
+    unpack8l(w, lut, premul_in, v);
+  }
+  // pack_word at kP8Linear for 4-byte pixels: colour (v * INV_DIV_P8L[a])
+  // >> 10 through TO_SRGB, premultiplied to 8 bits where the output is
+  // premultiplied; then the swizzle.  A colour value is at most 2040 and
+  // inv at most 258779, so the product fits 32 bits.
+  __device__ __forceinline__ uint32_t pack(const uint32_t o[4], unsigned perm) const {
+    const uint32_t a = o[3];
+    const uint32_t inv = static_cast<uint32_t>(lut[512 + a]);
+    uint32_t w = a << 24;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      uint32_t r = to[((o[c] * inv) >> 10) & 0x7ff];
+      if (premul_out) r = (((r + 1) * (a + 1) - 1) >> 8) & 0xff;
+      w |= r << (8 * c);
+    }
+    return __byte_perm(w, 0, perm);
+  }
+};
+
 // ROLL's X filter of one output column, its table entries in registers:
 // kCopy reads column x (0 for ONE); kBilinear and kLadder keep sample k as
 // offset << 9 | F (offsets below 2^16, F at most 256), and kLadder sums the
@@ -617,12 +708,13 @@ __device__ __forceinline__ uint32_t roll_pixel(const uint8_t* row, int i, unsign
 // The H values of a lane's 4 columns in `row`.  Neighbouring columns that
 // share a pixel load it again: taking it from the column before, a branch
 // per column, orders the loads and was slower (PERF.md §6).
-template <int KX, int PX>
-__device__ __forceinline__ void roll_h(const RollCol<KX, PX> (&col)[4], const uint8_t* row,
-                                       unsigned rot, int n, uint32_t (&v)[4][4]) {
+template <int KX, int PX, int MODE>
+__device__ __forceinline__ void roll_h(const RollCol<KX, PX> (&col)[4], const RollFmt<MODE>& fmt,
+                                       const uint8_t* row, unsigned rot, int n,
+                                       uint32_t (&v)[4][4]) {
   if constexpr (KX == kCopy) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) unpack16(roll_pixel<PX>(row, col[k].x, rot), v[k]);
+    for (int k = 0; k < 4; ++k) fmt.unpack(roll_pixel<PX>(row, col[k].x, rot), v[k]);
   } else {
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -633,8 +725,8 @@ __device__ __forceinline__ void roll_h(const RollCol<KX, PX> (&col)[4], const ui
           const int o = static_cast<int>(col[k].s[m] >> 9);
           const uint32_t fx = col[k].s[m] & 511u, gx = 256 - fx;
           uint32_t a[4], b[4];
-          unpack16(roll_pixel<PX>(row, o, rot), a);
-          unpack16(roll_pixel<PX>(row, o + 1, rot), b);
+          fmt.unpack(roll_pixel<PX>(row, o, rot), a);
+          fmt.unpack(roll_pixel<PX>(row, o + 1, rot), b);
 #pragma unroll
           for (int c = 0; c < 4; ++c) sum[c] += mix(a[c], b[c], fx, gx);
         }
@@ -645,14 +737,14 @@ __device__ __forceinline__ void roll_h(const RollCol<KX, PX> (&col)[4], const ui
   }
 }
 
-template <int KX, int PX>
+template <int KX, int MODE, int PX>
 __device__ __forceinline__ void direct_roll(const uint8_t* __restrict__ in,
                                             uint8_t* __restrict__ out,
                                             const int32_t* __restrict__ luts,
                                             const int32_t* __restrict__ tab_x,
                                             const int32_t* __restrict__ tab_y,
                                             const Bilinear128Params& p) {
-  const int32_t* inv_p16 = luts + kInvDivP16;
+  const RollFmt<MODE> fmt(p, luts);
   // lanes: threads of a tile row, 4 columns each; a row of lanes walks one
   // strip, and shuffles within its lanes only
   const int lanes = static_cast<int>(p.tile_w) >> 2;
@@ -700,9 +792,9 @@ __device__ __forceinline__ void direct_roll(const uint8_t* __restrict__ in,
 #pragma unroll
               for (int c = 0; c < 4; ++c) top[k][c] = bot[k][c];
           } else {
-            roll_h(col, img + static_cast<int64_t>(oy) * row_bytes, rot, n_x, top);
+            roll_h(col, fmt, img + static_cast<int64_t>(oy) * row_bytes, rot, n_x, top);
           }
-          roll_h(col, img + static_cast<int64_t>(oy + 1) * row_bytes, rot, n_x, bot);
+          roll_h(col, fmt, img + static_cast<int64_t>(oy + 1) * row_bytes, rot, n_x, bot);
           held = oy;
         }
         const uint32_t fy = __ldg(fy_tab + i), gy = 256 - fy;
@@ -712,7 +804,7 @@ __device__ __forceinline__ void direct_roll(const uint8_t* __restrict__ in,
           uint32_t v[4];
 #pragma unroll
           for (int c = 0; c < 4; ++c) v[c] = mix(top[k][c], bot[k][c], fy, gy);
-          o[k] = pack16(v, inv_p16, perm);
+          o[k] = fmt.pack(v, perm);
           pv[k] = __shfl_up_sync(mask, o[k], 1, lanes);
         }
         // The row's 16-byte aligned words of 4 pixels start `a` columns
@@ -763,27 +855,34 @@ bilinear128_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
     direct_tile<KX, MODE>(in, out, luts, fold, tab_x, tab_y, windows, p);
 }
 
-// ROLL's six instances (X kinds kCopy, kBilinear and kLadder, 4-byte pixels
-// as words or as bytes), with launch bounds of their own: ROLL keeps no
-// shared memory, so its registers alone set how many threads an SM holds,
-// and BLOCKS blocks per SM cap them at 65536 / (256 BLOCKS), as far as they
-// go without a spill (4 blocks spill).
-#define ROLL_INSTANCE(KX, PX, BLOCKS)                                                        \
+// ROLL's instances (X kinds kCopy, kBilinear and kLadder, 4-byte pixels as
+// words or as bytes, at PREMUL16 compressed or P8-linear), with launch
+// bounds of their own: ROLL keeps no shared memory but P8-linear's 5 KB of
+// tables, so its registers alone set how many threads an SM holds, and
+// BLOCKS blocks per SM cap them at 65536 / (256 BLOCKS), as far as they go
+// without a spill (4 blocks spill at PREMUL16).
+#define ROLL_INSTANCE(KX, MODE, PX, BLOCKS)                                                  \
   template <>                                                                              \
   __global__ void __launch_bounds__(kThreads, BLOCKS)                                      \
-  bilinear128_kernel<KX, kBilinear, kP16Compressed, PX, kRoll>(                            \
+  bilinear128_kernel<KX, kBilinear, MODE, PX, kRoll>(                                      \
       const uint8_t* __restrict__ in, uint8_t* __restrict__ out,                           \
       const int32_t* __restrict__ luts, const int32_t* __restrict__,                       \
       const int32_t* __restrict__ tab_x, const int32_t* __restrict__ tab_y,                \
       const int32_t* __restrict__, const Bilinear128Params p) {                            \
-    direct_roll<KX, PX>(in, out, luts, tab_x, tab_y, p);                                   \
+    direct_roll<KX, MODE, PX>(in, out, luts, tab_x, tab_y, p);                             \
   }
-ROLL_INSTANCE(kCopy, kWord, 3)
-ROLL_INSTANCE(kCopy, kBytes, 3)
-ROLL_INSTANCE(kBilinear, kWord, 3)
-ROLL_INSTANCE(kBilinear, kBytes, 3)
-ROLL_INSTANCE(kLadder, kWord, 2)
-ROLL_INSTANCE(kLadder, kBytes, 2)
+ROLL_INSTANCE(kCopy, kP16Compressed, kWord, 3)
+ROLL_INSTANCE(kCopy, kP16Compressed, kBytes, 3)
+ROLL_INSTANCE(kBilinear, kP16Compressed, kWord, 3)
+ROLL_INSTANCE(kBilinear, kP16Compressed, kBytes, 3)
+ROLL_INSTANCE(kLadder, kP16Compressed, kWord, 2)
+ROLL_INSTANCE(kLadder, kP16Compressed, kBytes, 2)
+ROLL_INSTANCE(kCopy, kP8Linear, kWord, 3)
+ROLL_INSTANCE(kCopy, kP8Linear, kBytes, 3)
+ROLL_INSTANCE(kBilinear, kP8Linear, kWord, 3)
+ROLL_INSTANCE(kBilinear, kP8Linear, kBytes, 3)
+ROLL_INSTANCE(kLadder, kP8Linear, kWord, 2)
+ROLL_INSTANCE(kLadder, kP8Linear, kBytes, 2)
 #undef ROLL_INSTANCE
 
 typedef void (*Launcher)(const uint8_t*, uint8_t*, const int32_t*, const int32_t*,
@@ -841,16 +940,26 @@ Launcher pick(int64_t ky, int64_t mode, int px, int64_t form) {
   return nullptr;
 }
 
-// ROLL: a BILINEAR V axis (of no halvings, at PREMUL16 compressed, 4-byte
-// pixels: checked by the caller) beside a COPY, ONE or BILINEAR X axis
-template <int PX>
+// ROLL: a BILINEAR V axis (of no halvings, 4-byte pixels: checked by the
+// caller) beside a COPY, ONE or BILINEAR X axis, at PREMUL16 compressed or
+// P8-linear
+template <int MODE, int PX>
 Launcher pick_roll(int64_t kx, int64_t halvings_x) {
   switch (kx) {
     case kCopy:
-    case kOne: return &launch<kCopy, kBilinear, kP16Compressed, PX, kRoll>;
+    case kOne: return &launch<kCopy, kBilinear, MODE, PX, kRoll>;
     case kBilinear:
-      return halvings_x > 0 ? &launch<kLadder, kBilinear, kP16Compressed, PX, kRoll>
-                            : &launch<kBilinear, kBilinear, kP16Compressed, PX, kRoll>;
+      return halvings_x > 0 ? &launch<kLadder, kBilinear, MODE, PX, kRoll>
+                            : &launch<kBilinear, kBilinear, MODE, PX, kRoll>;
+  }
+  return nullptr;
+}
+
+template <int PX>
+Launcher pick_roll(int64_t mode, int64_t kx, int64_t halvings_x) {
+  switch (mode) {
+    case kP16Compressed: return pick_roll<kP16Compressed, PX>(kx, halvings_x);
+    case kP8Linear: return pick_roll<kP8Linear, PX>(kx, halvings_x);
   }
   return nullptr;
 }
@@ -881,8 +990,8 @@ Launcher pick(int64_t kx, int64_t ky, int64_t mode, int px, int64_t form) {
 // launch, or cudaErrorInvalidValue for an axis kind, mode or form outside
 // the class (H TILE: 3-byte input at PREMUL8 only; ROLL: a 0-halving
 // BILINEAR V axis beside a COPY, ONE or BILINEAR X axis of at most 2
-// halvings, at PREMUL16 compressed, 4-byte pixels in and out), or a tile
-// width, grid, h tile or strip outside the limits.
+// halvings, at PREMUL16 compressed or P8-linear, 4-byte pixels in and out),
+// or a tile width, grid, h tile or strip outside the limits.
 extern "C" int smolscale_bilinear128_scale(const uint8_t* in, uint8_t* out,
                                            const int32_t* luts, const int32_t* fold,
                                            const int32_t* tab_x, const int32_t* tab_y,
@@ -895,15 +1004,15 @@ extern "C" int smolscale_bilinear128_scale(const uint8_t* in, uint8_t* out,
       (p.form == kHTile && (p.tile_w > 32 || p.h_cells < 1 || p.h_cells > kHCells)) ||
       (p.form == kRoll &&
        (p.tile_w < 4 || p.tile_w > 128 || p.strip_rows < 1 || p.kind_y != kBilinear ||
-        p.halvings_y != 0 || p.halvings_x > 2 || p.mode != kP16Compressed || p.nb_in != 4 ||
-        p.nb_out != 4)))
+        p.halvings_y != 0 || p.halvings_x > 2 ||
+        (p.mode != kP16Compressed && p.mode != kP8Linear) || p.nb_in != 4 || p.nb_out != 4)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int px = p.nb_in == 3                                    ? kRgb
                  : (reinterpret_cast<uintptr_t>(in) & 3) == 0 ? kWord
                                                                : kBytes;
   const Launcher fn = p.form != kRoll ? pick(p.kind_x, p.kind_y, p.mode, px, p.form)
-                      : px == kWord   ? pick_roll<kWord>(p.kind_x, p.halvings_x)
-                                      : pick_roll<kBytes>(p.kind_x, p.halvings_x);
+                      : px == kWord   ? pick_roll<kWord>(p.mode, p.kind_x, p.halvings_x)
+                                      : pick_roll<kBytes>(p.mode, p.kind_x, p.halvings_x);
   if (fn == nullptr || (px == kRgb && p.kind_x == kBilinear && p.halvings_x > 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((p.w_out + p.tile_w - 1) / p.tile_w),

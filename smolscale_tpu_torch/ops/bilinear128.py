@@ -23,10 +23,10 @@ The kernel has three forms (see ``csrc/bilinear128.cu``), which
 H-filters its own tap rows from global memory); for 3-byte input, H_TILE
 (each tap row of a row group H-filtered once per tile into shared memory,
 ``bilinear.row_windows``) where each output row reads three tap rows or
-more; and ROLL (:func:`rolls`: internal PREMUL16 at compressed gamma with a
-0-halving bilinear V axis beside a bilinear, COPY or ONE X axis), where each
-thread walks a strip of output rows for 4 columns with both tap rows' H
-values in registers (``bilinear.roll_shape``).
+more; and ROLL (:func:`rolls`: 4-byte pixels at internal PREMUL16
+compressed or P8-linear with a 0-halving bilinear V axis beside a bilinear,
+COPY or ONE X axis), where each thread walks a strip of output rows for 4
+columns with both tap rows' H values in registers (``bilinear.roll_shape``).
 
 ``scale_fn`` and ``scale_rows_fn`` take ``(B, H, W, nb_in)`` or
 ``(H, W, nb_in)`` uint8 tensors.  A tensor on the CPU goes to
@@ -48,7 +48,7 @@ from ._kernel import Kernel
 from ._plan_cache import plan_cache
 from .bilinear import (_windows, axis_kind, axis_table, deep_v, filter_scale, launch_shape,
                        roll_shape, row_windows, table_len, tile_width)
-from .deep import P16_COMPRESSED, masks, mode
+from .deep import P8_LINEAR, P16_COMPRESSED, masks, mode
 
 launches = 0
 
@@ -127,11 +127,13 @@ def h_cells(plan: ScalePlan) -> int:
 
 
 def rolls(plan: ScalePlan) -> bool:
-    """ROLL's class: internal PREMUL16 at compressed gamma (unassociated
-    4-byte pixels in and out) with a 0-halving bilinear V axis, whose tap
-    rows only slide down, beside an X axis of kind BILINEAR, COPY or ONE
-    (``bilinear.rolls``)."""
-    return mode(plan) == P16_COMPRESSED and bilinear.rolls(plan)
+    """ROLL's class: ``bilinear.rolls`` (a 0-halving bilinear V axis, whose
+    tap rows only slide down, beside an X axis of kind BILINEAR, COPY or
+    ONE) with 4-byte pixels in and out, at internal PREMUL16 compressed
+    (unassociated pixels in and out) or P8-linear (sRGB linear light, a
+    premultiplied side)."""
+    return (mode(plan) in (P16_COMPRESSED, P8_LINEAR) and plan.meta_in.n_bytes == 4
+            and plan.meta_out.n_bytes == 4 and bilinear.rolls(plan))
 
 
 @plan_cache

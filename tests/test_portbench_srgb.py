@@ -64,18 +64,20 @@ def test_the_cell_is_in_the_benchmark():
 
 
 def test_the_plans_route_to_the_linear_loop_and_the_deep_box():
-    """At 3840x2160: the 189 bilinear plans (0h up and down, 1h and 2h
-    ladders) on ``bilinear128.cu``'s LOOP in P8-linear, the 11 box x box
-    plans below 0.125x on ``deep.cu`` in P8-linear; nothing on
-    ``bilinear.cu``, ``box.cu`` or ROLL."""
+    """At 3840x2160: the 189 bilinear plans on ``bilinear128.cu`` in
+    P8-linear, the 151 0h plans (up and down) in its ROLL and the 38 1h and
+    2h ladders in its LOOP; the 11 box x box plans below 0.125x on
+    ``deep.cu`` in P8-linear; nothing on ``bilinear.cu`` or ``box.cu``."""
     routes = [(stt.ScalePlan(*a), torch_ops.whole_kernel(stt.ScalePlan(*a))) for a in PLANS]
     wide = [p for p, k in routes if k is bilinear128]
     boxes = [p for p, k in routes if k is deep]
     assert (len(wide), len(boxes)) == (189, 11)
     assert not [k for _, k in routes if k in (bilinear, box)]
     assert all(deep.mode(p) == deep.P8_LINEAR for p in wide + boxes)
-    assert all(bilinear128.form(p) == bilinear128.LOOP and not bilinear128.rolls(p)
-               for p in wide)
+    rolled = [p for p in wide if bilinear128.form(p) == bilinear128.ROLL]
+    assert all(bilinear128.rolls(p) == (p.y.halvings == 0) for p in wide)
+    assert all(bilinear128.form(p) == bilinear128.LOOP for p in wide if p not in rolled)
+    assert (len(rolled), len(wide) - len(rolled)) == (151, 38)
     assert [p.width_out for p in boxes] == [a[2] for a in PLANS[:11]]
     assert {(p.x.halvings, p.y.halvings) for p in wide} == {(0, 0), (1, 1), (2, 2)}
 

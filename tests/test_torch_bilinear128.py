@@ -123,10 +123,10 @@ EDGES = [
     (520, 300, 2, 40, 8, 9, False),
     (520, 300, 2, 40, 0, 8, False),
 ]
-# ROLL's class (PREMUL16 at compressed gamma, a 0h bilinear V axis beside a
-# bilinear, COPY or ONE X axis) on its edges: a downscale by a pixel, a 0h
-# upscale, fleet-5b's 2:1 level, X COPY, ONE and 1h and 2h ladders, and
-# output widths 1-9 and 129
+# ROLL's class (4-byte pixels at PREMUL16 compressed or P8-linear, a 0h
+# bilinear V axis beside a bilinear, COPY or ONE X axis) on its edges: a
+# downscale by a pixel, a 0h upscale, fleet-5b's 2:1 level, X COPY, ONE and 1h
+# and 2h ladders, and output widths 1-9 and 129, in each mode
 ROLL_PLANS = [
     (700, 300, 699, 299, 4, 6, False),
     (300, 200, 450, 310, 5, 7, False),
@@ -145,6 +145,28 @@ ROLL_PLANS = [
     (10, 47, 8, 51, 7, 4, False),
     (11, 48, 9, 68, 4, 5, False),
     (131, 49, 129, 55, 5, 6, False),
+    # ROLL in P8-linear (sRGB linear light, 4-byte pixels with a
+    # premultiplied side) on its edges: f just above 1, exactly 2, 0.5x and
+    # a pixel less, X COPY, ONE and 1h and 2h ladders, output widths 1-9 and
+    # 129, premultiplied and unassociated on either side
+    (400, 300, 421, 316, 0, 0, True),
+    (150, 100, 300, 200, 1, 2, True),
+    (300, 200, 150, 100, 2, 3, True),
+    (700, 300, 699, 299, 3, 0, True),
+    (96, 54, 96, 40, 0, 4, True),
+    (1, 300, 5, 250, 4, 0, True),
+    (800, 300, 300, 250, 5, 1, True),
+    (1200, 90, 250, 70, 6, 2, True),
+    (3, 40, 1, 60, 7, 3, True),
+    (5, 41, 2, 39, 0, 5, True),
+    (5, 42, 3, 62, 1, 6, True),
+    (6, 43, 4, 40, 2, 7, True),
+    (7, 44, 5, 64, 3, 4, True),
+    (8, 45, 6, 47, 4, 1, True),
+    (9, 46, 7, 66, 5, 2, True),
+    (10, 47, 8, 51, 6, 3, True),
+    (11, 48, 9, 68, 7, 0, True),
+    (131, 49, 129, 55, 2, 6, True),
 ]
 ALL = list(dict.fromkeys(COMPRESSED + LINEAR + RGB24 + PLANES + [LOW_ALPHA] + ONE_OUTPUT
                          + COPY_ONE + [CONST_COPY] + EDGES + ROLL_PLANS))
@@ -166,6 +188,8 @@ ROWS = [
     ((700, 300, 699, 299, 4, 6, False), 37, 200),   # ROLL: starts and ends inside strips
     ((512, 512, 256, 256, 4, 4, False), 255, 1),    # ROLL: the last row
     ((300, 200, 450, 310, 5, 7, False), 1, 308),
+    ((400, 300, 421, 316, 0, 0, True), 37, 200),    # ROLL, P8-linear: inside strips
+    ((300, 200, 150, 100, 2, 3, True), 99, 1),      # ROLL, P8-linear: the last row
 ]
 # suite rows 6, 6b and 7 (benchmarks/suite.py:314-324) and chip_smoke.py's
 # 6b-4k and 6b-up cut to a small size
@@ -730,10 +754,13 @@ def _config_plans(config):
 
 
 # configuration -> its plans that reach bilinear128.cu, those of them in ROLL
-ROLL128_ROUTES = {"conv-2160p": (16, 16), "fleet-5b": (3, 1), "frames-2160p": (0, 0)}
+ROLL128_ROUTES = {"conv-2160p": (16, 16), "fleet-5b": (3, 1), "frames-2160p": (0, 0),
+                  "frames-2160p-srgb": (189, 151)}
+# the configurations without linear light: every plan they roll is PREMUL16
+PREMUL16_CONFIGS = ["conv-2160p", "fleet-5b", "frames-2160p"]
 
 
-@pytest.mark.parametrize("config", ROLL128_ROUTES)
+@pytest.mark.parametrize("config", PREMUL16_CONFIGS)
 def test_roll_takes_every_0h_v_premul16_plan_and_nothing_else(config):
     """Each configuration's plans that reach ``bilinear128.cu`` route to
     ROLL exactly where they are PREMUL16 at compressed gamma with a 0h
@@ -762,17 +789,70 @@ def test_roll_takes_every_0h_v_premul16_plan_and_nothing_else(config):
         assert all(bilinear128.form(p) == bilinear128.LOOP for p in on if p not in rolled)
 
 
+@pytest.mark.parametrize("config", ROLL128_ROUTES)
+def test_roll_takes_every_0h_v_plan_of_its_modes_and_nothing_else(config):
+    """Each configuration's plans that reach ``bilinear128.cu`` route to
+    ROLL exactly where they have 4-byte pixels in and out at PREMUL16
+    compressed or P8-linear with a 0h bilinear V axis beside a non-box X
+    axis.  conv-2160p: its 16 unassociated -> unassociated pairs, all of
+    them, and no other pair reaches the kernel; fleet-5b: the unassociated
+    group's 256^2 level rolls, its 128^2 and 64^2 ladders keep LOOP;
+    frames-2160p: no plan reaches the kernel; frames-2160p-srgb: its 101 0h
+    upscales and 50 0h downscales roll, its 25 1h and 13 2h ladders keep
+    LOOP."""
+    plans = _config_plans(config)
+    on = [p for p in plans if torch_ops.whole_kernel(p) is bilinear128]
+    rolled = [p for p in on if bilinear128.form(p) == bilinear128.ROLL]
+    assert (len(on), len(rolled)) == ROLL128_ROUTES[config]
+    for p in rolled:
+        assert bilinear.axis_kind(p.y) == bilinear.BILINEAR and p.y.halvings == 0, p.key
+        assert bilinear.axis_kind(p.x) != bilinear.BOX and p.x.halvings <= 2, p.key
+        assert deep.mode(p) in (deep.P16_COMPRESSED, deep.P8_LINEAR), p.key
+        assert p.meta_in.n_bytes == p.meta_out.n_bytes == 4, p.key
+    for p in on:
+        if p not in rolled:
+            assert bilinear128.ROLL not in bilinear128.forms(p) and not bilinear128.rolls(p)
+            assert bilinear128.form(p) == bilinear128.LOOP
+    if config == "conv-2160p":
+        assert {p.key[4:6] for p in on} == {(i, o) for i in range(4, 8) for o in range(4, 8)}
+    if config == "fleet-5b":
+        assert [p.key for p in rolled] == [(512, 512, 256, 256, 4, 4, False)]
+        assert {p.key[2] for p in on if p not in rolled} == {64, 128}
+    if config == "frames-2160p-srgb":
+        assert all(deep.mode(p) == deep.P8_LINEAR for p in on)
+        up = [p for p in rolled if p.height_out > p.height_in]
+        assert (len(up), len(rolled) - len(up)) == (101, 50)
+        looped = [p for p in on if p not in rolled]
+        assert sorted(p.y.halvings for p in looped) == [1] * 25 + [2] * 13
+
+
 def test_roll_plans_route_to_roll():
     """The card's ROLL checks (chip_smoke.py's) lie in ROLL's class and
-    route to it, beside LOOP."""
+    route to it, beside LOOP, in each of its modes: X COPY, ONE and
+    BILINEAR of 0, 1 and 2 halvings, and output widths 1-9 and 129 in
+    each."""
     for key in ROLL_PLANS:
         plan = ScalePlan(*key)
         assert bilinear128.forms(plan) == [bilinear128.LOOP, bilinear128.ROLL], key
         assert bilinear128.form(plan) == bilinear128.ROLL, key
-    kinds = {(bilinear.axis_kind(ScalePlan(*k).x), ScalePlan(*k).x.halvings) for k in ROLL_PLANS}
-    assert kinds == {(bilinear.COPY, 0), (bilinear.ONE, 0), (bilinear.BILINEAR, 0),
-                     (bilinear.BILINEAR, 1), (bilinear.BILINEAR, 2)}
-    assert {k[2] for k in ROLL_PLANS} >= set(range(1, 10)) | {129}
+    for mode in (deep.P16_COMPRESSED, deep.P8_LINEAR):
+        keys = [k for k in ROLL_PLANS if deep.mode(ScalePlan(*k)) == mode]
+        kinds = {(bilinear.axis_kind(ScalePlan(*k).x), ScalePlan(*k).x.halvings) for k in keys}
+        assert kinds == {(bilinear.COPY, 0), (bilinear.ONE, 0), (bilinear.BILINEAR, 0),
+                         (bilinear.BILINEAR, 1), (bilinear.BILINEAR, 2)}
+        assert {k[2] for k in keys} >= set(range(1, 10)) | {129}
+    # P8-linear: premultiplied in and out, and unassociated on either side
+    linear = [ScalePlan(*k) for k in ROLL_PLANS if k[6]]
+    assert {(p.meta_in.alpha, p.meta_out.alpha) for p in linear} == {
+        (AlphaType.PREMUL8, AlphaType.PREMUL8), (AlphaType.PREMUL8, AlphaType.UNASSOCIATED),
+        (AlphaType.UNASSOCIATED, AlphaType.PREMUL8)}
+    # P8-linear 0h plans outside the class keep LOOP: 3-byte pixels on either
+    # side, a box X axis
+    for key in [(96, 54, 96, 40, 8, 0, True), (96, 54, 96, 40, 0, 9, True),
+                (96, 54, 96, 40, 8, 8, True), (1100, 300, 80, 299, 0, 0, True)]:
+        plan = ScalePlan(*key)
+        assert deep.mode(plan) == deep.P8_LINEAR and not bilinear128.rolls(plan), key
+        assert bilinear128.form(plan) != bilinear128.ROLL, key
 
 
 def test_roll_lerp_is_lerp():
@@ -780,18 +860,47 @@ def test_roll_lerp_is_lerp():
     the lerp ((p - q)*F >> 8) + q (floor shift), masked to 24 bits, for every
     F in [0, 256] and working values below 2^24: every pair of PREMUL16
     values of one channel (c*a, and the alpha (a << 8) | 0x80) with its
-    partner's alpha, and pairs at the 24-bit edges."""
+    partner's alpha, every pair of P8-linear values (colours 0-2047, alpha
+    0-255), and pairs at the 24-bit edges."""
     a = np.arange(256, dtype=np.int64)
     vals = np.unique(np.concatenate([np.outer(a, a).ravel(), (a << 8) | 0x80]))
-    edge = np.array([0, 1, 2, 255, 256, 65407, 65408, 65535, 2**23, 2**24 - 2, 2**24 - 1])
+    edge = np.array([0, 1, 2, 255, 256, 2040, 2047, 65407, 65408, 65535, 2**23, 2**24 - 2,
+                     2**24 - 1])
     rng = np.random.default_rng(25)
-    p = np.concatenate([rng.choice(vals, 200_000), np.repeat(edge, len(edge))])
-    q = np.concatenate([rng.choice(vals, 200_000), np.tile(edge, len(edge))])
+    c = np.arange(2048, dtype=np.int64)
+    p = np.concatenate([rng.choice(vals, 200_000), np.repeat(edge, len(edge)),
+                        np.repeat(c, 2048), np.repeat(a, 256)])
+    q = np.concatenate([rng.choice(vals, 200_000), np.tile(edge, len(edge)),
+                        np.tile(c, 2048), np.tile(a, 256)])
     for f in range(257):
         want = ((((p - q) * f) >> 8) + q) & 0xFFFFFF
         total = p * f + q * (256 - f)
         assert total.max() < 2**32
         assert np.array_equal(total >> 8, want), f
+
+
+def test_roll_linear_unpack_and_pack_stay_in_32_bits():
+    """ROLL's P8-linear unpack (csrc/bilinear128.cu unpack8l, written out
+    here) equals ``pixels.unpack`` for every colour byte and alpha, of
+    premultiplied and of unassociated input, and gives colours of at most
+    2040 and the alpha byte; its unpremultiply's product stays below 2^29.
+    A lerp or a halving mean lies between its values, so every value ROLL's
+    pack reads is at most 2040 (alpha 255), and the pack's colour times
+    INV_DIV_P8L stays below 2^29 (csrc/bilinear128.cu's arithmetic note)."""
+    u, al = (v.ravel() for v in np.meshgrid(np.arange(256, dtype=np.int64),
+                                            np.arange(256, dtype=np.int64)))
+    from_srgb, inv8 = luts.FROM_SRGB.astype(np.int64), luts.INV_DIV_P8.astype(np.int64)
+    assert (u * inv8[al]).max() < 2**29
+    for premul in (True, False):
+        byte = ((u * inv8[al]) >> 13) & 0xFF if premul else u
+        got = (((from_srgb[byte] + 1) * ((al << 3) + 1) - 1) >> 11) & 0x7FF
+        assert got.max() == 2040
+        plan = ScalePlan(8, 8, 16, 16, 0 if premul else 4, 0, True)
+        assert deep.mode(plan) == deep.P8_LINEAR
+        px = torch.from_numpy(np.stack([u, u, u, al], -1).astype(np.uint8)[None])
+        want = pixels.unpack(plan, px)[0].numpy()
+        assert np.array_equal(want[:, 0], got) and np.array_equal(want[:, 3], al)
+    assert 2040 * int(luts.INV_DIV_P8L.max()) < 2**29
 
 
 _V_PLANS = sorted({k for k in ALL + SUITE if k[4] >= 8} | {k for k, _ in RGB24_ROWS}

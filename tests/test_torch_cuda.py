@@ -23,7 +23,7 @@ from portbench.reference.plan import ScalePlan as BenchPlan
 from smolscale_tpu.backends import numpy_ref
 from smolscale_tpu.plan import ScalePlan as RefPlan
 from smolscale_tpu_torch import fuzz
-from smolscale_tpu_torch.ops import _build, bilinear, bilinear128, box, deep, pyramid
+from smolscale_tpu_torch.ops import _build, bilinear, bilinear128, box, deep, pixels, pyramid
 from smolscale_tpu_torch.utils import timing
 
 PLANS = [
@@ -580,8 +580,8 @@ def test_bilinear128_constant_255_3_byte(cuda_device, key):
 
 
 # frames-2160p-srgb (the sweep2160-srgb-b32 cell) at its published widths:
-# 2.0x (0h up), 0.597x (0h down) and a 2h ladder on the 128bpp kernel's LOOP,
-# 0.06x (box x box) on the deep box kernel, all in P8-linear
+# 2.0x (0h up) and 0.597x (0h down) on the 128bpp kernel's ROLL, a 2h ladder
+# on its LOOP, 0.06x (box x box) on the deep box kernel, all in P8-linear
 SRGB_SWEEP = [((3840, 2160, 7680, 4320, 0, 0, True), "bilinear128"),
               ((3840, 2160, 2292, 1289, 0, 0, True), "bilinear128"),
               ((3840, 2160, 496, 279, 0, 0, True), "bilinear128"),
@@ -594,7 +594,8 @@ SRGB_SWEEP = [((3840, 2160, 7680, 4320, 0, 0, True), "bilinear128"),
 def test_srgb_sweep_matches_benchmark_reference(cuda_device, key, kernel):
     """A batch of 2 through ``scale``, byte for byte against the
     benchmark's plain reference; one launch on the routed wrapper, in
-    P8-linear (LOOP on the 128bpp kernel), and none on another."""
+    P8-linear (on the 128bpp kernel: ROLL for the 0h plans, LOOP for the
+    ladder), and none on another."""
     mods = {"bilinear": bilinear, "box": box, "deep": deep, "bilinear128": bilinear128}
     plan = stt.ScalePlan(*key)
     assert deep.mode(plan) == deep.P8_LINEAR
@@ -607,10 +608,43 @@ def test_srgb_sweep_matches_benchmark_reference(cuda_device, key, kernel):
     torch.cuda.synchronize()
     assert {k: m.launches - launches[k] for k, m in mods.items()} == {
         k: int(k == kernel) for k in mods}
+    routed = bilinear128.form(plan) if kernel == "bilinear128" else None
+    assert routed == {7680: bilinear128.ROLL, 2292: bilinear128.ROLL,
+                      496: bilinear128.LOOP}.get(key[2])
     assert {f: n - forms[f] for f, n in bilinear128.form_launches.items()} == {
-        f: int(kernel == "bilinear128" and f == bilinear128.LOOP) for f in bilinear128.FORMS}
+        f: int(f == routed) for f in bilinear128.FORMS}
     for b in range(2):
         assert torch.equal(got[b], bench_reference.scale(BenchPlan(*key), x[b]))
+
+
+# every 4-byte pixel-type pair that plans at P8-linear (a premultiplied side)
+ROLL_LINEAR_PAIRS = [(i, o) for i in range(8) for o in range(8) if i < 4 or o < 4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", ROLL_LINEAR_PAIRS, ids=_id)
+def test_roll_linear_matches_plain_and_loop(cuda_device, pair):
+    """ROLL in P8-linear on a 0h upscale and a 0h downscale of each pair,
+    pixels of alpha 0, 1 and 255 among random ones: byte for byte the plain
+    version and LOOP, whole and on a row range that starts and ends inside
+    strips; one ROLL launch a call."""
+    for key in ((150, 100, 301, 211, *pair, True), (300, 200, 151, 100, *pair, True)):
+        plan = stt.ScalePlan(*key)
+        assert deep.mode(plan) == deep.P8_LINEAR and bilinear128.form(plan) == bilinear128.ROLL
+        gen = torch.Generator().manual_seed(sum(key[:6]))
+        x = torch.randint(0, 256, (2, key[1], key[0], 4), dtype=torch.uint8, generator=gen)
+        pick = torch.randint(0, 4, x.shape[:3], generator=gen)
+        a_ch = pixels.alpha_channel(plan)
+        x[..., a_ch] = torch.where(pick == 3, x[..., a_ch],
+                                   torch.tensor([0, 1, 255], dtype=torch.uint8)[pick % 3])
+        x = x.to(cuda_device)
+        want = bilinear128.bilinear128_scale_ref(plan, x)
+        before = bilinear128.form_launches[bilinear128.ROLL]
+        got = bilinear128.scale_fn(plan, x)
+        assert bilinear128.form_launches[bilinear128.ROLL] == before + 1
+        assert torch.equal(got, want), key
+        assert torch.equal(bilinear128.scale_fn(plan, x, bilinear128.LOOP), want), key
+        assert torch.equal(bilinear128.scale_rows_fn(plan, x, 37, 50), want[:, 37:87]), key
 
 
 @pytest.mark.cuda
